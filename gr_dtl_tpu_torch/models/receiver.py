@@ -1,13 +1,15 @@
 """OFDM receiver chain: baseband samples -> payload bytes + telemetry (port
-of gr_dtl_tpu/models/receiver.py, uncoded branch).
+of gr_dtl_tpu/models/receiver.py).
 
 - :func:`detect_and_extract`: the Schmidl-Cox timing metric of the whole
   stream (the CUDA kernel on a GPU), fold vote, trigger refinement, fine
   CFO, frame extraction, CFO de-rotation;
 - :func:`rx_frames`: DFT, integer carrier offset, LS taps, then
   ``eq_passes`` passes of (BPSK header equalize + CRC16 parse, payload
-  equalize) with data-aided re-estimation between passes, hard demap,
-  repack, CRC32.
+  equalize) with data-aided re-estimation between passes, then either
+  hard demap, repack, CRC32 (uncoded) or, with ``cfg.fec``, soft LLRs
+  serialised into the frame bit stream and the LDPC transport-block
+  decode of ``models/fec_chain``.
 
 ``rx_frames`` runs as three stages, :func:`demodulate`,
 :func:`equalize_passes` and :func:`demap_and_verify`, which a profiler
@@ -20,21 +22,21 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
-from gr_dtl_tpu_torch.models import framing
+from gr_dtl_tpu_torch.models import fec_chain, framing
 from gr_dtl_tpu_torch.ops import chanest, constellation as cn
 from gr_dtl_tpu_torch.ops import equalizer, gf2, header, ofdm, repack, scramble, sync
 from gr_dtl_tpu_torch.utils import config as cfgmod
 
 __all__ = ["RxOut", "RxParams", "build_rx", "rx_params_from_reference",
            "detect_and_extract", "rx_frames", "demodulate", "equalize_passes",
-           "demap_and_verify"]
-
-_FEC_TODO = "the coded (LDPC) path is not ported yet: ROADMAP.md, slice B, item B3"
+           "frame_llrs", "demap_and_verify"]
 
 
 class RxOut(NamedTuple):
-    payload: torch.Tensor  # [B, max_frame_bytes] uint8, zeroed beyond payload_len
+    payload: torch.Tensor  # [B, max_frame_bytes] uint8 ([B, max_payload_bytes] with
+    # FEC), zeroed beyond payload_len
     payload_len: torch.Tensor  # [B] int32
     crc_ok: torch.Tensor  # [B] bool payload CRC32
     header_ok: torch.Tensor  # [B] bool header CRC16
@@ -60,32 +62,34 @@ class RxParams:
     eq: equalizer.Equalizer
     eq2: equalizer.Equalizer  # refinement passes: taps start near-true, track slowly
     crc_tables: gf2.CrcTables
+    fec: fec_chain.FecParams | None  # the LDPC transport-block path (cfg.fec)
 
 
-def build_rx(cfg, device) -> RxParams:
-    """All RX constants for an uncoded config, on ``device``."""
-    if cfg.fec:
-        raise NotImplementedError(_FEC_TODO)
+def build_rx(cfg, device, fec: fec_chain.FecParams | None = None) -> RxParams:
+    """All RX constants for a config, on ``device``.  A config with
+    ``cfg.fec`` needs ``fec`` (:func:`fec_chain.build_fec`)."""
+    if cfg.fec and fec is None:
+        raise ValueError("cfg.fec=True requires a fec table (fec_chain.build_fec)")
     eq = equalizer.build_equalizer(cfg, device)
     return RxParams(
         cfg=cfg, alloc=ofdm.build_allocator(cfg, device),
         ce=chanest.build_chanest(cfg, device), eq=eq,
         eq2=dataclasses.replace(eq, alpha=float(getattr(cfg, "eq_pass2_alpha", 0.95))),
-        crc_tables=gf2.crc_tables(gf2.CRC32_FRAME, cfg.max_frame_bytes(), torch.device(device)))
+        crc_tables=gf2.crc_tables(gf2.CRC32_FRAME, cfg.max_frame_bytes(), torch.device(device)),
+        fec=fec)
 
 
 def rx_params_from_reference(d, device) -> RxParams:
     """:class:`RxParams` on ``device`` from the reference's ``build_rx``
     dict with its leaves as numpy arrays."""
-    if d["has_fec"]:
-        raise NotImplementedError(_FEC_TODO)
     return RxParams(
         cfg=cfgmod.config_from_reference(d["cfg"]),
         alloc=ofdm.allocator_from_reference(d["alloc"], device),
         ce=chanest.chanest_from_reference(d["ce"], device),
         eq=equalizer.equalizer_from_reference(d["eq"], device),
         eq2=equalizer.equalizer_from_reference(d["eq2"], device),
-        crc_tables=gf2.crc_tables_from_reference(d["crc_tables"], device))
+        crc_tables=gf2.crc_tables_from_reference(d["crc_tables"], device),
+        fec=None if d["fec"] is None else fec_chain.fec_from_reference(d["fec"], device))
 
 
 def detect_and_extract(stream: torch.Tensor, cfg, n_frames: int):
@@ -148,7 +152,7 @@ def equalize_passes(rxp: RxParams, spectra: torch.Tensor, taps: torch.Tensor,
         hdr_eq = equalizer.equalize_frame(hdr_spec, taps, bpsk, eq_tab, sym_offset=0)
         hdr_bits = cn.hard_decision(hdr_eq.soft[:, :, occ], bpsk[:, None, None])
         fields, header_ok = header.parse_header(
-            hdr_bits.reshape(B, hs * cfg.n_data_carriers), False)
+            hdr_bits.reshape(B, hs * cfg.n_data_carriers), cfg.fec)
         # constellation gate: update only on CRC ok and a valid id
         valid_id = (fields.cnst_id >= 1) & (fields.cnst_id <= 4)
         cnst = torch.where(header_ok & valid_id, fields.cnst_id, fallback_cnst.int())
@@ -178,33 +182,75 @@ def equalize_passes(rxp: RxParams, spectra: torch.Tensor, taps: torch.Tensor,
     return pay_eq, fields, header_ok, cnst
 
 
+def frame_llrs(rxp: RxParams, soft: torch.Tensor, cnst: torch.Tensor,
+               noise_var: torch.Tensor) -> torch.Tensor:
+    """FEC stage 3a: max-log LLRs of the [B, S] payload symbols, serialised
+    into the frame bit stream [B, max_frame_bits] (symbol s holds bits
+    s*bps .. s*bps+bps-1; zeros beyond S*bps).  Four static-k reshapes and
+    a per-frame select."""
+    B, S = soft.shape
+    llr_bits = cn.soft_llrs(soft, cnst[:, None], noise_var[:, None])  # [B, S, 4]
+    bps = cn.tables(soft.device)[1][cnst.long()]
+    maxF = rxp.fec.max_frame_bits
+    llrs = torch.zeros((B, maxF), dtype=torch.float32, device=soft.device)
+    for k in (1, 2, 3, 4):
+        flat = llr_bits[:, :, :k].reshape(B, S * k)
+        flat = flat[:, :maxF] if S * k >= maxF else F.pad(flat, (0, maxF - S * k))
+        llrs = torch.where((bps == k)[:, None], flat, llrs)
+    return llrs
+
+
 def demap_and_verify(rxp: RxParams, pay_eq: equalizer.EqualizerOut,
                      fields: header.HeaderFields, header_ok: torch.Tensor,
-                     cnst: torch.Tensor, carr_off: torch.Tensor) -> RxOut:
-    """Stage 3: hard demap, repack, (descramble,) CRC32 verify."""
+                     cnst: torch.Tensor, carr_off: torch.Tensor, defer_fec: bool = False):
+    """Stage 3: uncoded, hard demap, repack, (descramble,) CRC32 verify;
+    with ``cfg.fec``, soft LLRs and the transport-block decode, with the
+    TB payload length from the header (gated on its CRC) and, for a code
+    bank, the code from its fec_scheme field.  ``defer_fec`` (FEC only)
+    skips the decode and returns ``(RxOut, fec_in)``, as :func:`rx_frames`."""
     cfg = rxp.cfg
     B = cnst.shape[0]
     dev = cnst.device
     soft = pay_eq.soft[:, :, rxp.alloc.occ_idx].reshape(B, cfg.frame_capacity_symbols)
     _, bps_table, _ = cn.tables(dev)
     bps = bps_table[cnst.long()]
-    dec = cn.hard_decision(soft, cnst[:, None])
-    frame_bytes = repack.symbols_to_bytes(dec, bps, cfg.max_frame_bytes())
-    if cfg.scramble_bits:
-        frame_bytes = scramble.scramble_frames(frame_bytes)
-    payload, payload_len, crc_ok = framing.verify_frame_bytes(
-        frame_bytes, fields.payload_len, rxp.crc_tables)
-    return RxOut(
-        payload=payload, payload_len=payload_len, crc_ok=crc_ok & header_ok,
-        header_ok=header_ok, frame_no=fields.frame_no, cnst_id=cnst,
-        feedback_cnst=fields.feedback_cnst, fec_echo=fields.fec_feedback,
-        snr_db=pay_eq.snr_db, noise_var=pay_eq.noise_var, carr_offset=carr_off,
-        soft_syms=soft, fec_ok=torch.ones(B, dtype=torch.bool, device=dev),
-        avg_iters=torch.zeros(B, dtype=torch.float32, device=dev))
+    common = dict(header_ok=header_ok, frame_no=fields.frame_no, cnst_id=cnst,
+                  feedback_cnst=fields.feedback_cnst, fec_echo=fields.fec_feedback,
+                  snr_db=pay_eq.snr_db, noise_var=pay_eq.noise_var, carr_offset=carr_off,
+                  soft_syms=soft)
+    if not cfg.fec:
+        dec = cn.hard_decision(soft, cnst[:, None])
+        frame_bytes = repack.symbols_to_bytes(dec, bps, cfg.max_frame_bytes())
+        if cfg.scramble_bits:
+            frame_bytes = scramble.scramble_frames(frame_bytes)
+        payload, payload_len, crc_ok = framing.verify_frame_bytes(
+            frame_bytes, fields.payload_len, rxp.crc_tables)
+        return RxOut(payload=payload, payload_len=payload_len, crc_ok=crc_ok & header_ok,
+                     fec_ok=torch.ones(B, dtype=torch.bool, device=dev),
+                     avg_iters=torch.zeros(B, dtype=torch.float32, device=dev), **common)
+
+    fec = rxp.fec
+    llrs = frame_llrs(rxp, soft, cnst, pay_eq.noise_var)
+    P = torch.where(header_ok, fields.tb_payload, fec.tb_payload_t[1][bps])
+    fid = torch.where(header_ok & (fields.fec_scheme >= 1) & (fields.fec_scheme <= fec.n_codes),
+                      fields.fec_scheme, 1)
+    if defer_fec:
+        zeros_b = torch.zeros(B, dtype=torch.int32, device=dev)
+        no = torch.zeros(B, dtype=torch.bool, device=dev)
+        out = RxOut(payload=torch.zeros((B, fec.max_payload_bytes), dtype=torch.uint8, device=dev),
+                    payload_len=zeros_b, crc_ok=no, fec_ok=no,
+                    avg_iters=torch.zeros(B, dtype=torch.float32, device=dev), **common)
+        return out, {"llrs": llrs, "tb_no": fields.tb_no, "tb_offset": fields.tb_offset,
+                     "tb_payload": P, "fec_id": fid}
+    fec_out = fec_chain.fec_frame_decode(fec, llrs, cnst, P,
+                                         fec_id=fid if fec.n_codes > 1 else None)
+    return RxOut(payload=fec_out.payload, payload_len=fec_out.payload_len,
+                 crc_ok=fec_out.crc_ok & header_ok, fec_ok=fec_out.fec_ok,
+                 avg_iters=fec_out.avg_iters, **common)
 
 
 def rx_frames(rxp: RxParams, frames: torch.Tensor,
-              fallback_cnst: torch.Tensor | None = None) -> RxOut:
+              fallback_cnst: torch.Tensor | None = None, defer_fec: bool = False):
     """Demodulate a batch of frame-aligned sample windows.
 
     Args:
@@ -214,7 +260,14 @@ def rx_frames(rxp: RxParams, frames: torch.Tensor,
               :func:`detect_and_extract`).
       fallback_cnst: [B] constellation to assume when the header CRC
               fails; defaults to BPSK.
+      defer_fec: FEC configs only: skip the transport-block decode and
+              return ``(RxOut, fec_in)``, ``fec_in`` the per-frame decoder
+              inputs (``llrs`` [B, max_frame_bits], ``tb_no``,
+              ``tb_offset``, ``tb_payload``, ``fec_id`` [B]) for streaming
+              reassembly (:func:`fec_chain.tb_reassemble`); the RxOut's
+              payload, payload_len, crc_ok, fec_ok and avg_iters are then
+              placeholders.
     """
     spectra, carr_off, taps = demodulate(rxp, frames)
     pay_eq, fields, header_ok, cnst = equalize_passes(rxp, spectra, taps, fallback_cnst)
-    return demap_and_verify(rxp, pay_eq, fields, header_ok, cnst, carr_off)
+    return demap_and_verify(rxp, pay_eq, fields, header_ok, cnst, carr_off, defer_fec)

@@ -1,5 +1,5 @@
-"""Constellation tables, mapping and hard decision (port of
-gr_dtl_tpu/ops/constellation.py).
+"""Constellation tables, mapping, hard decision and max-log soft LLRs
+(port of gr_dtl_tpu/ops/constellation.py).
 
 Every constellation lives in one padded ``[n_types, 16]`` table, so a
 batch of frames with different per-frame constellations is mapped with
@@ -32,6 +32,8 @@ __all__ = [
     "hard_decision",
     "nearest_point",
     "nearest_point_table",
+    "soft_llrs",
+    "soft_llrs_table",
 ]
 
 
@@ -90,6 +92,10 @@ def _build_tables():
 
 
 POINTS, BITS_PER_SYMBOL, VALID_MASK = _build_tables()
+# bit k of point label p, per type: [N_TYPES, MAX_POINTS, MAX_BPS] (soft demap)
+BIT_VALUES = np.broadcast_to(
+    ((np.arange(MAX_POINTS)[None, :, None] >> np.arange(MAX_BPS)[None, None, :]) & 1
+     ).astype(np.float32), (N_TYPES, MAX_POINTS, MAX_BPS)).copy()
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,3 +201,106 @@ def nearest_point_table(y: torch.Tensor, cnst_id: torch.Tensor):
     idx = torch.argmin(d2, dim=-1)  # first minimum, as jnp.argmin
     point = torch.gather(pts[..., None, :].expand(d2.shape), -1, idx[..., None])[..., 0]
     return idx.int(), point
+
+
+def _build_psk8_masks():
+    """cos/sin of the 8 ring angles and the bit values of the symbol at
+    each ring position ([8, 3] bool)."""
+    gray3 = [0, 1, 3, 2, 6, 7, 5, 4]  # symbol at ring position p
+    ang = 2 * np.pi * np.arange(8) / 8
+    bit = np.zeros((8, 3), dtype=bool)
+    for p, s in enumerate(gray3):
+        for k in range(3):
+            bit[p, k] = (s >> k) & 1
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32), bit
+
+
+_PSK8_COS, _PSK8_SIN, _PSK8_BIT = _build_psk8_masks()
+# soft-demap constants, rounded to float32 as the reference's float32 scalars are
+_A_Q = float(np.float32(0.5 * _SQ2))  # QPSK axis amplitude (x0.5 normalized)
+_L = np.float32(1.0 / np.sqrt(10.0))  # 16QAM level
+_4L = float(np.float32(4.0) * _L)
+_8LL = float(np.float32(np.float32(8.0) * _L) * _L)
+_2L = float(np.float32(2.0) * _L)
+
+
+@functools.lru_cache(maxsize=None)
+def _soft_tables(device: torch.device):
+    """(8PSK cos [8], sin [8], bit [8, 3], BIT_VALUES) on ``device``."""
+    return (torch.as_tensor(_PSK8_COS, device=device), torch.as_tensor(_PSK8_SIN, device=device),
+            torch.as_tensor(_PSK8_BIT, device=device), torch.as_tensor(BIT_VALUES, device=device))
+
+
+def _psk8_llrs(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """[..., 4] max-log LLRs for the Gray ring (bit 3 zero-padded): on the
+    unit circle d^2 = |y|^2 + 1 - 2 proj, so subset-min distances are
+    subset-max projections onto the 8 angles."""
+    cs, sn, bit, _ = _soft_tables(re.device)
+    proj = re[..., None] * cs + im[..., None] * sn  # [..., n, 8]
+    p = proj[..., None]  # [..., n, 8, 1]
+    m0 = torch.where(bit, -math.inf, p).amax(dim=-2)  # [..., n, 3]
+    m1 = torch.where(bit, p, -math.inf).amax(dim=-2)
+    llr3 = 2.0 * (m0 - m1)
+    return torch.cat([llr3, torch.zeros_like(llr3[..., :1])], dim=-1)
+
+
+def soft_llrs(y: torch.Tensor, cnst_id: torch.Tensor, noise_var: torch.Tensor) -> torch.Tensor:
+    """Max-log LLRs per bit, LSB-first bit order, by closed-form slicers.
+
+    LLR > 0 means bit 0 more likely (log P(b=0) - log P(b=1)), the LDPC
+    decoder's input convention.  BPSK/QPSK are linear in the matched
+    axis; 16QAM (Gray per axis, levels +-L, +-3L) has the piecewise-linear
+    4-PAM forms; 8PSK takes subset-max projections (:func:`_psk8_llrs`).
+    :func:`soft_llrs_table` is the oracle.
+
+    Args:
+      y:         [..., n] complex received symbols.
+      cnst_id:   per-frame constellation id, broadcastable to the batch dims.
+      noise_var: per-frame noise variance (sigma^2), broadcastable like cnst_id.
+    Returns [..., n, MAX_BPS] float32 LLRs; bits above the frame's bps are 0.
+    """
+    cid = _expand_to(cnst_id, y.shape)
+    nv = torch.clamp(_expand_to(noise_var, y.shape), min=1e-12)
+    re = y.real.float()
+    im = y.imag.float()
+    zeros = torch.zeros_like(re)
+    bpsk = torch.stack([-4.0 * re, zeros, zeros, zeros], dim=-1)  # b0: 0 -> -1, 1 -> +1
+    qpsk = torch.stack([(-4.0 * _A_Q) * re, (-4.0 * _A_Q) * im, zeros, zeros], dim=-1)
+
+    def pam4(u):
+        """Gray 4-PAM (+-L inner, +-3L outer): (inner-bit, sign-bit) LLRs."""
+        au = u.abs()
+        inner = _4L * au - _8LL
+        sign = -(_4L * u + _4L * torch.sign(u) * torch.clamp(au - _2L, min=0.0))
+        return inner, sign
+
+    qi0, qi1 = pam4(re)
+    qq0, qq1 = pam4(im)
+    qam16 = torch.stack([qi0, qi1, qq0, qq1], dim=-1)
+    psk8 = _psk8_llrs(re, im)
+    c = cid[..., None]
+    llr = torch.where(c == 1, bpsk, torch.where(c == 2, qpsk, torch.where(c == 3, psk8, qam16)))
+    llr = llr / nv[..., None]
+    _, bps, _ = tables(y.device)
+    bit_ok = torch.arange(MAX_BPS, device=y.device) < bps[cid.long()][..., None]
+    return torch.where(bit_ok, llr, 0.0).float()
+
+
+def soft_llrs_table(y: torch.Tensor, cnst_id: torch.Tensor, noise_var: torch.Tensor) -> torch.Tensor:
+    """Table-reduction max-log LLRs over every valid point: the oracle for
+    :func:`soft_llrs`, same contract."""
+    pts_t, bps_t, valid_t = tables(y.device)
+    bitvals = _soft_tables(y.device)[3]
+    cid_b = _expand_to(cnst_id, y.shape)[..., 0].long()  # per-frame rows
+    pts = pts_t[cid_b]  # [batch..., P]
+    dr = y.real[..., None] - pts.real[..., None, :]
+    di = y.imag[..., None] - pts.imag[..., None, :]
+    d2 = torch.where(valid_t[cid_b][..., None, :], dr * dr + di * di, math.inf)  # [..., n, P]
+    nv = _expand_to(noise_var, y.shape)
+    metric = -d2 / torch.clamp(nv, min=1e-12)[..., None]  # log-likelihood per point
+    m = metric[..., :, None]  # [..., n, P, 1]
+    bvb = bitvals[cid_b][..., None, :, :]  # [batch..., 1, P, MAX_BPS]
+    ll0 = torch.where(bvb == 0, m, -math.inf).amax(dim=-2)
+    ll1 = torch.where(bvb == 1, m, -math.inf).amax(dim=-2)
+    bit_ok = torch.arange(MAX_BPS, device=y.device) < bps_t[cid_b][..., None, None]
+    return torch.where(bit_ok, ll0 - ll1, 0.0).float()

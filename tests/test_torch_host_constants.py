@@ -27,14 +27,19 @@ EXAMPLE = str(Path(__file__).resolve().parent.parent / "examples" / "config.json
 
 
 def _assert_same(a, b, path="params"):
-    """Dataclasses field by field; tensors equal in dtype, shape and bits."""
+    """Dataclasses field by field, sequences item by item; tensors and
+    numpy arrays equal in dtype, shape and bits."""
     if dataclasses.is_dataclass(a) and not isinstance(a, type):
         assert type(a) is type(b), path
         for f in dataclasses.fields(a):
             _assert_same(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
-    elif isinstance(a, torch.Tensor):
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{path}[{i}]")
+    elif isinstance(a, (torch.Tensor, np.ndarray)):
         assert a.dtype == b.dtype and a.shape == b.shape, path
-        assert torch.equal(a, b), path
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor) else np.array_equal(a, b)), path
     else:
         assert a == b, path
 
@@ -149,7 +154,9 @@ def test_tx_params_match_reference(frame_length):
 
 
 def test_fec_configs_raise():
-    with pytest.raises(NotImplementedError, match="B3"):
+    """A coded config without its fec tables is refused, as the reference
+    refuses it."""
+    with pytest.raises(ValueError, match="fec table"):
         receiver.build_rx(config.make_rx_config(None, fec=True), "cpu")
-    with pytest.raises(NotImplementedError, match="B3"):
+    with pytest.raises(ValueError, match="fec table"):
         transmitter.build_tx(config.make_tx_config(None, fec=True), "cpu")
