@@ -14,14 +14,22 @@ as tools/bench_fec.py draws them.  Phases:
 2. build: compiles csrc/sync_metric.cu for sm_90a from this checkout;
 3. kernel vs plain: the CUDA Schmidl-Cox kernel against its plain
    PyTorch version on the card, at the uncoded path's N, at two ragged
-   lengths and on a [4, N] batch (atol 2e-4 on P, 2e-3 on M); phase 6
+   lengths, on a [4, N] batch and at the edges of its tiling: one output
+   (N = 65), a tile and a tile plus one output, three rows of odd length
+   (rows off the 16-byte grid), a streaming block [8, 262144], an all-zero
+   stream and a stream scaled by 1e3 (atol 2e-4 on P, 2e-3 on M); phase 6
    holds it to the same bars on the coded path's streams;
 4. slice: TX -> AWGN -> detect_and_extract -> rx_frames; every frame's
    CRC must pass with its payload equal to what was sent, the kernel
    must have been launched, and a 16-frame run must agree with the
    port's CPU path;
 5. timing with CUDA events: the RX step (median/min/max over 7
-   windows), a per-stage split, and the kernel against the plain metric;
+   windows), a per-stage split, and the kernel against the plain metric
+   as tools/bench_sync_metric.py times it: launches on preallocated
+   outputs over a ring of 4 streams (L2 cold), the warm-L2 time named as
+   such beside it, a torch.profiler cross-check, bytes, bound and share,
+   at the uncoded N, at a streaming block [8, 262144] and (in phase 6) at
+   the coded N;
 6. coded path: the kernel against the plain metric on the coded
    streams (25 and 11 dB), then TX -> AWGN (25 dB) -> detect_and_extract
    -> rx_frames; every frame's CRC must pass with its payload equal to what was sent,
@@ -42,7 +50,6 @@ failure exits non-zero before it.
 import importlib.util
 import json
 import shutil
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -52,6 +59,7 @@ import torch
 
 from gr_dtl_tpu_torch.models import fec_chain, receiver, transmitter
 from gr_dtl_tpu_torch.ops import channel, constellation as cn, ldpc, sync, sync_cuda
+from gr_dtl_tpu_torch.tools import bench_sync_metric as metric_bench
 from gr_dtl_tpu_torch.utils import alist, config as cfgmod
 
 B = 2048
@@ -81,10 +89,7 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-def smi(query: str) -> str:
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+smi = metric_bench.smi
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -123,16 +128,19 @@ def make_traffic(tcfg, n: int, dev, gen: torch.Generator):
     return channel.awgn(s, NOISE_V, generator=gen), sent
 
 
-def kernel_vs_plain(cases: dict) -> float:
+def kernel_vs_plain(cases: dict, p_scale: float = 1.0) -> float:
     """The Schmidl-Cox kernel against its plain PyTorch version on each
-    stream of ``cases``; returns the largest |dP| or |dM|."""
+    stream of ``cases``; returns the largest |dP| or |dM|.  ``p_scale``:
+    the factor by which the streams' power, and so P and its float32
+    rounding, exceed a unit stream's; |dP| is taken relative to it."""
     max_err = 0.0
     for name, r in cases.items():
         P, M = sync_cuda.timing_metric_cuda(r)
         P0, M0 = sync._timing_metric_torch(r)
         torch.cuda.synchronize()
         check(P.shape == P0.shape and M.shape == M0.shape, f"metric shape on {name}")
-        dp = (P - P0).abs().max().item()
+        check(bool(torch.isfinite(M).all()), f"metric not finite on {name}")
+        dp = (P - P0).abs().max().item() / p_scale
         dm = (M - M0).abs().max().item()
         print(f"[kernel] {name} {tuple(r.shape)}: max|dP|={dp:.3e} max|dM|={dm:.3e}")
         check(dp <= P_ATOL and dm <= M_ATOL, f"kernel vs plain on {name}: dP={dp} dM={dm}")
@@ -180,11 +188,18 @@ def main() -> int:
           f"stream N={n_main}", flush=True)
 
     # ---- 3. kernel vs plain on the card ----
+    # streams of the kernel checks that came later draw from a generator of
+    # their own, so the traffic and noise of every phase stay as they were
+    gen_k = torch.Generator(device=dev).manual_seed(SEED + 1)
+    randn = lambda *shape, g=gen_k: torch.randn(shape, generator=g, device=dev, dtype=torch.complex64)
+    tile = sync_cuda.TILE
     max_err = kernel_vs_plain({
-        "main": stream,
-        "ragged_9000": torch.randn(9000, generator=gen, device=dev, dtype=torch.complex64),
-        "ragged_8256": torch.randn(8256, generator=gen, device=dev, dtype=torch.complex64),
-        "batch_4xN": torch.randn((4, n_main), generator=gen, device=dev, dtype=torch.complex64)})
+        "main": stream, "ragged_9000": randn(9000, g=gen), "ragged_8256": randn(8256, g=gen),
+        "batch_4xN": randn(4, n_main, g=gen), "one_output": randn(65), "one_tile": randn(tile + 64),
+        "one_tile_and_one": randn(tile + 65), "odd_rows_3x9001": randn(3, 9001),
+        "stream_block": randn(*metric_bench.SHAPES["stream_block"]),
+        "zeros": torch.zeros(3, 5000, dtype=torch.complex64, device=dev)})
+    max_err = max(max_err, kernel_vs_plain({"scaled_1e3": 1e3 * randn(3, 9001)}, p_scale=1e6))
 
     # ---- 4. the slice ----
     sync_cuda.timing_metric_cuda.LAUNCHES = 0
@@ -252,31 +267,30 @@ def main() -> int:
     print("[timing] per stage, median of 5 (ms; detect_and_extract includes its metric): "
           + ", ".join(f"{k} {sorted(v)[2]:.3f}" for k, v in stages.items()))
 
-    # kernel against the plain metric at the main path's N, in turns
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = sync._timing_metric_torch if which == "plain" else sync_cuda.timing_metric_cuda
-        fn(stream)
-        times[which].append(cuda_ms(lambda: fn(stream), 20))
-    k_ms, p_ms = min(times["kernel"]), min(times["plain"])
-    print(f"[timing] metric at N={n_main}: kernel {k_ms:.4f} ms "
-          f"({n_main * 20 / k_ms / 1e6:.1f} GB/s of the 20 B/sample it must move), "
-          f"plain PyTorch {p_ms:.4f} ms; runs {times}")
-    print(f"[timing] after timing: {smi('clocks.sm,power.draw,temperature.gpu')}", flush=True)
+    # kernel against the plain metric (plain, kernel, kernel, plain) at the
+    # main path's N and at a streaming block, L2 cold; the card is `card`
+    timed = metric_bench.measure("uncoded_step", stream, gen_k)
+    metric_bench.measure("stream_block", randn(*metric_bench.SHAPES["stream_block"]), gen_k)
+    print(f"[timing] after timing: {smi('clocks.sm,power.draw,temperature.gpu')} ({card})", flush=True)
     del stream, out, small, got, want, frames, spectra, pay_eq
 
     # ---- 6-7. the coded path ----
     launches_coded, max_err_coded = coded_phase(dev, gen)
     print(f"[timing] after coded timing: {smi('clocks.sm,power.draw,temperature.gpu')}")
 
+    print(f"[timing] schmidl_cox_metric: launches a step 1 uncoded ({launches} counted), 1 coded "
+          f"({launches_coded} counted); at N={n_main} cold L2 {timed['cold_ms']:.4f} ms by events (the kernel's time is "
+          f"the {timed['kernel_ms_by']} reading), warm L2 "
+          f"{timed['warm_l2_ms']:.4f} ms, profiler {timed['profiler_kernel_ms'] or float('nan'):.4f} ms, bound "
+          f"{timed['bound_ms']:.4f} ms for {timed['bytes']} bytes, library call: none")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "schmidl_cox_metric", "route": "cuda",
         "source": "gr_dtl_tpu_torch/csrc/sync_metric.cu",
         "replaces": "gr_dtl_tpu/ops/sync_pallas.py:149",
         "launches": launches + launches_coded, "max_abs_err": max(max_err, max_err_coded),
-        "ms": k_ms,
-        "plain_ms": p_ms}]}))
+        "ms": timed["kernel_ms"], "ms_by": timed["kernel_ms_by"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -359,6 +373,8 @@ def coded_phase(dev, gen) -> int:
 
     # ---- 6. correctness ----
     max_err = kernel_vs_plain({f"coded_{snr:g}dB": s for snr, (s, _) in streams.items()})
+    metric_bench.measure("coded_step", streams[25.0][0],
+                         torch.Generator(device=dev).manual_seed(SEED + 2))
     stream = streams[25.0][0]
     sync_cuda.timing_metric_cuda.LAUNCHES = 0
     out = rx_step(rxp, stream, B_FEC)
