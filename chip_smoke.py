@@ -42,6 +42,39 @@ as tools/bench_fec.py draws them.  Phases:
    (median/min/max over 7 windows), a per-stage split with BP inside
    fec_frame_decode, and peak device memory.
 
+And the always-on streaming sessions (models/session.py), on the uncoded
+config at frame_length 20 (1840 samples a frame), frames starting at
+sample 300 so that every block boundary cuts a frame, mixed
+constellations 1..4, noise voltage 0.02, traffic then one block of idle
+air, at F = 16, 256 and 1024 frames a block (29,440 / 471,040 / 1,884,160
+samples):
+
+8. scan kernels: csrc/stream_scans.cu (trigger lock scan, frame
+   accounting under both rules) against their plain PyTorch loops at
+   T = 1, 5, 4096 and every T the paths below hand them (8, 16, 64, 256,
+   1024) over three carried calls, and in phases 9 and 10 on the block
+   step's own tensors: every output and state word equal;
+9. uncoded stream: StreamRx at the three F: every sent frame decoded once,
+   in order, with the sent payload, nothing lost, idle air not counted,
+   one launch of each of the three kernels a block, counted in every
+   run; StreamRxPipelined(2) (numpy and prefetched ingest) and, at F = 16,
+   StreamRxMega(K=16) equal StreamRx bit for bit; the first 4 blocks at
+   F = 16 against the CPU path; the CUDA runtime calls of one dispatch hold
+   no synchronising call and no pageable copy, and in a traced pipelined
+   run block k+1's launches are all enqueued before the wait for block k;
+10. coded stream: examples/config_fec.json, n=300 k=152, 2 frames a
+   transport block, QPSK, F = 64, 25 dB, one mid-TB frame replaced by
+   noise: TBs as the port's CPU run reports them, all but the hit one with
+   the sent bytes, flush_tb emits the last; tb_reassemble timed alone;
+11. StreamTx -> AWGN -> StreamRx (small PDUs, a jumbo, a dry queue, the
+   empty-frame budget) and StreamDuplex at 30 / 5 dB, F = 8, 12 steps, in
+   both readback orderings;
+12. times: wall-clock and CUDA-event ms a block (median over the blocks
+   after 2 warm-up blocks, the receivers in turns), Msamples/s, kernels a
+   block and the device's idle share from one profiled block; the scan
+   kernels against their plain loops at T = 16, 256, 1024, and alone at
+   T = 1 (what a launch costs).
+
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
 failure exits non-zero before it.
@@ -57,8 +90,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gr_dtl_tpu_torch.models import fec_chain, receiver, transmitter
-from gr_dtl_tpu_torch.ops import channel, constellation as cn, ldpc, sync, sync_cuda
+from gr_dtl_tpu_torch.models import fec_chain, receiver, session, streaming, transmitter
+from gr_dtl_tpu_torch.ops import _cuda_build, channel, constellation as cn, ldpc, metrics
+from gr_dtl_tpu_torch.ops import scans_cuda, sync, sync_cuda
 from gr_dtl_tpu_torch.tools import bench_sync_metric as metric_bench
 from gr_dtl_tpu_torch.utils import alist, config as cfgmod
 
@@ -170,13 +204,14 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    sync_cuda.build()
-    print(f"[build] csrc/sync_metric.cu -> {sync_cuda.library_path().name} "
-          f"in {time.perf_counter() - t0:.2f} s")
-    log = sync_cuda.library_path().with_suffix(".log")
-    for line in (log.read_text().splitlines() if log.exists() else []):
-        if line.strip():
-            print(f"[build] {line.strip()}")
+    _cuda_build.build_all(sync_cuda.build, scans_cuda.build)  # one nvcc each, side by side
+    print(f"[build] csrc/sync_metric.cu -> {sync_cuda.library_path().name}, csrc/stream_scans.cu "
+          f"-> {scans_cuda.library_path().name} in {time.perf_counter() - t0:.2f} s")
+    for lib in (sync_cuda.library_path(), scans_cuda.library_path()):
+        log = lib.with_suffix(".log")
+        for line in (log.read_text().splitlines() if log.exists() else []):
+            if line.strip():
+                print(f"[build] {line.strip()}")
 
     cfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
     tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
@@ -283,14 +318,20 @@ def main() -> int:
           f"the {timed['kernel_ms_by']} reading), warm L2 "
           f"{timed['warm_l2_ms']:.4f} ms, profiler {timed['profiler_kernel_ms'] or float('nan'):.4f} ms, bound "
           f"{timed['bound_ms']:.4f} ms for {timed['bytes']} bytes, library call: none")
+    # ---- 8-12. the streaming sessions ----
+    stream_launches, stream_blocks, max_err_stream, scan_kernels = stream_phases(dev, card)
+    print(f"[timing] after the streaming phases: {smi('clocks.sm,power.draw,temperature.gpu')}")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "schmidl_cox_metric", "route": "cuda",
         "source": "gr_dtl_tpu_torch/csrc/sync_metric.cu",
         "replaces": "gr_dtl_tpu/ops/sync_pallas.py:149",
-        "launches": launches + launches_coded, "max_abs_err": max(max_err, max_err_coded),
+        "launches": launches + launches_coded + stream_launches,
+        # one uncoded step, one coded step and the streams' blocks were counted
+        "launches_per_step": (launches + launches_coded + stream_launches) / (2 + stream_blocks),
+        "max_abs_err": max(max_err, max_err_coded, max_err_stream),
         "ms": timed["kernel_ms"], "ms_by": timed["kernel_ms_by"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]}))
+        "bound_by": "bytes", "library_ms": None}] + scan_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -483,6 +524,742 @@ def coded_phase(dev, gen) -> int:
               f"codewords, mean iterations per codeword {iters.float().mean().item():.4f}",
               flush=True)
     return launches, max_err
+
+
+# ---------------------------------------------------------------------------
+# phases 8-12: the streaming sessions
+# ---------------------------------------------------------------------------
+
+STREAM_F = (16, 256, 1024)
+STREAM_OFFSET = 300      # frames start here, so every block boundary cuts one
+STREAM_BLOCKS = {16: 64, 256: 15, 1024: 15}  # traffic blocks and one of idle air at the end
+MEGA_F, MEGA_K = 16, 16  # the K-block receiver runs at this F
+CODED_F, DUPLEX_F = 64, 8  # frames a block of the coded stream; of TX -> RX and the duplex
+WARM_BLOCKS = 2
+SCAN_T = (16, 256, 1024)
+HBM_BYTES_PER_S = metric_bench.HBM_BYTES_PER_S
+FP32_OPS_PER_S = 67e12   # NVIDIA H100 SXM data sheet, outside the tensor cores
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else 0.5 * (xs[len(xs) // 2 - 1] + xs[len(xs) // 2])
+
+
+def profiled(fn):
+    """One call of fn under torch.profiler: (wall ms, device busy ms, device
+    kernels and copies launched).  Only the CUDA entries are summed (the CPU
+    op entries repeat their kernels' time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_entries = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in dev_entries) / 1e3
+    return wall, busy, sum(e.count for e in dev_entries)
+
+
+def kernel_profiler_ms(fn, kernel_name: str, reps: int):
+    """Mean device duration (ms) of the kernel named so over reps calls of fn."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if kernel_name in e.key and e.self_device_time_total > 0]
+    count = sum(e.count for e in found)
+    return sum(e.self_device_time_total for e in found) / count / 1e3 if count else None
+
+
+def lock_inputs(T: int, seed: int, dev):
+    """Candidates with a jitter of +-6 around the period and runs of misses
+    longer than UNLOCK_AFTER."""
+    rng = np.random.RandomState(seed)
+    cand = (np.arange(T) * 1840 + STREAM_OFFSET + rng.randint(-6, 7, T)).astype(np.int32)
+    found = rng.rand(T) > 0.2
+    for start in rng.randint(0, T, max(T // 40, 1)):
+        found[start: start + 7] = False
+    return torch.as_tensor(cand, device=dev), torch.as_tensor(found, device=dev)
+
+
+def acct_inputs(T: int, seed: int, no0: int, dev):
+    rng = np.random.RandomState(seed)
+    ok = rng.rand(T) > 0.3
+    nos = ((no0 + np.arange(T) + np.cumsum(rng.rand(T) > 0.9)) % 4096).astype(np.int32)
+    nos[~ok] = rng.randint(0, 4096, int((~ok).sum()))
+    return torch.as_tensor(nos, device=dev), torch.as_tensor(ok, device=dev)
+
+
+def int_err(pairs) -> int:
+    """Largest |a - b| over pairs of integer or bool tensors of equal shape."""
+    worst = 0
+    for a, b in pairs:
+        check(a.shape == b.shape and a.dtype == b.dtype, f"shape or type: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+        if a.numel():
+            worst = max(worst, int((a.long() - b.long()).abs().max()))
+    return worst
+
+
+def lock_pairs(state, plain, trig, trig0, valid, valid0):
+    """Every output and every state word of the lock scan, kernel beside plain."""
+    return [(trig, trig0), (valid, valid0), (state.locked, plain.locked),
+            (state.expected, plain.expected), (state.sync_count, plain.sync_count),
+            (state.miss_count, plain.miss_count)]
+
+
+# the sizes the main paths hand the scans (F of the streams, of the coded
+# stream, of TX -> RX and the duplex) and the edges
+SCAN_CHECK_T = sorted({1, 5, 4096, DUPLEX_F, CODED_F, *STREAM_F})
+
+
+def scans_vs_plain(dev) -> int:
+    """Phase 8: both scan kernels against their plain loops, state carried
+    over three calls; returns the largest |kernel - plain| over every
+    output and state word, which must be 0."""
+    worst = 0
+    for T in SCAN_CHECK_T:
+        state = plain = streaming.initial_lock_state(dev)
+        for call in range(3):
+            c, f = lock_inputs(T, 10 * T + call, dev)
+            state, (trig, valid) = streaming.trigger_lock_scan(state, c, f, 1840)
+            plain, (trig0, valid0) = streaming._trigger_lock_scan_torch(plain, c, f, 1840)
+            err = int_err(lock_pairs(state, plain, trig, trig0, valid, valid0))
+            check(err == 0, f"trigger_lock_scan kernel vs plain at T={T}, call {call}: off by {err}")
+            worst = max(worst, err)
+            state = state._replace(expected=state.expected - T * 1840)
+            plain = plain._replace(expected=plain.expected - T * 1840)
+        for rule, start in (("received", -1), ("header", 4090)):
+            exp = exp0 = torch.tensor(start, dtype=torch.int32, device=dev)
+            for call in range(3):
+                n, o = acct_inputs(T, T + call, 4000 + call * (T + 3), dev)  # wraps past 4095
+                exp, lost, totals = metrics.frame_accounting(exp, n, o, rule)
+                exp0, lost0, totals0 = metrics._frame_accounting_torch(exp0, n, o, rule)
+                err = int_err([(lost, lost0), (totals, totals0), (exp, exp0)])
+                check(err == 0, f"frame_accounting kernel vs plain, rule {rule}, T={T}, call {call}: "
+                      f"off by {err}")
+                worst = max(worst, err)
+    print("[scans] trigger_lock_scan and frame_accounting (both rules) against their plain loops at "
+          f"T = {SCAN_CHECK_T} over three carried calls: largest |kernel - plain| over every output "
+          f"and state word {worst}", flush=True)
+    return worst
+
+
+def scans_on_path(cfg, F: int, stream: np.ndarray, results, dev, what: str) -> int:
+    """Both scan kernels against their plain loops on the tensors the block
+    step hands them: ``cand`` / ``found`` recomputed from blocks 1 and 2 of
+    ``stream`` as ``StreamRx._step`` computes them (tail + block, the lock
+    state carried and rebased), ``frame_no`` / ``ok`` taken from the
+    receiver's own ``results`` of blocks 0..2 (the expectation carried from
+    -1).  Returns the largest |kernel - plain|, which must be 0."""
+    P, B = cfg.frame_samples, F * cfg.frame_samples
+    tail = P + cfg.fft_len
+    worst = 0
+    state = plain = streaming.initial_lock_state(dev)
+    for b in (1, 2):
+        ext = torch.as_tensor(stream[b * B - tail:(b + 1) * B], device=dev)
+        _, M = sync.timing_metric(ext, cfg.fft_len)
+        cand = sync.frame_triggers(M, sync.fold_detect(M[:B], P, cfg.cp_len), P, F)
+        found = M[torch.clamp(cand.long(), 0, M.shape[-1] - 1)] > 0.5
+        state, (trig, valid) = streaming.trigger_lock_scan(state, cand, found, P)
+        plain, (trig0, valid0) = streaming._trigger_lock_scan_torch(plain, cand, found, P)
+        err = int_err(lock_pairs(state, plain, trig, trig0, valid, valid0))
+        check(err == 0, f"{what}: trigger_lock_scan kernel vs plain on block {b}'s candidates: off by {err}")
+        worst = max(worst, err)
+        state = state._replace(expected=state.expected - B)
+        plain = plain._replace(expected=plain.expected - B)
+    exp = exp0 = torch.tensor(-1, dtype=torch.int32, device=dev)
+    n_ok = 0
+    for res in results[:3]:
+        out, valid = res[0], res[1]
+        ok = out.header_ok[:F] & torch.as_tensor(np.asarray(valid)[:F], device=dev)
+        exp, lost, totals = metrics.frame_accounting(exp, out.frame_no[:F], ok)
+        exp0, lost0, totals0 = metrics._frame_accounting_torch(exp0, out.frame_no[:F], ok)
+        err = int_err([(lost, lost0), (totals, totals0), (exp, exp0)])
+        check(err == 0, f"{what}: frame_accounting kernel vs plain on a block's frames: off by {err}")
+        worst = max(worst, err)
+        n_ok += int(ok.sum())
+    check(n_ok > F, f"{what}: only {n_ok} decoded frames in the blocks the accounting was checked on")
+    print(f"[scans] {what}: on the block step's own tensors at T={F} (candidates of blocks 1-2, frame "
+          f"numbers of blocks 0-2, {n_ok} decoded) both scan kernels equal their plain loops: largest "
+          f"|kernel - plain| {worst}", flush=True)
+    return worst
+
+
+def time_scans(dev, card) -> dict:
+    """Phase 12, the scan kernels alone against their plain loops, in turns
+    (plain, kernel, kernel, plain).  The kernels' wrappers allocate their
+    outputs and launch through ctypes, so between events the host's enqueue
+    is timed (named so); the kernel's own time is the profiler's device
+    duration."""
+    out = {}
+    for T in (1, *SCAN_T):  # T = 1: what a launch costs before any dependent step
+        c, f = lock_inputs(T, T, dev)
+        n, o = acct_inputs(T, T, 4000, dev)
+        state = streaming.initial_lock_state(dev)
+        packed = torch.stack([state.locked.int(), state.expected, state.sync_count, state.miss_count])
+        exp = torch.tensor([-1], dtype=torch.int32, device=dev)
+        calls = {
+            "trigger_lock_scan": (lambda: scans_cuda.trigger_lock_scan_cuda(packed, c, f, 1840),
+                                  lambda: streaming._trigger_lock_scan_torch(state, c, f, 1840),
+                                  "trigger_lock_scan_kernel"),
+            "frame_accounting": (lambda: scans_cuda.frame_accounting_cuda(exp, n, o),
+                                 lambda: metrics._frame_accounting_torch(exp[0], n, o),
+                                 "frame_accounting_kernel")}
+        for name, (kern, plain, kname) in calls.items():
+            kern(), plain()
+            torch.cuda.synchronize()
+            k_ev, p_ev = [], []
+            for turn in ("plain", "kernel", "kernel", "plain"):
+                if turn == "plain":
+                    p_ev.append(cuda_ms(plain, 1 if T >= 256 else 3))  # one call is T iterations
+                else:
+                    k_ev.append(cuda_ms(kern, 200))
+            k_prof = kernel_profiler_ms(kern, kname, 50)
+            check(k_prof is not None, f"the profiler saw no {kname}")
+            nbytes = scans_cuda.scan_bytes(T)[name]
+            bound = max(nbytes / HBM_BYTES_PER_S, 12 * T / FP32_OPS_PER_S) * 1e3
+            out[(name, T)] = {"ms": k_prof, "enqueue_ms": min(k_ev), "plain_ms": min(p_ev),
+                              "bound_ms": bound, "bytes": nbytes}
+            print(f"[scan-timing] {name} T={T}: kernel {k_prof * 1e3:.2f} us device duration "
+                  f"(profiler), {min(k_ev) * 1e3:.2f} us a call between events (the host's enqueue: "
+                  f"3 allocations and a ctypes launch); plain loop {min(p_ev):.3f} ms; {nbytes} "
+                  f"bytes, bound {bound * 1e6:.2f} ns (bytes); library call: none ({card})", flush=True)
+    return out
+
+
+def make_stream(tcfg, n_frames: int, n_blocks: int, block_samples: int, dev, gen):
+    """n_frames frames of mixed constellations 1..4 from sample
+    STREAM_OFFSET on, padded with idle air to n_blocks blocks, plus AWGN:
+    (the stream as host numpy, what was sent)."""
+    rng = np.random.RandomState(SEED + n_frames)
+    maxb = tcfg.max_frame_bytes()
+    cnst = rng.randint(1, 5, size=n_frames).astype(np.int32)
+    plen = np.array([tcfg.frame_bytes(int(cn.BITS_PER_SYMBOL[c])) - 4 for c in cnst], np.int32)
+    payload = rng.randint(0, 256, (n_frames, maxb)).astype(np.uint8)
+    payload[np.arange(maxb)[None, :] >= plen[:, None]] = 0
+    sent = {"payload": torch.as_tensor(payload, device=dev),
+            "payload_len": torch.as_tensor(plen, device=dev),
+            "cnst_id": torch.as_tensor(cnst, device=dev),
+            "frame_no": torch.arange(n_frames, device=dev, dtype=torch.int32) % 4096}
+    pad = torch.randint(0, 256, (n_frames, maxb), generator=gen, device=dev, dtype=torch.uint8)
+    out = transmitter.tx_frames(transmitter.build_tx(tcfg, dev), sent["payload"],
+                                sent["payload_len"], sent["cnst_id"],
+                                torch.zeros(n_frames, dtype=torch.int32, device=dev),
+                                sent["frame_no"], pad)
+    n = n_blocks * block_samples
+    s = torch.zeros(n, dtype=torch.complex64, device=dev)
+    s[STREAM_OFFSET: STREAM_OFFSET + n_frames * tcfg.frame_samples] = out.samples.reshape(-1)
+    return channel.awgn(s, NOISE_V, generator=gen).cpu().numpy(), sent
+
+
+def run_receiver(rx, stream: np.ndarray, prefetch: bool = False):
+    """Every dispatch of ``stream`` through ``rx`` (StreamRx, pipelined or
+    K-block): per call the wall-clock ms (with the readback wait) and the
+    CUDA-event ms of the device work enqueued in it, and the results in
+    order.  ``prefetch``: block k+1's transfer is started before block k
+    is processed."""
+    D = rx.dispatch_samples
+    chunks = [stream[i * D:(i + 1) * D] for i in range(len(stream) // D)]
+    wall, results, events = [], [], []
+    handle = rx.prefetch(chunks[0]) if prefetch else None
+    for i, chunk in enumerate(chunks):
+        nxt = rx.prefetch(chunks[i + 1]) if prefetch and i + 1 < len(chunks) else None
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        r = rx.process(handle if prefetch else chunk)
+        e1.record()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        events.append((e0, e1))
+        handle = nxt
+        if r is not None:
+            results.append(r)
+    if hasattr(rx, "drain"):
+        results.extend(rx.drain())
+    torch.cuda.synchronize()
+    return wall, [a.elapsed_time(b) for a, b in events], results
+
+
+def decoded(results, dev):
+    """(frame_no, payload, payload_len, cnst_id) of the frames that were
+    valid with a good CRC, in arrival order, and all the masks."""
+    keep = torch.cat([torch.as_tensor(np.asarray(v & v.crc_ok), device=dev) for _, v in results])
+    cat = lambda k: torch.cat([getattr(o, k) for o, _ in results])[keep]
+    masks = {"valid": np.concatenate([np.asarray(v) for _, v in results]),
+             "header_ok": np.concatenate([v.header_ok for _, v in results]),
+             "crc_ok": np.concatenate([v.crc_ok for _, v in results])}
+    return {k: cat(k) for k in ("frame_no", "payload", "payload_len", "cnst_id")}, masks
+
+
+def same_as(results, want, what: str) -> None:
+    """Bit for bit: the masks, frame numbers and payloads of every slot."""
+    for k in ("valid", "header_ok", "crc_ok"):
+        a, b = (np.concatenate([np.asarray(v) if k == "valid" else getattr(v, k) for _, v in rs])
+                for rs in (results, want))
+        check(np.array_equal(a, b), f"{what}: {k} differs from StreamRx's")
+    for k in ("frame_no", "payload"):
+        a, b = (torch.cat([getattr(o, k) for o, _ in rs]) for rs in (results, want))
+        check(torch.equal(a, b), f"{what}: {k} differs from StreamRx's")
+
+
+def reset_counts() -> None:
+    for w in (sync_cuda.timing_metric_cuda, scans_cuda.trigger_lock_scan_cuda,
+              scans_cuda.frame_accounting_cuda):
+        w.LAUNCHES = 0
+
+
+def read_counts() -> tuple:
+    return (sync_cuda.timing_metric_cuda.LAUNCHES, scans_cuda.trigger_lock_scan_cuda.LAUNCHES,
+            scans_cuda.frame_accounting_cuda.LAUNCHES)
+
+
+def uncoded_stream(F: int, rcfg, tcfg, dev, gen, card) -> tuple:
+    """Phases 9 and 12 at one F; returns the three kernels' launches in
+    StreamRx's run, its blocks, the metric kernel's largest error on a
+    block and the scan kernels' on the step's own tensors."""
+    P = rcfg.frame_samples
+    n_blocks = STREAM_BLOCKS[F]
+    n_frames = (n_blocks - 1) * F
+    stream, sent = make_stream(tcfg, n_frames, n_blocks, F * P, dev, gen)
+    mk = {"StreamRx": lambda: session.StreamRx(rcfg, dev, frames_per_block=F),
+          "StreamRxPipelined(2)": lambda: session.StreamRxPipelined(rcfg, dev, frames_per_block=F,
+                                                                    depth=2)}
+    if F == MEGA_F:
+        mk[f"StreamRxMega(K={MEGA_K})"] = lambda: session.StreamRxMega(
+            rcfg, dev, frames_per_block=F, blocks_per_dispatch=MEGA_K)
+
+    # the main path: StreamRx over the whole stream, the kernels' launches counted
+    rx = mk["StreamRx"]()
+    reset_counts()
+    wall, dev_ms, plain = run_receiver(rx, stream)
+    counts = read_counts()
+    check(counts == (n_blocks,) * 3, f"F={F}: kernel launches {counts} in {n_blocks} blocks, "
+          "expected one of each a block")
+    got, masks = decoded(plain, dev)
+    check(got["frame_no"].shape[0] == n_frames, f"F={F}: {got['frame_no'].shape[0]} frames "
+          f"decoded, {n_frames} sent")
+    for k, v in sent.items():
+        check(torch.equal(got[k], v), f"F={F}: decoded {k} differs from what was sent, or its order")
+    check(rx.n_lost == 0 and rx.n_frames == n_frames,
+          f"F={F}: n_lost {rx.n_lost}, n_frames {rx.n_frames} of {n_frames} sent")
+    check(not masks["crc_ok"][-F + 1:].any(), f"F={F}: a frame decoded in idle air")
+    print(f"[stream] F={F}: {n_blocks} blocks of {F * P} samples ({n_blocks - 1} of traffic, then idle "
+          f"air), {n_frames} frames sent: every one decoded once, in order, payloads equal; n_lost "
+          f"0, n_frames {rx.n_frames}; kernel launches (metric, lock scan, accounting) {counts}",
+          flush=True)
+
+    # the metric kernel against its plain version at the step's length
+    ext = torch.as_tensor(stream[: rx.tail_len + F * P], device=dev)
+    max_err = kernel_vs_plain({f"stream_block_F{F}": ext})
+    scan_err = scans_on_path(rcfg, F, stream, plain, dev, f"uncoded stream F={F}")
+
+    # the variants, in turns with StreamRx; their results against StreamRx's
+    times = {k: {"wall": [], "dev": []} for k in mk}
+    times["StreamRx"]["wall"].append(wall)
+    times["StreamRx"]["dev"].append(dev_ms)
+    for rnd in range(2):
+        for name, make in mk.items():
+            if rnd == 0 and name == "StreamRx":
+                continue
+            r = make()
+            reset_counts()
+            w, d, res = run_receiver(r, stream, prefetch=(rnd == 1 and name != "StreamRx"))
+            check(read_counts() == (n_blocks,) * 3, f"F={F} {name}: kernel launches {read_counts()} "
+                  f"in {n_blocks} blocks, expected one of each a block")
+            per = r.dispatch_samples // (F * P)  # blocks a call
+            times[name]["wall"].append([x / per for x in w])
+            times[name]["dev"].append([x / per for x in d])
+            same_as(res, plain, f"F={F} {name}{' with prefetched ingest' if rnd else ''}")
+            check((r.n_lost, r.n_frames) == (rx.n_lost, rx.n_frames), f"F={F} {name}: counters")
+    print(f"[stream] F={F}: {', '.join(k for k in mk if k != 'StreamRx')} (numpy and prefetched "
+          "ingest) equal StreamRx bit for bit: masks, frame_no, payload, n_lost, n_frames; each run "
+          f"launched each of the three kernels {n_blocks} times in {n_blocks} blocks")
+
+    # one profiled block of each receiver, after its warm-up
+    for name, make in mk.items():
+        r = make()
+        D = r.dispatch_samples
+        per = D // (F * P)
+        warm = max(1, WARM_BLOCKS // per)
+        for i in range(warm):
+            r.process(stream[i * D:(i + 1) * D])
+        if hasattr(r, "drain"):
+            r.drain()
+        torch.cuda.synchronize()
+        w_ms, busy, n_k = profiled(lambda: (r.process(stream[warm * D:(warm + 1) * D]),
+                                            hasattr(r, "drain") and r.drain()))
+        skip = max(1, WARM_BLOCKS // per)
+        med_w = [median(run[skip:]) for run in times[name]["wall"]]
+        med_d = [median(run[skip:]) for run in times[name]["dev"]]
+        best = min(med_w)
+        print(f"[stream-timing] F={F} {name}: wall ms a block (with the readback wait), median "
+              f"over the blocks after {WARM_BLOCKS} warm-up blocks, per run in turns "
+              f"{[round(x, 3) for x in med_w]} -> {best:.3f} ms = {F * P / best / 1e3:.3f} "
+              f"Msamples/s; CUDA-event ms a block {[round(x, 3) for x in med_d]}; profiled block: "
+              f"wall {w_ms / per:.3f} ms (the profiler stretches it), device busy {busy / per:.3f} ms, "
+              f"{n_k / per:.0f} device kernels and copies a block; idle share {1 - busy / per / best:.4f} "
+              f"against the unprofiled median, {1 - busy / w_ms:.4f} inside the profiled block ({card})",
+              flush=True)
+    del stream, sent, plain, got
+    return counts, n_blocks, max_err, scan_err
+
+
+def host_span(events, name: str):
+    """The host-side time range of the ``record_function`` span named so
+    (the profiler also lists the span on the device's timeline)."""
+    return next(e.time_range for e in events
+                if e.name == name and str(e.device_type).endswith("CPU"))
+
+
+def no_sync_in_dispatch(rcfg, tcfg, dev, gen) -> None:
+    """Between a block's upload and its packed readback the host never
+    waits for the device: the CUDA runtime calls of one ``_dispatch``
+    (numpy ingest, as a radio feeds it), traced by the profiler, hold no
+    synchronising call and no copy through pageable memory.  And in a
+    traced ``StreamRxPipelined(depth=2)`` run every launch of block k+1 is
+    enqueued before the host waits for block k's packed vector: inside each
+    ``process`` the one ``cudaEventSynchronize`` follows the last
+    ``cudaLaunchKernel``.  Whether block k's copy to the host was still
+    running on the device when block k+1's first launch was enqueued is
+    read from the same timeline and printed, not required: on a host-bound
+    step the device trails the host's enqueue by microseconds."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    F, P = 16, rcfg.frame_samples
+    stream, _ = make_stream(tcfg, 7 * F, 8, F * P, dev, gen)
+    rx = session.StreamRx(rcfg, dev, frames_per_block=F)
+    chunks = [stream[i * F * P:(i + 1) * F * P] for i in range(8)]
+    for c in chunks[:4]:
+        rx.process(c)  # warm: allocator pools, pinned buffers
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("stream_dispatch"):
+            d = rx._dispatch(chunks[4])
+        pending = not d.ready.query()
+    rx._readback(*d)
+    events = prof.events()
+    span = host_span(events, "stream_dispatch")
+    # the profiler itself synchronises the device when it stops: only the
+    # calls made inside the dispatch count
+    inside = [e.name for e in events
+              if span.start <= e.time_range.start and e.time_range.end <= span.end]
+    api, copies = {}, {}
+    for name in inside:
+        if name.startswith("cuda") and not name.startswith(("cudaGet", "cudaDeviceGet", "cudaOccupancy",
+                                                            "cudaFuncGet")):
+            api[name] = api.get(name, 0) + 1
+    for e in events:  # device-side copies, by kind
+        if e.name.startswith("Memcpy"):
+            copies[e.name] = copies.get(e.name, 0) + 1
+    print(f"[stream] CUDA runtime calls inside one uncoded _dispatch at F={F}: "
+          + ", ".join(f"{k} {n}" for k, n in sorted(api.items(), key=lambda kv: -kv[1]))
+          + "; copies on the device's timeline: "
+          + ", ".join(f"{k} {n}" for k, n in sorted(copies.items())))
+    check(any(k.startswith("cudaLaunchKernel") for k in api), "the profiler recorded no runtime calls")
+    waits = [k for k in list(api) + list(copies) if "Synchronize" in k or "Pageable" in k]
+    check(not waits, f"_dispatch made synchronising calls or pageable copies: {waits}")
+    n_pending = int(pending)
+    for c in chunks[5:]:
+        d = rx._dispatch(c)
+        n_pending += int(not d.ready.query())
+        rx._readback(*d)
+    print(f"[stream] no host synchronisation in _dispatch: no *Synchronize call and no pageable copy "
+          f"among them; the block's readback was still pending when _dispatch returned in "
+          f"{n_pending} of 4 blocks")
+
+    # the pipelined receiver's timeline: 4 blocks after 4 of warm-up
+    rxp = session.StreamRxPipelined(rcfg, dev, frames_per_block=F, depth=2)
+    for c in chunks[:4]:
+        rxp.process(c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, c in enumerate(chunks[4:]):
+            with record_function(f"pipelined_process_{i}"):
+                rxp.process(c)
+        rxp.drain()
+    events = prof.events()
+    spans = [host_span(events, f"pipelined_process_{i}") for i in range(4)]
+    first_launch, lead_us = [], []
+    for i, span in enumerate(spans):
+        inside = [e for e in events if span.start <= e.time_range.start and e.time_range.end <= span.end]
+        launches = [e.time_range for e in inside if e.name.startswith("cudaLaunchKernel")]
+        waits = [e.time_range for e in inside if "Synchronize" in e.name]
+        check(len(launches) > 1000, f"pipelined block {i}: the profiler recorded {len(launches)} launches")
+        # process(k+1) = dispatch of k+1, then the wait for k's vector
+        check(len(waits) == 1 and waits[0].start >= max(t.end for t in launches),
+              f"pipelined block {i}: {len(waits)} synchronising calls in process(), or one before the "
+              "block's last launch")
+        first_launch.append(min(t.start for t in launches))
+        lead_us.append(waits[0].start - first_launch[-1])
+    d2h = sorted((e.time_range for e in events if e.name.startswith("Memcpy DtoH")), key=lambda t: t.start)
+    check(len(d2h) == 4, f"pipelined run: {len(d2h)} device-to-host copies on the timeline, expected 4")
+    still_copying = sum(first_launch[i + 1] < d2h[i].end for i in range(3))
+    gaps = [round(first_launch[i + 1] - d2h[i].end, 1) for i in range(3)]
+    print(f"[stream] StreamRxPipelined(2) timeline at F={F}: in each of 4 process() calls all of block "
+          f"k+1's launches ({[round(x / 1e3, 1) for x in lead_us]} ms from its first launch) are enqueued "
+          f"before the host's one wait for block k's vector; on the device, block k's copy to the host "
+          f"had not yet ended at block k+1's first launch in {still_copying} of 3 blocks (first launch "
+          f"minus copy end, us: {gaps})")
+
+
+def card_vs_cpu_stream(rcfg, tcfg, dev, gen) -> None:
+    """Phase 9, card against CPU on the first 4 blocks at F = 16."""
+    F, P = 16, rcfg.frame_samples
+    stream, _ = make_stream(tcfg, 3 * F + 5, 4, F * P, dev, gen)
+    rx, rx_cpu = (session.StreamRx(rcfg, d, frames_per_block=F) for d in (dev, "cpu"))
+    worst = 0.0
+    reset_counts()
+    for b in range(4):
+        chunk = stream[b * F * P:(b + 1) * F * P]
+        (o, v), (o0, v0) = rx.process(chunk), rx_cpu.process(chunk)
+        for k in ("valid", "header_ok", "crc_ok"):
+            a, a0 = (np.asarray(x) if k == "valid" else getattr(x, k) for x in (v, v0))
+            check(np.array_equal(a, a0), f"stream block {b} {k}: card vs CPU")
+        ok = torch.as_tensor(np.asarray(v0 & v0.header_ok))
+        for k in ("frame_no", "payload", "payload_len", "cnst_id"):
+            check(torch.equal(getattr(o, k).cpu()[ok], getattr(o0, k)[ok]),
+                  f"stream block {b} {k}: card vs CPU")
+        rel = ((o.snr_db.cpu()[ok] - o0.snr_db[ok]).abs() / o0.snr_db[ok].abs()).max().item() if ok.any() else 0.0
+        worst = max(worst, rel)
+    check((rx.n_lost, rx.n_frames) == (rx_cpu.n_lost, rx_cpu.n_frames), "stream counters: card vs CPU")
+    check(read_counts() == (4, 4, 4), f"card vs CPU: kernel launches {read_counts()} in 4 blocks on the "
+          "card (the CPU session launches none)")
+    # float32 on both, summed in other orders (cuBLAS and CPU matmuls)
+    check(worst <= 1e-3, f"stream snr_db: card vs CPU differ by {worst} relative")
+    print(f"[stream] 4 blocks at F=16, card vs CPU: masks, frame numbers, payload bytes and "
+          f"counters equal, snr_db within {worst:.2e} relative")
+
+
+def coded_stream(dev, gen, card) -> tuple:
+    """Phase 10: multi-frame transport blocks through the streaming
+    receiver, against the port's CPU run; tb_reassemble timed alone.
+    Returns the three kernels' launches, the blocks, and the scan kernels'
+    largest error on the step's own tensors."""
+    F, W, n_blocks = CODED_F, 2, 4
+    Hm = alist.load_alist(str(ROOT / "examples" / BANK_ALISTS[1]))
+    tcfg = cfgmod.make_tx_config(str(FEC_CONFIG), frame_length=FRAME_LENGTH)
+    rcfg = cfgmod.make_rx_config(str(FEC_CONFIG), frame_length=FRAME_LENGTH)
+    fec = fec_chain.build_fec(tcfg, Hm, dev, tb_frames=W)
+    fec_cpu = fec_chain.build_fec(tcfg, Hm, "cpu", tb_frames=W)
+    P = rcfg.frame_samples
+    G = (n_blocks - 1) * F // W
+    B = G * W
+    rng = np.random.RandomState(SEED + 5)
+    nb = int(fec.user_bytes_tab[2])
+    payload = np.zeros((B, fec.max_payload_bytes), np.uint8)
+    plen = np.zeros(B, np.int32)
+    for g in range(G):
+        plen[g * W] = nb
+        payload[g * W, :nb] = rng.randint(0, 256, nb)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    out = transmitter.tx_frames(transmitter.build_tx(tcfg, dev, fec),
+                                torch.as_tensor(payload, device=dev), t(plen), t(np.full(B, 2)),
+                                t(np.zeros(B)), t(np.arange(B)), None)
+    samples = out.samples.clone()
+    sig_p = float((samples.abs() ** 2).mean())
+    hit = F + 1  # the second frame of TB (F + 1) // 2, in the second block
+    samples[hit] = channel.awgn(torch.zeros(P, dtype=torch.complex64, device=dev),
+                                float(np.sqrt(sig_p)), generator=gen)
+    n = n_blocks * F * P
+    s = torch.zeros(n, dtype=torch.complex64, device=dev)
+    s[STREAM_OFFSET: STREAM_OFFSET + B * P] = samples.reshape(-1)
+    stream = channel.awgn(s, float(np.sqrt(sig_p / 10 ** 2.5)), generator=gen).cpu().numpy()
+
+    rx = session.StreamRx(rcfg, dev, frames_per_block=F, fec=fec)
+    rx_cpu = session.StreamRx(rcfg, "cpu", frames_per_block=F, fec=fec_cpu)
+    tbs, walls, results = {}, [], []
+    reset_counts()
+    for b in range(n_blocks):
+        chunk = stream[b * F * P:(b + 1) * F * P]
+        t0 = time.perf_counter()
+        _o, v, tb = rx.process(chunk)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        results.append((_o, v))
+        _o0, v0, tb0 = rx_cpu.process(chunk)
+        check(np.array_equal(np.asarray(v), np.asarray(v0)) and np.array_equal(v.header_ok, v0.header_ok),
+              f"coded stream block {b}: frame masks, card vs CPU")
+        for k in ("valid", "tb_no", "crc_ok"):
+            check(torch.equal(tb[k].cpu(), tb0[k]), f"coded stream block {b} tb {k}: card vs CPU")
+        em = tb0["valid"]
+        for k in ("fec_ok", "payload_len"):
+            check(torch.equal(tb[k].cpu()[em], tb0[k][em]), f"coded stream block {b} tb {k}: card vs CPU")
+        for i in np.nonzero(tb["valid"].cpu().numpy())[0]:
+            no = int(tb["tb_no"][i])
+            check(no not in tbs, f"TB {no} emitted twice")
+            tbs[no] = (bool(tb["crc_ok"][i]), tb["payload"][i, : int(tb["payload_len"][i])].cpu().numpy())
+    counts = read_counts()
+    check(counts == (n_blocks,) * 3, f"coded stream: kernel launches {counts} in {n_blocks} blocks")
+    scan_err = scans_on_path(rcfg, F, stream, results, dev, f"coded stream F={F}")
+    fl, fl0 = rx.flush_tb(), rx_cpu.flush_tb()
+    check(bool(fl["valid"][0]) and bool(fl0["valid"][0]) and int(fl["tb_no"][0]) == G - 1,
+          "flush_tb did not emit the last transport block")
+    tbs[int(fl["tb_no"][0])] = (bool(fl["crc_ok"][0]),
+                                fl["payload"][0, : int(fl["payload_len"][0])].cpu().numpy())
+    check(sorted(tbs) == list(range(G)), f"coded stream: TBs emitted {sorted(tbs)[:5]}.. of {G}")
+    hit_tb = hit // W
+    for g, (crc_ok, pay) in tbs.items():
+        if g == hit_tb:
+            check(not crc_ok, "the TB with a frame replaced by noise passed its CRC")
+        else:
+            check(crc_ok and np.array_equal(pay, payload[g * W, :nb]), f"TB {g} did not decode to the sent bytes")
+    check((rx.n_lost, rx.n_frames) == (rx_cpu.n_lost, rx_cpu.n_frames), "coded stream counters: card vs CPU")
+    print(f"[coded-stream] F={F}, W={W}, QPSK, 25 dB, frame {hit} replaced by noise: {G} TBs, all but "
+          f"TB {hit_tb} decode to the sent bytes ({nb} a TB), TB {hit_tb} reported failed as the CPU run "
+          f"reports it, flush_tb emitted TB {G - 1}; n_lost {rx.n_lost}, n_frames {rx.n_frames}; kernel "
+          f"launches (metric, lock scan, accounting) {counts}; wall ms a block {[round(x, 1) for x in walls]}",
+          flush=True)
+
+    # tb_reassemble alone, on a block's decoder inputs
+    frames = torch.as_tensor(stream[STREAM_OFFSET: STREAM_OFFSET + F * P], device=dev).reshape(F, P)
+    o, fin = receiver.rx_frames(rx.rxp, frames, defer_fec=True)
+    args = (fin["llrs"], fin["tb_no"], fin["tb_offset"], o.cnst_id, fin["tb_payload"], fin["fec_id"],
+            o.header_ok, fec)
+    st = fec_chain.init_tb_state(fec, dev)
+    fec_chain.tb_reassemble(st, *args)
+    ev = sorted(cuda_ms(lambda: fec_chain.tb_reassemble(st, *args), 3) for _ in range(5))
+    w_ms, busy, n_k = profiled(lambda: fec_chain.tb_reassemble(st, *args))
+    print(f"[coded-stream] tb_reassemble alone at F={F}, W={W} (a plain loop over the frames): "
+          f"{ev[2]:.3f} ms a block by events (median of 5 windows of 3; min {ev[0]:.3f}, max "
+          f"{ev[-1]:.3f}); profiled: wall {w_ms:.3f} ms, device busy {busy:.3f} ms, {n_k} device "
+          f"kernels ({card})", flush=True)
+    return counts, n_blocks, scan_err
+
+
+def tx_rx_and_duplex(dev, gen, card) -> tuple:
+    """Phase 11: StreamTx -> AWGN -> StreamRx, and the duplex adaptation
+    loop.  Returns the three kernels' launches and the blocks received."""
+    F = DUPLEX_F
+    tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH, max_empty_frames=F)
+    rcfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
+    tx = session.StreamTx(tcfg, dev, frames_per_block=F, seed=SEED)
+    rx = session.StreamRx(rcfg, dev, frames_per_block=F)
+    cap = tx._capacity()
+    rng = np.random.RandomState(SEED + 7)
+    pdus = ([rng.randint(0, 256, cap // 3).astype(np.uint8).tobytes() for _ in range(7)]
+            + [rng.randint(0, 256, 2 * cap + 11).astype(np.uint8).tobytes()]
+            + [rng.randint(0, 256, rng.randint(5, cap)).astype(np.uint8).tobytes() for _ in range(9)])
+    for p in pdus:
+        tx.send(p)
+    got, n_tx_blocks, n_empty = [], 0, 0
+    reset_counts()
+
+    def receive(samples):
+        o, v = rx.process(channel.awgn(torch.as_tensor(samples, device=dev), NOISE_V, generator=gen))
+        ok = v & v.crc_ok
+        lens, pays = o.payload_len.cpu().numpy(), o.payload.cpu().numpy()
+        got.extend(pays[i, : lens[i]].tobytes() for i in np.nonzero(ok)[0] if lens[i])
+
+    while (blk := tx.next_block()) is not None:
+        n_tx_blocks += 1
+        n_empty += int(not blk[1]["payload_len"].any())
+        receive(blk[0])
+        check(n_tx_blocks < 50, "StreamTx did not stop at its empty-frame budget")
+    receive(np.zeros(rx.block_samples, np.complex64))  # the last frame's tail
+    counts = read_counts()
+    n_rx_blocks = n_tx_blocks + 1
+    check(counts == (n_rx_blocks,) * 3, f"TX -> RX: kernel launches {counts} in {n_rx_blocks} blocks")
+    check(b"".join(got) == b"".join(pdus), "StreamTx -> StreamRx: the PDUs' bytes did not come back in order")
+    check(n_empty == 1 and rx.n_lost == 0, f"StreamTx: {n_empty} all-empty blocks for a budget of "
+          f"{F} frames, n_lost {rx.n_lost}")
+    print(f"[tx-rx] StreamTx -> AWGN -> StreamRx at F={F}: {len(pdus)} PDUs ({sum(map(len, pdus))} bytes, "
+          f"one jumbo of {2 * cap + 11} over a capacity of {cap}) came back in order in {n_tx_blocks} "
+          f"blocks, the last {n_empty} of empty frames, then the budget ended the stream; "
+          f"n_frames {rx.n_frames}, n_lost 0; kernel launches (metric, lock scan, accounting) {counts} "
+          f"in {n_rx_blocks} received blocks", flush=True)
+
+    txcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH, max_empty_frames=-1)
+
+    def make_chan(snr_db, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def chan(samples):
+            x = torch.as_tensor(samples, device=dev)
+            nv = float(np.sqrt(float(np.mean(np.abs(samples) ** 2)) / 10 ** (snr_db / 10)))
+            return channel.awgn(x, nv, generator=g)
+
+        return chan
+
+    runs = {}
+    for serialize in (False, True):
+        dpx = session.StreamDuplex(txcfg, rcfg, txcfg, rcfg, make_chan(30.0, 11), make_chan(5.0, 12),
+                                   dev, frames_per_block=F, serialize_readback=serialize)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = [dpx.step() for _ in range(12)]
+        torch.cuda.synchronize()
+        runs[serialize] = (dpx, res, (time.perf_counter() - t0) * 1e3 / 12)
+        check(read_counts() == (24, 24, 24), f"duplex: kernel launches {read_counts()} in 12 steps of "
+              "two receivers, expected 2 of each a step")
+        counts = tuple(a + b for a, b in zip(counts, read_counts()))
+        n_rx_blocks += 24
+        check(all(r is not None for r in res), "StreamDuplex stopped")
+        check(dpx.tx_a.constellation > int(cn.ConstellationType.BPSK),
+              "duplex: the 30 dB direction's TX stayed at BPSK")
+        check(dpx.tx_b.constellation == int(cn.ConstellationType.BPSK),
+              "duplex: the 5 dB direction's TX left BPSK")
+    (d0, r0, ms0), (d1, r1, ms1) = runs[False], runs[True]
+    for step, (p, q) in enumerate(zip(r0, r1)):
+        check(p["ctl_a"] == q["ctl_a"] and p["ctl_b"] == q["ctl_b"], f"duplex step {step}: control differs")
+        for side in ("a", "b"):
+            for k in ("header_ok", "crc_ok", "frame_no", "cnst_id", "payload", "feedback_cnst", "snr_db"):
+                a, b = getattr(p[side], k), getattr(q[side], k)
+                check(torch.equal(a, b) or (a.is_floating_point() and
+                                            torch.allclose(a, b, rtol=0, atol=0, equal_nan=True)),
+                      f"duplex step {step} side {side} {k}: the readback orderings differ")
+    print(f"[duplex] F={F}, 12 steps, A->B at 30 dB, B->A at 5 dB: A's TX climbed to constellation "
+          f"{d0.tx_a.constellation}, B's stayed at BPSK; both readback orderings give equal outputs, "
+          f"each with 2 launches of each of the three kernels a step (counted: 24 in 12 steps); "
+          f"wall ms a step: both dispatched first {ms0:.1f}, serialized {ms1:.1f} ({card})", flush=True)
+    return counts, n_rx_blocks
+
+
+def stream_phases(dev, card) -> tuple:
+    """Phases 8-12.  Returns the metric kernel's launches on the streaming
+    paths, the blocks they ran, its largest error on the stream's blocks,
+    and the two scan kernels' entries for the ``kernels`` line."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rcfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
+    tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
+    scan_err = scans_vs_plain(dev)
+    launches, blocks, max_err = [0, 0, 0], 0, 0.0
+
+    def add(counts, n_blocks):
+        nonlocal launches, blocks
+        launches = [a + b for a, b in zip(launches, counts)]
+        blocks += n_blocks
+
+    for F in STREAM_F:
+        counts, n_blocks, err, s_err = uncoded_stream(F, rcfg, tcfg, dev, gen, card)
+        add(counts, n_blocks)
+        max_err, scan_err = max(max_err, err), max(scan_err, s_err)
+        torch.cuda.empty_cache()
+    card_vs_cpu_stream(rcfg, tcfg, dev, gen)
+    no_sync_in_dispatch(rcfg, tcfg, dev, gen)
+    counts, n_blocks, s_err = coded_stream(dev, gen, card)
+    add(counts, n_blocks)
+    scan_err = max(scan_err, s_err)
+    add(*tx_rx_and_duplex(dev, gen, card))
+    scan_times = time_scans(dev, card)
+    T = max(SCAN_T)  # the largest block of the main path
+    entries = []
+    for i, (name, replaces) in enumerate((("trigger_lock_scan", "gr_dtl_tpu/models/streaming.py:180"),
+                                          ("frame_accounting", "gr_dtl_tpu/models/session.py:222"))):
+        t = scan_times[(name, T)]
+        # bound_ms is the larger of bytes over the memory rate and operations
+        # over the peak rate, and bytes is the larger; neither is what binds
+        # a sequential state machine: launch_floor_ms (the kernel at T = 1)
+        # plus T dependent steps of one thread does
+        entries.append({"name": name, "route": "cuda",
+                        "source": "gr_dtl_tpu_torch/csrc/stream_scans.cu", "replaces": replaces,
+                        "launches": launches[i + 1], "launches_per_step": launches[i + 1] / blocks,
+                        "max_abs_err": scan_err, "ms": t["ms"], "ms_by": "profiler",
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                        "launch_floor_ms": scan_times[(name, 1)]["ms"],
+                        "binds": "launch latency plus T dependent steps", "library_ms": None,
+                        "at_T": T})
+    return launches[0], blocks, max_err, entries
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ __all__ = [
     "POINTS",
     "BITS_PER_SYMBOL",
     "VALID_MASK",
+    "MIN_DIST",
     "map_symbols",
     "hard_decision",
     "nearest_point",
@@ -88,10 +89,18 @@ def _build_tables():
     valid = np.zeros((N_TYPES, MAX_POINTS), dtype=bool)
     for ty in range(1, N_TYPES):
         valid[ty, : 1 << bps[ty]] = True
-    return pts, bps, valid
+
+    # least distance between two valid points (the constellation metric)
+    mind = np.zeros((N_TYPES,), dtype=np.float32)
+    for ty in range(1, N_TYPES):
+        p = pts[ty, : 1 << bps[ty]]
+        d = np.abs(p[:, None] - p[None, :])
+        np.fill_diagonal(d, np.inf)
+        mind[ty] = d.min()
+    return pts, bps, valid, mind
 
 
-POINTS, BITS_PER_SYMBOL, VALID_MASK = _build_tables()
+POINTS, BITS_PER_SYMBOL, VALID_MASK, MIN_DIST = _build_tables()
 # bit k of point label p, per type: [N_TYPES, MAX_POINTS, MAX_BPS] (soft demap)
 BIT_VALUES = np.broadcast_to(
     ((np.arange(MAX_POINTS)[None, :, None] >> np.arange(MAX_BPS)[None, None, :]) & 1

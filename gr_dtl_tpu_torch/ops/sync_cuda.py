@@ -13,22 +13,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from gr_dtl_tpu_torch.ops import _cuda_build
+
 __all__ = ["build", "tiling", "timing_metric_cuda"]
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "sync_metric.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+SOURCE = _cuda_build.PKG / "csrc" / "sync_metric.cu"
+BUILD_DIR = _cuda_build.BUILD_DIR
+NVCC_FLAGS = _cuda_build.NVCC_FLAGS
 FFT_LEN = 64    # the kernel is specialized for it
 TILE = 2048     # outputs a block emits (kTile of the source)
 ALIGN = 16      # a tile's first output sits on a multiple of 16 outputs of M: 64 bytes
@@ -85,21 +81,9 @@ def metric_bytes(n: int, rows: int = 1) -> int:
     return rows * (8 * n + 12 * (n - FFT_LEN))
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.is_file():
-        return str(cand)
-    raise RuntimeError("nvcc not found (not on PATH, nor under $CUDA_HOME/bin): "
-                       "the CUDA toolkit is needed to build csrc/sync_metric.cu")
-
-
 def library_path() -> Path:
     """Where the build of the current source and flags lives."""
-    text = SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    return BUILD_DIR / f"libsync_metric_{hashlib.sha256(text).hexdigest()[:16]}.so"
+    return _cuda_build.library_path(SOURCE, NVCC_FLAGS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,17 +91,7 @@ def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library.  The
     compiler's report (``-Xptxas=-v``: registers, shared memory, spills) is
     kept beside the library as ``.log``."""
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    lib = _cuda_build.load(SOURCE, NVCC_FLAGS)
     lib.sc_metric_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                      ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_void_p]

@@ -14,7 +14,7 @@ from gr_dtl_tpu.ops import sync as ref_sync
 from gr_dtl_tpu.ops import sync_pallas
 from gr_dtl_tpu.utils import config as ref_config
 
-from gr_dtl_tpu_torch.ops import sync, sync_cuda
+from gr_dtl_tpu_torch.ops import _cuda_build, sync, sync_cuda
 
 # the reference's own bars for the kernel against the plain metric
 # (tests/test_sync_pallas.py): P sums 32 products of unit-variance
@@ -176,11 +176,12 @@ def test_extract_windows_and_short_stream():
 
 def test_cuda_wrapper_refuses_cpu_tensors(monkeypatch):
     r = torch.zeros(1000, dtype=torch.complex64)
+    before = sync_cuda.timing_metric_cuda.LAUNCHES
     with pytest.raises(ValueError, match="CUDA tensor"):
         sync_cuda.timing_metric_cuda(r)
-    assert sync_cuda.timing_metric_cuda.LAUNCHES == 0
+    assert sync_cuda.timing_metric_cuda.LAUNCHES == before
     # without nvcc the build says so (and there is no silent fallback)
-    monkeypatch.setattr(sync_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        sync_cuda._nvcc()
+        _cuda_build.nvcc()
