@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (gr_dtl_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's two paths at the size their users run them.  The
+Drives the port's paths at the size their users run them.  The
 uncoded batch modem: B=2048 frames of frame_length 20 (1840 samples
 each, a 3.77 Msample complex64 stream), mixed constellations 1..4, AWGN
 of noise voltage 0.02.  The coded (LDPC) batch modem of
@@ -11,7 +11,9 @@ as tools/bench_fec.py draws them.  Phases:
 
 1. device: the card's name and power limit, torch/CUDA versions, and
    whether nvcc and triton are present;
-2. build: compiles csrc/sync_metric.cu for sm_90a from this checkout;
+2. build: compiles csrc/sync_metric.cu, csrc/stream_scans.cu and
+   csrc/tb_ring.cu for sm_90a from this checkout, one nvcc each, side by
+   side;
 3. kernel vs plain: the CUDA Schmidl-Cox kernel against its plain
    PyTorch version on the card, at the uncoded path's N, at two ragged
    lengths, on a [4, N] batch and at the edges of its tiling: one output
@@ -62,10 +64,16 @@ samples):
    F = 16 against the CPU path; the CUDA runtime calls of one dispatch hold
    no synchronising call and no pageable copy, and in a traced pipelined
    run block k+1's launches are all enqueued before the wait for block k;
-10. coded stream: examples/config_fec.json, n=300 k=152, 2 frames a
+10. coded stream: the TB ring kernels (csrc/tb_ring.cu) against the plain
+   loop on random header sequences (lost frames, repeated and skipped
+   tb_no, cnst outside 1..4, offsets past the last slot, a carried-in
+   buffer) at F = 1, 8, 64, 256, 1024 and W = 1, 2, 4, every output and the
+   new carry equal; then examples/config_fec.json, n=300 k=152, 2 frames a
    transport block, QPSK, F = 64, 25 dB, one mid-TB frame replaced by
    noise: TBs as the port's CPU run reports them, all but the hit one with
-   the sent bytes, flush_tb emits the last; tb_reassemble timed alone;
+   the sent bytes, flush_tb emits the last, two TB ring launches a block
+   counted, the kernels against the plain loop on the block step's own
+   tensors;
 11. StreamTx -> AWGN -> StreamRx (small PDUs, a jumbo, a dry queue, the
    empty-frame budget) and StreamDuplex at 30 / 5 dB, F = 8, 12 steps, in
    both readback orderings;
@@ -73,7 +81,31 @@ samples):
    after 2 warm-up blocks, the receivers in turns), Msamples/s, kernels a
    block and the device's idle share from one profiled block; the scan
    kernels against their plain loops at T = 16, 256, 1024, and alone at
-   T = 1 (what a launch costs).
+   T = 1 (what a launch costs); the TB ring kernels (profiler) against the
+   plain loop at F = 64, 256, 1024, W = 2.
+
+And slice D, at frame_length 20 and the default burst modem:
+
+13. channels at N = 3,770,368: channel_model (3 taps, CFO 0.2 carriers,
+   noise 0.02), sample_clock_offset (50 ppm) and selective_fading (3 taps,
+   8 sinusoids) on the card against the port's CPU run (atol 2e-5, 2e-5,
+   2e-3; the last 4096 samples compared on their own), ms, launches and
+   peak memory each;
+14. the receiver behind them: B=2048 mixed frames behind channel_model
+   (every frame decodes, the CFO estimate within 0.05), 16 QPSK frames
+   through fading at 28 dB (at least 70% decode), 200 frames at +-50 ppm
+   through StreamRx (each decodes once);
+15. bursts: 4096 bursts burst_tx -> delay, CFO, AWGN -> burst_rx all
+   decode, noise alone decodes none, 64 captures card vs CPU;
+   StreamBurstRx over 9 blocks of 4096 with two bursts inside each block
+   and one across its end: each found once;
+16. links: simplex.run and full_duplex.run (uncoded, and fec= with
+   examples/config_fec.json) for 32 rounds: the clean direction climbs to
+   16QAM, the poor one stays at (or falls to) BPSK; no synchronising call
+   inside the uncoded rounds; ms a round;
+17. StreamSimplex at F = 8, 16 steps, half the reverse blocks dropped: the
+   TX climbs to 16QAM and never moves on a lost burst; one launch of each
+   of the three kernels a step, counted.
 
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
@@ -90,9 +122,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gr_dtl_tpu_torch.models import fec_chain, receiver, session, streaming, transmitter
-from gr_dtl_tpu_torch.ops import _cuda_build, channel, constellation as cn, ldpc, metrics
-from gr_dtl_tpu_torch.ops import scans_cuda, sync, sync_cuda
+from gr_dtl_tpu_torch.models import adaptive, fec_chain, full_duplex, receiver, session, simplex
+from gr_dtl_tpu_torch.models import streaming, transmitter
+from gr_dtl_tpu_torch.ops import _cuda_build, burst, channel, constellation as cn, ldpc, metrics
+from gr_dtl_tpu_torch.ops import scans_cuda, sync, sync_cuda, tb_cuda
 from gr_dtl_tpu_torch.tools import bench_sync_metric as metric_bench
 from gr_dtl_tpu_torch.utils import alist, config as cfgmod
 
@@ -204,10 +237,12 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    _cuda_build.build_all(sync_cuda.build, scans_cuda.build)  # one nvcc each, side by side
+    # one nvcc each, side by side
+    _cuda_build.build_all(sync_cuda.build, scans_cuda.build, tb_cuda.build)
     print(f"[build] csrc/sync_metric.cu -> {sync_cuda.library_path().name}, csrc/stream_scans.cu "
-          f"-> {scans_cuda.library_path().name} in {time.perf_counter() - t0:.2f} s")
-    for lib in (sync_cuda.library_path(), scans_cuda.library_path()):
+          f"-> {scans_cuda.library_path().name}, csrc/tb_ring.cu -> {tb_cuda.library_path().name} "
+          f"in {time.perf_counter() - t0:.2f} s")
+    for lib in (sync_cuda.library_path(), scans_cuda.library_path(), tb_cuda.library_path()):
         log = lib.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
             if line.strip():
@@ -319,19 +354,29 @@ def main() -> int:
           f"{timed['warm_l2_ms']:.4f} ms, profiler {timed['profiler_kernel_ms'] or float('nan'):.4f} ms, bound "
           f"{timed['bound_ms']:.4f} ms for {timed['bytes']} bytes, library call: none")
     # ---- 8-12. the streaming sessions ----
-    stream_launches, stream_blocks, max_err_stream, scan_kernels = stream_phases(dev, card)
+    stream_launches, stream_blocks, max_err_stream, scan_kernels, tb_kernel = stream_phases(dev, card)
     print(f"[timing] after the streaming phases: {smi('clocks.sm,power.draw,temperature.gpu')}")
+    # ---- 13-17. channels, bursts, links ----
+    d_counts, d_steps, d_blocks, max_err_d = slice_d_phases(dev, card)
+    stream_launches += d_counts[0]
+    max_err_stream = max(max_err_stream, max_err_d)
+    for i, entry in enumerate(scan_kernels):
+        entry["launches"] += d_counts[i + 1]
+        entry["launches_per_step"] = entry["launches"] / (stream_blocks + d_blocks)
+    stream_blocks += d_steps + d_blocks
+    print(f"[timing] after the slice D phases: {smi('clocks.sm,power.draw,temperature.gpu')}")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "schmidl_cox_metric", "route": "cuda",
         "source": "gr_dtl_tpu_torch/csrc/sync_metric.cu",
         "replaces": "gr_dtl_tpu/ops/sync_pallas.py:149",
         "launches": launches + launches_coded + stream_launches,
-        # one uncoded step, one coded step and the streams' blocks were counted
+        # one uncoded step, one coded step and the streams' blocks (the impaired batch and the
+        # burst sessions' among them) were counted
         "launches_per_step": (launches + launches_coded + stream_launches) / (2 + stream_blocks),
         "max_abs_err": max(max_err, max_err_coded, max_err_stream),
         "ms": timed["kernel_ms"], "ms_by": timed["kernel_ms_by"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}] + scan_kernels}))
+        "bound_by": "bytes", "library_ms": None}] + scan_kernels + [tb_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -546,20 +591,33 @@ def median(xs):
     return xs[len(xs) // 2] if len(xs) % 2 else 0.5 * (xs[len(xs) // 2 - 1] + xs[len(xs) // 2])
 
 
-def profiled(fn):
+def profiled(fn, sacrifice: bool = False):
     """One call of fn under torch.profiler: (wall ms, device busy ms, device
-    kernels and copies launched).  Only the CUDA entries are summed (the CPU
-    op entries repeat their kernels' time)."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels and copies launched), from the device's timeline.
+
+    The profiler misses the first launches after it starts, more of them
+    the more sessions the process has had (2 of 18 in a fresh process, 12 of
+    18 after some sixty sessions): nothing to a block of 4,200 launches, most
+    of a call of 18.  ``sacrifice``: fn is called once more first, inside the
+    profiler, and only what the device starts after that call has ended is
+    counted; for an fn without side effects."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev_entries = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    busy = sum(e.self_device_time_total for e in dev_entries) / 1e3
-    return wall, busy, sum(e.count for e in dev_entries)
+        if sacrifice:
+            fn()
+            torch.cuda.synchronize()
+        with record_function("profiled_call"):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    start = host_span(events, "profiled_call").start
+    dev_events = [e for e in events if str(e.device_type).endswith("CUDA")
+                  and e.name != "profiled_call" and e.time_range.start >= start]
+    busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    return wall, busy, len(dev_events)
 
 
 def kernel_profiler_ms(fn, kernel_name: str, reps: int):
@@ -807,7 +865,7 @@ def same_as(results, want, what: str) -> None:
 
 def reset_counts() -> None:
     for w in (sync_cuda.timing_metric_cuda, scans_cuda.trigger_lock_scan_cuda,
-              scans_cuda.frame_accounting_cuda):
+              scans_cuda.frame_accounting_cuda, tb_cuda.tb_reassemble_cuda):
         w.LAUNCHES = 0
 
 
@@ -1034,9 +1092,10 @@ def card_vs_cpu_stream(rcfg, tcfg, dev, gen) -> None:
 
 def coded_stream(dev, gen, card) -> tuple:
     """Phase 10: multi-frame transport blocks through the streaming
-    receiver, against the port's CPU run; tb_reassemble timed alone.
-    Returns the three kernels' launches, the blocks, and the scan kernels'
-    largest error on the step's own tensors."""
+    receiver, against the port's CPU run; the TB ring kernels against the
+    plain loop on the step's own tensors.  Returns the three kernels'
+    launches, the blocks, the scan kernels' largest error on the step's own
+    tensors, the TB ring's launches and its largest error there."""
     F, W, n_blocks = CODED_F, 2, 4
     Hm = alist.load_alist(str(ROOT / "examples" / BANK_ALISTS[1]))
     tcfg = cfgmod.make_tx_config(str(FEC_CONFIG), frame_length=FRAME_LENGTH)
@@ -1090,7 +1149,10 @@ def coded_stream(dev, gen, card) -> tuple:
             check(no not in tbs, f"TB {no} emitted twice")
             tbs[no] = (bool(tb["crc_ok"][i]), tb["payload"][i, : int(tb["payload_len"][i])].cpu().numpy())
     counts = read_counts()
+    tb_launches = tb_cuda.tb_reassemble_cuda.LAUNCHES
     check(counts == (n_blocks,) * 3, f"coded stream: kernel launches {counts} in {n_blocks} blocks")
+    check(tb_launches == 2 * n_blocks, f"coded stream: {tb_launches} TB ring kernel launches in "
+          f"{n_blocks} blocks, expected the walk and the copy once a block")
     scan_err = scans_on_path(rcfg, F, stream, results, dev, f"coded stream F={F}")
     fl, fl0 = rx.flush_tb(), rx_cpu.flush_tb()
     check(bool(fl["valid"][0]) and bool(fl0["valid"][0]) and int(fl["tb_no"][0]) == G - 1,
@@ -1111,20 +1173,32 @@ def coded_stream(dev, gen, card) -> tuple:
           f"launches (metric, lock scan, accounting) {counts}; wall ms a block {[round(x, 1) for x in walls]}",
           flush=True)
 
-    # tb_reassemble alone, on a block's decoder inputs
-    frames = torch.as_tensor(stream[STREAM_OFFSET: STREAM_OFFSET + F * P], device=dev).reshape(F, P)
-    o, fin = receiver.rx_frames(rx.rxp, frames, defer_fec=True)
-    args = (fin["llrs"], fin["tb_no"], fin["tb_offset"], o.cnst_id, fin["tb_payload"], fin["fec_id"],
-            o.header_ok, fec)
-    st = fec_chain.init_tb_state(fec, dev)
-    fec_chain.tb_reassemble(st, *args)
-    ev = sorted(cuda_ms(lambda: fec_chain.tb_reassemble(st, *args), 3) for _ in range(5))
-    w_ms, busy, n_k = profiled(lambda: fec_chain.tb_reassemble(st, *args))
-    print(f"[coded-stream] tb_reassemble alone at F={F}, W={W} (a plain loop over the frames): "
-          f"{ev[2]:.3f} ms a block by events (median of 5 windows of 3; min {ev[0]:.3f}, max "
-          f"{ev[-1]:.3f}); profiled: wall {w_ms:.3f} ms, device busy {busy:.3f} ms, {n_k} device "
-          f"kernels ({card})", flush=True)
-    return counts, n_blocks, scan_err
+    # the TB ring kernels against the plain loop on the stream's own decoder
+    # inputs: block 0's frames from the initial carry, then block 1's (which
+    # hold the frame replaced by noise) from the carry block 0 left
+    state = plain = fec_chain.init_tb_state(fec, dev)
+    tb_err_path = 0.0
+    for b in (0, 1):
+        start = STREAM_OFFSET + b * F * P
+        frames = torch.as_tensor(stream[start: start + F * P], device=dev).reshape(F, P)
+        o, fin = receiver.rx_frames(rx.rxp, frames, defer_fec=True)
+        args = (fin["llrs"], fin["tb_no"], fin["tb_offset"], o.cnst_id, fin["tb_payload"],
+                fin["fec_id"], o.header_ok, fec)
+        got = fec_chain.tb_reassemble(state, *args)
+        want = fec_chain._tb_reassemble_torch(plain, *args)
+        torch.cuda.synchronize()
+        err = tb_err(got, want)
+        check(err == 0, f"coded stream: TB ring kernels vs the plain loop on block {b}'s tensors: off by {err}")
+        tb_err_path = max(tb_err_path, err)
+        n_emitted = int(got[1]["valid"].sum())
+        check(n_emitted >= F // W - 1, f"coded stream block {b}: only {n_emitted} TBs emitted on its own tensors")
+        state, plain = got[0], want[0]
+    print(f"[tb-ring] coded stream F={F}, W={W}: on the block step's own tensors (blocks 0 and 1, the carry "
+          f"passed on) the TB ring kernels equal the plain loop: largest |kernel - plain| {tb_err_path:g}; "
+          f"launches on the stream: {tb_launches} in {n_blocks} blocks (tb_ring_walk and tb_ring_copy once "
+          f"each a block); wall ms a block {[round(x, 1) for x in walls]} (the plain loop's stream took "
+          f"104.9-185.2 ms a block)", flush=True)
+    return counts, n_blocks, scan_err, tb_launches, tb_err_path
 
 
 def tx_rx_and_duplex(dev, gen, card) -> tuple:
@@ -1218,7 +1292,7 @@ def tx_rx_and_duplex(dev, gen, card) -> tuple:
 def stream_phases(dev, card) -> tuple:
     """Phases 8-12.  Returns the metric kernel's launches on the streaming
     paths, the blocks they ran, its largest error on the stream's blocks,
-    and the two scan kernels' entries for the ``kernels`` line."""
+    the two scan kernels' entries for the ``kernels`` line and the TB ring's."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     rcfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
     tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
@@ -1237,7 +1311,8 @@ def stream_phases(dev, card) -> tuple:
         torch.cuda.empty_cache()
     card_vs_cpu_stream(rcfg, tcfg, dev, gen)
     no_sync_in_dispatch(rcfg, tcfg, dev, gen)
-    counts, n_blocks, s_err = coded_stream(dev, gen, card)
+    tb_err_all = tb_ring_vs_plain(dev)
+    counts, n_blocks, s_err, tb_launches, tb_err_path = coded_stream(dev, gen, card)
     add(counts, n_blocks)
     scan_err = max(scan_err, s_err)
     add(*tx_rx_and_duplex(dev, gen, card))
@@ -1253,13 +1328,551 @@ def stream_phases(dev, card) -> tuple:
         # plus T dependent steps of one thread does
         entries.append({"name": name, "route": "cuda",
                         "source": "gr_dtl_tpu_torch/csrc/stream_scans.cu", "replaces": replaces,
-                        "launches": launches[i + 1], "launches_per_step": launches[i + 1] / blocks,
+                        "launches": launches[i + 1],
                         "max_abs_err": scan_err, "ms": t["ms"], "ms_by": "profiler",
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
                         "launch_floor_ms": scan_times[(name, 1)]["ms"],
                         "binds": "launch latency plus T dependent steps", "library_ms": None,
                         "at_T": T})
-    return launches[0], blocks, max_err, entries
+    tb_times = time_tb_ring(dev, card)
+    t = tb_times[CODED_F]  # the main path's shape: the coded stream's block
+    # bound_ms is bytes over the memory rate (the larger of the two); what
+    # binds at this size is the two launches and the walk's F dependent steps
+    tb_entry = {"name": "tb_reassemble", "route": "cuda",
+                "source": "gr_dtl_tpu_torch/csrc/tb_ring.cu",
+                "replaces": "gr_dtl_tpu/models/fec_chain.py:233",
+                "launches": tb_launches, "launches_per_step": tb_launches / n_blocks,
+                "max_abs_err": max(tb_err_all, tb_err_path), "ms": t["ms"], "ms_by": "profiler",
+                "walk_ms": t["walk_ms"], "copy_ms": t["copy_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": "bytes", "bytes": t["bytes"],
+                "binds": "two launch latencies plus F dependent steps of the walk's one warp",
+                "library_ms": None, "at_F": CODED_F, "at_W": TB_TIME_W}
+    return launches[0], blocks, max_err, entries, tb_entry
+
+
+# ---------------------------------------------------------------------------
+# the TB ring kernels (phase 10) and phases 13-17: channels, bursts, links
+# ---------------------------------------------------------------------------
+
+TB_F, TB_W = (1, 8, 64, 256, 1024), (1, 2, 4)
+TB_TIME_F, TB_TIME_W = (64, 256, 1024), 2
+N_CHANNEL = 3_770_368    # the uncoded path's stream: 2048 frames of 1840 samples and 2048 of margin
+CHANNEL_TAPS = (1.0, 0.25 - 0.15j, 0.1j)
+CHANNEL_CFO = 0.2        # carrier spacings
+TAIL_CHECK = 4096        # a stream's last samples, compared on their own
+N_BURSTS, BURST_CAPTURE = 4096, 320
+BURST_BLOCK, BURST_BLOCKS = 4096, 8
+LINK_ROUNDS = 32
+NOISE_HIGH_SNR, NOISE_LOW_SNR = 0.009, 0.35  # noise voltages: ~40 dB and ~8 dB on a frame of power ~0.8
+BPSK, QAM16 = int(cn.ConstellationType.BPSK), int(cn.ConstellationType.QAM16)
+
+
+def tb_fec(dev, W: int):
+    """The FEC chain of examples/config_fec.json at frame_length 20 with W
+    frames a transport block, on ``dev``."""
+    tcfg = cfgmod.make_tx_config(str(FEC_CONFIG), frame_length=FRAME_LENGTH)
+    Hm = alist.load_alist(str(ROOT / "examples" / BANK_ALISTS[1]))
+    return fec_chain.build_fec(tcfg, Hm, dev, tb_frames=W)
+
+
+def tb_headers(F: int, W: int, fec, seed: int, tb0: int, dev):
+    """F header records and LLR rows that take every branch of the
+    reassembly: lost frames, TB numbers that stay, advance, skip and fall
+    back to an earlier one, constellation ids outside 1..4, offsets on a
+    slot's edge, past the last slot and negative.  (llrs, tb_no, tb_offset,
+    cnst_id, tb_payload, fec_id, ok) on ``dev``."""
+    rng = np.random.RandomState(seed)
+    ok = rng.rand(F) > 0.25
+    tb_no = tb0 + np.cumsum(rng.choice([0, 1, 3], F, p=[1 - 0.9 / W, 0.8 / W, 0.1 / W]))
+    back = rng.rand(F) < 0.08
+    tb_no[back] -= rng.randint(1, 3, int(back.sum()))
+    cnst = rng.randint(1, 5, F)
+    odd = rng.rand(F) < 0.15
+    cnst[odd] = rng.choice([-2, 0, 5, 9], int(odd.sum()))
+    fb = (fec.cfg.frame_capacity_symbols * np.arange(5))[np.clip(cnst, 0, 4)]
+    offset = rng.randint(0, W, F) * fb + rng.choice([0, 0, 1, -1], F) * rng.randint(0, 2, F)
+    far = rng.rand(F) < 0.1
+    offset[far] = rng.randint(W, 3 * W + 1, int(far.sum())) * np.maximum(fb[far], 1)
+    neg = rng.rand(F) < 0.05
+    offset[neg] = -rng.randint(1, 2000, int(neg.sum()))
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    llrs = torch.randn((F, fec.max_frame_bits), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(seed))
+    return (llrs, i32(tb_no), i32(offset), i32(cnst), i32(rng.randint(0, 5000, F)),
+            i32(rng.randint(0, 4, F)), torch.as_tensor(ok, device=dev))
+
+
+def tb_err(got, want) -> float:
+    """Largest |a - b| over every leaf of two (carry, emitted) pairs of
+    ``fec_chain.tb_reassemble``: LLRs, ints and bools alike."""
+    (st, em), (st0, em0) = got, want
+    check(em.keys() == em0.keys(), "the emitted dicts' keys differ")
+    worst = 0.0
+    for a, b in list(zip(st, st0)) + [(em[k], em0[k]) for k in em0]:
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"shape or type: {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
+        if a.numel():
+            worst = max(worst, float((a.double() - b.double()).abs().max()))
+    return worst
+
+
+def tb_ring_vs_plain(dev) -> float:
+    """The TB ring kernels against the plain loop on random header
+    sequences at every F and W, two chained calls each (the second starts
+    from a carried-in buffer); two launches a call.  Returns the largest
+    |kernel - plain| over every output and carry leaf, which must be 0."""
+    worst = 0.0
+    for W in TB_W:
+        fec = tb_fec(dev, W)
+        for F in TB_F:
+            state = plain = fec_chain.init_tb_state(fec, dev)
+            tb0 = 0
+            for call in range(2):
+                args = tb_headers(F, W, fec, 100 * F + 10 * W + call, tb0, dev)
+                tb_cuda.tb_reassemble_cuda.LAUNCHES = 0
+                got = fec_chain.tb_reassemble(state, *args, fec)
+                n = tb_cuda.tb_reassemble_cuda.LAUNCHES
+                check(n == 2, f"tb_reassemble at F={F}, W={W}: {n} kernel launches, expected 2")
+                want = fec_chain._tb_reassemble_torch(plain, *args, fec)
+                torch.cuda.synchronize()
+                err = tb_err(got, want)
+                check(err == 0, f"TB ring kernels vs the plain loop at F={F}, W={W}, call {call}: "
+                      f"off by {err}")
+                worst = max(worst, err)
+                state, plain = got[0], want[0]
+                tb0 = int(args[1].max())
+    print(f"[tb-ring] tb_ring_walk + tb_ring_copy against the plain loop on random header sequences "
+          f"(lost frames, repeated and skipped tb_no, cnst outside 1..4, offsets past the last slot, a "
+          f"carried-in buffer) at F = {list(TB_F)} x W = {list(TB_W)}, max_frame_bits "
+          f"{FRAME_LENGTH * 48 * 4}: largest |kernel - plain| over every output and the new carry "
+          f"{worst:g}; 2 launches a call", flush=True)
+    return worst
+
+
+def time_tb_ring(dev, card) -> dict:
+    """The TB ring kernels alone against the plain loop at W = 2, in turns
+    (plain, kernel, kernel, plain).  The kernels' own times are the
+    profiler's device durations; between events a call also holds the
+    host's enqueue (10 allocations and two ctypes launches).  The calls
+    repeat on the same inputs, so at F = 64 (1 MB in, 2 MB out) they find
+    L2 warm, as the block step does right after ``frame_llrs``."""
+    out = {}
+    W = TB_TIME_W
+    fec = tb_fec(dev, W)
+    for F in TB_TIME_F:
+        args = tb_headers(F, W, fec, F, 0, dev)
+        state = fec_chain.init_tb_state(fec, dev)
+        kern = lambda: fec_chain.tb_reassemble(state, *args, fec)
+        plain = lambda: fec_chain._tb_reassemble_torch(state, *args, fec)
+        kern(), plain()
+        torch.cuda.synchronize()
+        k_ev, p_ev = [], []
+        for turn in ("plain", "kernel", "kernel", "plain"):
+            if turn == "plain":
+                p_ev.append(cuda_ms(plain, 1 if F >= 256 else 3))  # one call is F iterations
+            else:
+                k_ev.append(cuda_ms(kern, 100))
+        walk = kernel_profiler_ms(kern, "tb_ring_walk_kernel", 50)
+        copy = kernel_profiler_ms(kern, "tb_ring_copy_kernel", 50)
+        check(walk is not None and copy is not None, "the profiler saw no tb_ring kernel")
+        _w, plain_busy, plain_n = profiled(plain, sacrifice=True)
+        nbytes = tb_cuda.tb_bytes(F, W, fec.max_frame_bits)
+        bound = max(nbytes / HBM_BYTES_PER_S, 12 * F / FP32_OPS_PER_S) * 1e3
+        out[F] = {"ms": walk + copy, "walk_ms": walk, "copy_ms": copy, "enqueue_ms": min(k_ev),
+                  "plain_ms": min(p_ev), "bound_ms": bound, "bytes": nbytes}
+        print(f"[tb-ring-timing] F={F}, W={W}: tb_ring_walk {walk * 1e3:.2f} us + tb_ring_copy "
+              f"{copy * 1e3:.2f} us = {(walk + copy) * 1e3:.2f} us device duration (profiler), "
+              f"{min(k_ev) * 1e3:.2f} us a call between events (with the host's enqueue); plain loop "
+              f"{min(p_ev):.3f} ms by events, {plain_n} device kernels, device busy {plain_busy:.3f} ms; "
+              f"{nbytes} bytes, bound {bound * 1e3:.3f} us (bytes); library call: none ({card})",
+              flush=True)
+    return out
+
+
+def tx_batch(tcfg, cnst: np.ndarray, dev, seed: int):
+    """One frame per entry of ``cnst``, filled to capacity: (samples [n,
+    frame_samples], what was sent)."""
+    rng = np.random.RandomState(seed)
+    n, maxb = cnst.shape[0], tcfg.max_frame_bytes()
+    plen = np.array([tcfg.frame_bytes(int(cn.BITS_PER_SYMBOL[c])) - 4 for c in cnst], np.int32)
+    payload = rng.randint(0, 256, (n, maxb)).astype(np.uint8)
+    payload[np.arange(maxb)[None, :] >= plen[:, None]] = 0
+    sent = {"payload": torch.as_tensor(payload, device=dev),
+            "payload_len": torch.as_tensor(plen, device=dev),
+            "cnst_id": torch.as_tensor(cnst.astype(np.int32), device=dev),
+            "frame_no": torch.arange(n, device=dev, dtype=torch.int32) % 4096}
+    pad = torch.as_tensor(rng.randint(0, 256, (n, maxb)).astype(np.uint8), device=dev)
+    out = transmitter.tx_frames(transmitter.build_tx(tcfg, dev), sent["payload"],
+                                sent["payload_len"], sent["cnst_id"],
+                                torch.zeros(n, dtype=torch.int32, device=dev), sent["frame_no"], pad)
+    return out.samples, sent
+
+
+def padded(samples: torch.Tensor, lead: int, total: int) -> torch.Tensor:
+    """The frames as one stream of ``total`` samples, ``lead`` zeros first."""
+    s = torch.zeros(total, dtype=torch.complex64, device=samples.device)
+    s[lead: lead + samples.numel()] = samples.reshape(-1)
+    return s
+
+
+def channels_phase(dev, card) -> tuple:
+    """Phase 13 and 14: the channel models at the uncoded path's N against
+    the port's CPU run, timed; then the receiver behind each of them.
+    Returns the three kernels' launches on the impaired paths, the batch
+    steps (the metric kernel alone), the StreamRx blocks (all three), and
+    the metric kernel's largest error on an impaired stream."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    N = N_CHANNEL
+    x = torch.complex(torch.randn(N, generator=gen, device=dev),
+                      torch.randn(N, generator=gen, device=dev)) * float(np.sqrt(0.5))
+    noise = torch.complex(torch.randn(N, generator=gen, device=dev),
+                          torch.randn(N, generator=gen, device=dev))
+    draws = torch.rand((3, 3, 8), generator=gen, device=dev) * (2 * np.pi)
+    x_cpu = x.cpu()
+    # float32 on both sides in one operation order: what differs is the last
+    # bits of cos / sin and of the fused complex products (values ~1-4).
+    # selective_fading multiplies w = 2 pi f_d cos(alpha) by t up to 3.77e6:
+    # one ulp of a cos(alpha), where the card's and the CPU's differ, is
+    # ~1.4e-4 rad at the end of the stream, on each of 8 sinusoids of a tap.
+    cases = {
+        "channel_model": (lambda s: channel.channel_model(
+            s, noise_voltage=NOISE_V, freq_offset=CHANNEL_CFO, taps=CHANNEL_TAPS,
+            noise=noise.to(s.device)), 2e-5),
+        "sample_clock_offset": (lambda s: channel.sample_clock_offset(s, 50.0), 2e-5),
+        "selective_fading": (lambda s: channel.selective_fading(s, draws=draws.to(s.device)), 2e-3),
+    }
+    for name, (fn, atol) in cases.items():
+        got, want = fn(x).cpu(), fn(x_cpu)
+        check(got.shape == want.shape == (N,) and got.dtype == torch.complex64
+              and bool(torch.isfinite(got.abs()).all()), f"{name}: shape, type or a value not finite")
+        err = (got - want).abs().max().item()
+        err_tail = (got[-TAIL_CHECK:] - want[-TAIL_CHECK:]).abs().max().item()
+        check(err <= atol and err_tail <= atol,
+              f"{name} at N={N}: card vs CPU {err} (last {TAIL_CHECK} samples {err_tail}) over {atol}")
+        del got, want
+        fn(x)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = sorted(cuda_ms(lambda: fn(x), 3) for _ in range(3))
+        peak = torch.cuda.max_memory_allocated() - base
+        _w, busy, n_k = profiled(lambda: fn(x), sacrifice=True)
+        print(f"[channels] {name} at N={N}: card vs CPU max |d| {err:.3e}, on the last {TAIL_CHECK} "
+              f"samples {err_tail:.3e} (bar {atol:g}); {ms[1]:.3f} ms a call by events (median of 3 "
+              f"windows of 3; min {ms[0]:.3f}, max {ms[-1]:.3f}), device busy {busy:.3f} ms, {n_k} "
+              f"device kernels and copies, peak memory above its input {peak / 2**20:.1f} MiB ({card})",
+              flush=True)
+    del x, x_cpu, noise
+    torch.cuda.empty_cache()
+
+    # ---- 14. the receiver behind the channels ----
+    rcfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
+    tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
+    rxp = receiver.build_rx(rcfg, dev)
+    counts, steps, blocks = [0, 0, 0], 0, 0
+    # B = 2048 mixed frames behind 3 taps, a CFO of 0.2 carriers and noise
+    # 0.02, with an unknown offset of 531 samples (tests/test_loopback.py)
+    cnst = np.random.RandomState(SEED).randint(1, 5, size=B).astype(np.int32)
+    samples, sent = tx_batch(tcfg, cnst, dev, SEED + 14)
+    stream = channel.channel_model(padded(samples, 531, N), noise_voltage=NOISE_V,
+                                   freq_offset=CHANNEL_CFO, taps=CHANNEL_TAPS, generator=gen)
+    max_err = kernel_vs_plain({"impaired_main": stream})
+    reset_counts()
+    frames, eps = receiver.detect_and_extract(stream, rcfg, B)
+    out = receiver.rx_frames(rxp, frames)
+    torch.cuda.synchronize()
+    check(read_counts()[0] == 1, "the impaired batch did not launch the Schmidl-Cox kernel once")
+    counts[0] += 1
+    steps += 1
+    d_eps = (eps - CHANNEL_CFO).abs().max().item()
+    check(d_eps <= 0.05, f"channel_model: the detector's fractional CFO is off by {d_eps}")
+    check_decoded(out, sent, f"B={B} behind channel_model")
+    print(f"[channels] B={B} mixed frames behind channel_model (taps {CHANNEL_TAPS}, CFO {CHANNEL_CFO} "
+          f"carriers, noise {NOISE_V}, N={N}): every frame decoded with its payload, fractional CFO "
+          f"estimates within {d_eps:.4f} of {CHANNEL_CFO}, snr_db median "
+          f"{out.snr_db.median().item():.2f}", flush=True)
+    del stream, frames, out, samples
+
+    # 16 QPSK frames through slow Rayleigh selective fading + AWGN at 28 dB
+    # (tests/test_fading_scramble.py::test_fading_loopback): most decode.  How
+    # many depends on the realisation, as Rayleigh fading does (0 to 16 of 16
+    # over the numpy seeds 0..9 on the CPU): the angles are drawn on the host,
+    # seed 5, a realisation without a deep fade over these 16 frames
+    nf = 16
+    fade_draws = torch.as_tensor((np.random.RandomState(5).rand(3, 3, 8) * 2 * np.pi).astype(np.float32),
+                                 device=dev)
+    samples, sent = tx_batch(tcfg, np.full(nf, 2, np.int32), dev, SEED + 15)
+    sig = float((samples.abs() ** 2).mean())
+    faded = channel.selective_fading(padded(samples, 300, 300 + nf * rcfg.frame_samples + 200),
+                                     delays=(0, 2, 5), powers_db=(0.0, -6.0, -9.0),
+                                     doppler_norm=2e-5, draws=fade_draws)
+    stream = channel.awgn(faded, float(np.sqrt(sig / 10 ** 2.8)), generator=gen)
+    reset_counts()
+    frames, _ = receiver.detect_and_extract(stream, rcfg, nf)
+    out = receiver.rx_frames(rxp, frames)
+    check(read_counts()[0] == 1, "the faded batch did not launch the Schmidl-Cox kernel once")
+    counts[0] += 1
+    steps += 1
+    ok = out.crc_ok
+    check(ok.float().mean().item() >= 0.7, f"fading: only {int(ok.sum())} of {nf} frames decoded")
+    check(torch.equal(out.payload[ok], sent["payload"][ok]), "fading: a decoded payload differs")
+    print(f"[channels] {nf} QPSK frames through selective_fading (delays (0, 2, 5), powers (0, -6, -9) "
+          f"dB, Doppler 2e-5) + AWGN at 28 dB: {int(ok.sum())} decoded with their payloads (bar: 70%), "
+          f"snr_db {out.snr_db.min().item():.1f}..{out.snr_db.max().item():.1f}", flush=True)
+
+    # 200 QPSK frames at +-50 ppm of sample-clock offset + AWGN at 25 dB
+    # through StreamRx at F = 8 (tests/test_sfo.py): each decodes once
+    F, n_frames = 8, 200
+    samples, sent = tx_batch(tcfg, np.full(n_frames, 2, np.int32), dev, SEED + 16)
+    sig = float((samples.abs() ** 2).mean())
+    flat = samples.reshape(-1)
+    for ppm in (50.0, -50.0):
+        rx = session.StreamRx(rcfg, dev, frames_per_block=F)
+        S = rx.block_samples
+        stream = torch.cat([flat, torch.zeros(2 * S, dtype=torch.complex64, device=dev)])
+        stream = channel.awgn(channel.sample_clock_offset(stream, ppm),
+                              float(np.sqrt(sig / 10 ** 2.5)), generator=gen)
+        n_blocks = stream.shape[0] // S
+        seen = torch.zeros(n_frames, dtype=torch.int32, device=dev)
+        reset_counts()
+        for b in range(n_blocks):
+            o, valid = rx.process(stream[b * S:(b + 1) * S])
+            good = o.crc_ok & torch.as_tensor(np.asarray(valid), device=dev)
+            nos = o.frame_no[good].long()
+            check(torch.equal(o.payload[good], sent["payload"][nos]), f"SFO {ppm} ppm: a payload differs")
+            seen.index_add_(0, nos, torch.ones_like(nos, dtype=torch.int32))
+        check(read_counts() == (n_blocks,) * 3, f"SFO: kernel launches {read_counts()} in {n_blocks} blocks")
+        counts = [a + n_blocks for a in counts]
+        blocks += n_blocks
+        check(int(seen.max()) <= 1, f"SFO {ppm} ppm: a frame decoded twice")
+        n_dec = int(seen.sum())
+        check(n_dec >= n_frames - 1 and rx.n_lost <= 1,
+              f"SFO {ppm} ppm: {n_dec} of {n_frames} frames decoded, n_lost {rx.n_lost}")
+        print(f"[channels] {n_frames} QPSK frames at {ppm:+g} ppm (a drift of "
+              f"{abs(ppm) * 1e-6 * n_frames * rcfg.frame_samples:.1f} samples) + AWGN at 25 dB through "
+              f"StreamRx F={F}: {n_dec} decoded, each once, with their payloads; n_lost {rx.n_lost}; "
+              f"kernel launches (metric, lock scan, accounting) {read_counts()} in {n_blocks} blocks",
+              flush=True)
+    return counts, steps, blocks, max_err
+
+
+def bursts_phase(dev, card) -> None:
+    """Phase 15: the feedback-burst modem at 4096 bursts a batch, and the
+    continuous scanner over 9 blocks of 4096 samples."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rng = np.random.RandomState(SEED + 17)
+    modem = burst.build_burst_modem(dev)
+    Lb = burst.burst_wave_len(modem)
+    n, cap_len = N_BURSTS, BURST_CAPTURE
+    t = lambda a: torch.as_tensor(a, device=dev)
+    cnst, fec = t(rng.randint(1, 5, n).astype(np.int32)), t(rng.randint(0, 3, n).astype(np.int32))
+    wave = burst.burst_tx(cnst, fec, modem, pad=0)
+    check(wave.shape == (n, Lb) and wave.dtype == torch.complex64, "burst_tx shape or type")
+    delay = t(rng.randint(0, cap_len - Lb, n))
+    rel = torch.arange(cap_len, device=dev)[None, :] - delay[:, None]  # position inside the burst
+    inside = (rel >= 0) & (rel < Lb)
+    cap = torch.where(inside, torch.gather(wave, 1, torch.clamp(rel, 0, Lb - 1)), 0.0)
+    k = torch.arange(cap_len, dtype=torch.float32, device=dev)
+    cfo = t(rng.uniform(-0.004, 0.004, n).astype(np.float32))  # rad/sample
+    cap = cap * torch.polar(torch.ones((n, cap_len), device=dev), cfo[:, None] * k[None, :])
+    cap = channel.awgn(cap, 0.1, generator=gen)
+    out = burst.burst_rx(cap, modem)
+    torch.cuda.synchronize()
+    check(bool(out.ok.all()), f"burst_rx: only {int(out.ok.sum())} of {n} bursts decoded")
+    check(torch.equal(out.cnst_id, cnst) and torch.equal(out.fec_id, fec), "burst_rx: decoded fields differ")
+    d_pos = (out.peak_pos - delay).abs().max().item()
+    d_cfo, d_cfo_med = (out.cfo - cfo).abs().max().item(), (out.cfo - cfo).abs().median().item()
+    # one-shot estimate from two half-preamble phases 75 samples apart, at noise 0.1
+    check(d_pos <= 1 and d_cfo_med <= 1e-3 and d_cfo <= 4e-3,
+          f"burst_rx: start off by {d_pos} samples, CFO by {d_cfo} rad/sample (median {d_cfo_med})")
+    got, want = burst.burst_rx(cap[:64], modem), burst.burst_rx(cap[:64].cpu(), burst.build_burst_modem("cpu"))
+    for f in ("cnst_id", "fec_id", "ok", "peak_pos"):
+        check(torch.equal(getattr(got, f).cpu(), getattr(want, f)), f"burst_rx {f}: card vs CPU")
+    ms = sorted(cuda_ms(lambda: burst.burst_rx(cap, modem), 3) for _ in range(3))[1]
+    quiet = burst.burst_rx(channel.awgn(torch.zeros_like(cap), 0.3, generator=gen), modem)
+    check(not bool(quiet.ok.any()), f"burst_rx decoded {int(quiet.ok.sum())} bursts from noise alone")
+    print(f"[bursts] {n} bursts burst_tx -> delay 0..{cap_len - Lb}, CFO +-0.004 rad/sample, AWGN 0.1 -> "
+          f"burst_rx: all decoded with their fields, start within {d_pos} samples, CFO within "
+          f"{d_cfo:.2e} rad/sample (median {d_cfo_med:.2e}); 64 captures card vs CPU: ints and bools equal; noise alone (0.3) "
+          f"decodes none; burst_rx {ms:.3f} ms a batch by events ({card})", flush=True)
+
+    # the scanner: two bursts inside every block and one across its end
+    N, nb = BURST_BLOCK, BURST_BLOCKS
+    total = torch.zeros((nb + 1) * N, dtype=torch.complex64, device=dev)
+    sent = []
+    for b in range(nb):
+        starts = [b * N + rng.randint(300, 1500), b * N + rng.randint(1800, 3500),
+                  (b + 1) * N - rng.randint(20, Lb - 20)]
+        for s0 in starts:
+            ident = (int(rng.randint(1, 5)), len(sent))  # the FEC byte numbers the burst
+            sent.append(ident)
+            w = burst.burst_tx(t(np.array([ident[0]], np.int32)), t(np.array([ident[1]], np.int32)),
+                               modem, pad=0)[0]
+            total[s0: s0 + Lb] += w
+    kk = torch.arange(total.shape[0], dtype=torch.float32, device=dev)
+    total = channel.awgn(total * torch.polar(torch.ones_like(kk), 0.001 * kk), 0.05, generator=gen)
+    brx = session.StreamBurstRx(N, dev, modem)
+    found, t0 = [], time.perf_counter()
+    for b in range(nb + 1):
+        o = brx.process(total[b * N:(b + 1) * N])
+        okb = o.ok.cpu().numpy()
+        found += [(int(c), int(f)) for c, f in zip(o.cnst_id.cpu().numpy()[okb], o.fec_id.cpu().numpy()[okb])]
+    ms = (time.perf_counter() - t0) * 1e3 / (nb + 1)
+    check(sorted(found) == sorted(sent), f"StreamBurstRx: found {len(found)} bursts "
+          f"({len(set(found))} distinct) of {len(sent)} sent")
+    quiet_rx = session.StreamBurstRx(N, dev, modem)
+    for _ in range(4):
+        o = quiet_rx.process(channel.awgn(torch.zeros(N, dtype=torch.complex64, device=dev), 0.3, generator=gen))
+        check(not bool(o.ok.any()), "StreamBurstRx decoded a burst from noise alone")
+    print(f"[bursts] StreamBurstRx over {nb + 1} blocks of {N} samples, two bursts inside each of {nb} "
+          f"blocks and one across its end, CFO 0.001 rad/sample, AWGN 0.05: {len(found)} of {len(sent)} "
+          f"found, each once; 4 blocks of noise alone: none; {ms:.2f} ms a block, wall clock with the "
+          f"readback ({card})", flush=True)
+
+
+def sync_calls(fn) -> list:
+    """The synchronising CUDA runtime calls the host makes inside fn()."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("traced_rounds"):
+            fn()
+    events = prof.events()
+    span = host_span(events, "traced_rounds")
+    return [e.name for e in events if "Synchronize" in e.name
+            and span.start <= e.time_range.start and e.time_range.end <= span.end]
+
+
+def links_phase(dev, card) -> tuple:
+    """Phases 16 and 17: the in-graph links for 32 rounds, and the
+    streaming simplex pair.  Returns the three kernels' launches in
+    StreamSimplex's run and its blocks."""
+    def timed_run(run, state, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        run(state, 2, generator=gen)  # warm-up: allocator pools, cuBLAS handles
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, telem = run(state, LINK_ROUNDS, generator=gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / LINK_ROUNDS
+        return {k: v.cpu().numpy() for k, v in telem.items()}, ms
+
+    # ---- 16. simplex: forward OFDM, reverse burst ----
+    cfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
+    for name, noise_fwd in (("high", NOISE_HIGH_SNR), ("low", NOISE_LOW_SNR)):
+        run, tables = simplex.build_simplex(cfg, dev, noise_fwd=noise_fwd, noise_rev=0.1)
+        state = simplex.initial_simplex_state(cfg, tables, dev)
+        telem, ms = timed_run(run, state, SEED + 18)
+        tx = telem["tx_cnst"]
+        check(telem["burst_ok"].mean() > 0.9, f"simplex {name}: bursts decoded {telem['burst_ok'].mean():.2f}")
+        check(np.isfinite(telem["snr_db"]).all(), f"simplex {name}: snr_db not finite")
+        if name == "high":
+            check(tx[0] == BPSK and tx[-1] == QAM16 and telem["crc_ok"][-8:].all(),
+                  f"simplex at noise {noise_fwd}: TX constellations {tx.tolist()}")
+            draws = simplex.draw_rounds(run.draw_shapes, 3, dev, torch.Generator(device=dev).manual_seed(1))
+            waits = sync_calls(lambda: run(state, 3, draws=draws))
+            # the one allowed: the upload of the MCS thresholds when run() starts
+            check(len(waits) <= 1, f"simplex.run of 3 rounds made synchronising calls: {waits}")
+            # why the links read their tables through adaptive.lookup
+            table = torch.arange(5, device=dev)
+            by_0dim = sync_calls(lambda: table[state.tx_cnst.long()])
+            by_view = sync_calls(lambda: adaptive.lookup(table, state.tx_cnst))
+            print(f"[links] a table read by a 0-dim tensor index makes {len(by_0dim)} synchronising "
+                  f"calls, through adaptive.lookup {len(by_view)}")
+            check(not by_view, f"adaptive.lookup made synchronising calls: {by_view}")
+        else:
+            check((tx == BPSK).all(), f"simplex at noise {noise_fwd}: TX constellations {tx.tolist()}")
+        print(f"[links] simplex.run, {LINK_ROUNDS} rounds, forward noise {noise_fwd} (snr_db median "
+              f"{np.median(telem['snr_db']):.1f}), reverse bursts at noise 0.1 "
+              f"({int(telem['burst_ok'].sum())} of {LINK_ROUNDS} decoded): TX constellation "
+              f"{tx[0]} -> {tx[-1]}; {ms:.1f} ms a round, wall clock ({card})"
+              + (f"; synchronising calls in 3 traced rounds: {len(waits)}" if name == "high" else ""),
+              flush=True)
+
+    # ---- full duplex, uncoded and on the LDPC path: A->B clean, B->A poor ----
+    Hm = alist.load_alist(str(ROOT / "examples" / BANK_ALISTS[1]))
+    for name, path in (("uncoded", None), ("fec", str(FEC_CONFIG))):
+        cfg = cfgmod.make_full_duplex_config(path, frame_length=FRAME_LENGTH)
+        fec = fec_chain.build_fec(cfg, Hm, dev) if path else None
+        run, tables = full_duplex.build_full_duplex(cfg, dev, noise_ab=NOISE_HIGH_SNR,
+                                                    noise_ba=NOISE_LOW_SNR, fec=fec)
+        state = full_duplex.initial_duplex_state(cfg, tables, dev)
+        telem, ms = timed_run(run, state, SEED + 19)
+        a_tx, b_tx = telem["a_tx_cnst"], telem["b_tx_cnst"]
+        check(a_tx[-1] == QAM16 and telem["b_crc_ok"][-8:].all(),
+              f"full_duplex {name}: the clean direction's TX constellations {a_tx.tolist()}")
+        check(b_tx[-1] == BPSK and (b_tx[-8:] == BPSK).all(),
+              f"full_duplex {name}: the poor direction's TX constellations {b_tx.tolist()}")
+        check(np.isfinite(telem["snr_at_a"]).all() and np.isfinite(telem["snr_at_b"]).all(),
+              f"full_duplex {name}: snr not finite")
+        extra = ""
+        if fec is None:
+            draws = simplex.draw_rounds(run.draw_shapes, 3, dev, torch.Generator(device=dev).manual_seed(1))
+            waits = sync_calls(lambda: run(state, 3, draws=draws))
+            check(len(waits) <= 1, f"full_duplex.run of 3 rounds made synchronising calls: {waits}")
+            extra = f"; synchronising calls in 3 traced rounds: {len(waits)}"
+        else:
+            check((telem["a_tx_fec"] == 1).all() and (telem["b_tx_fec"] == 1).all(),
+                  "full_duplex fec: the one-code ladder left code 1")
+        print(f"[links] full_duplex.run ({name}), {LINK_ROUNDS} rounds, noise A->B {NOISE_HIGH_SNR} "
+              f"(snr_db median {np.median(telem['snr_at_b']):.1f}), B->A {NOISE_LOW_SNR} "
+              f"({np.median(telem['snr_at_a']):.1f}): A's TX {a_tx[0]} -> {a_tx[-1]}, B's "
+              f"{b_tx[0]} -> {b_tx[-1]}; {ms:.1f} ms a round, wall clock ({card}){extra}", flush=True)
+
+    # ---- 17. StreamSimplex: 30 dB forward, a lossy reverse channel ----
+    F, n_steps = DUPLEX_F, 16
+    txcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH, max_empty_frames=-1)
+    rxcfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
+    rng = np.random.RandomState(7)
+    drops = []
+
+    def chan_fwd(s):
+        nv = np.sqrt((float(np.mean(np.abs(s) ** 2)) or 1.0) / 10 ** 3.0)
+        return s + (rng.randn(*s.shape) + 1j * rng.randn(*s.shape)) * nv / np.sqrt(2)
+
+    def chan_rev(s):  # half the reverse blocks blacked out, a CFO, AWGN
+        drops.append(rng.rand() < 0.5)
+        out = np.zeros_like(s) if drops[-1] else s.copy()
+        out = out * np.exp(1j * 0.0015 * np.arange(len(out)))
+        return out + (rng.randn(*out.shape) + 1j * rng.randn(*out.shape)).astype(np.complex64) * 0.02
+
+    spx = session.StreamSimplex(txcfg, rxcfg, chan_fwd, chan_rev, dev, frames_per_block=F, seed=5)
+    spx.tx.send(b"\x55" * 64)
+    reset_counts()
+    t0 = time.perf_counter()
+    history = []
+    for _ in range(n_steps):
+        r = spx.step()
+        check(r is not None, "StreamSimplex stopped")
+        history.append((r["want"], r["applied"], spx.tx.constellation))
+    ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    counts = read_counts()
+    check(counts == (n_steps,) * 3, f"StreamSimplex: kernel launches {counts} in {n_steps} steps")
+    applied = [h[1] for h in history]
+    check(spx.tx.constellation == QAM16, f"StreamSimplex: the TX ended at {spx.tx.constellation}: {history}")
+    check(any(drops) and not all(drops) and any(a is None for a in applied)
+          and any(a is not None for a in applied), "StreamSimplex: the reverse channel lost no burst, or all")
+    cnsts = [BPSK] + [h[2] for h in history]
+    check(all(h[1] is not None for i, h in enumerate(history) if cnsts[i + 1] != cnsts[i]),
+          "StreamSimplex: the TX moved on a step whose burst was lost")
+    print(f"[links] StreamSimplex F={F}, {n_steps} steps, forward 30 dB, reverse blocks dropped "
+          f"{sum(drops)} of {len(drops)} + CFO 0.0015 rad/sample + AWGN 0.02: the TX climbed "
+          f"{BPSK} -> {spx.tx.constellation}, bursts applied on {sum(a is not None for a in applied)} "
+          f"steps, never on a dropped one; kernel launches (metric, lock scan, accounting) {counts}; "
+          f"{ms:.1f} ms a step, wall clock ({card})", flush=True)
+    return counts, n_steps
+
+
+def slice_d_phases(dev, card) -> tuple:
+    """Phases 13-17.  Returns the three kernels' launches on the new paths,
+    the batch steps among them (the metric kernel alone), the session blocks
+    (all three kernels), and the metric kernel's largest error there."""
+    counts, steps, blocks, max_err = channels_phase(dev, card)
+    torch.cuda.empty_cache()
+    bursts_phase(dev, card)
+    link_counts, link_steps = links_phase(dev, card)
+    return tuple(a + b for a, b in zip(counts, link_counts)), steps, blocks + link_steps, max_err
 
 
 if __name__ == "__main__":

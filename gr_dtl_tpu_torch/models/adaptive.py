@@ -25,7 +25,7 @@ import torch
 
 __all__ = ["FeedbackState", "build_mcs_tables", "tables_from_reference", "tables_to",
            "initial_state", "feedback_state_from_reference", "feedback_state_to_numpy",
-           "feedback_step", "feedback_scan", "feedback_scan_masked"]
+           "lookup", "feedback_step", "feedback_scan", "feedback_scan_masked"]
 
 
 class FeedbackState(NamedTuple):
@@ -81,6 +81,13 @@ def feedback_state_to_numpy(state: FeedbackState) -> tuple:
     return tuple(a.cpu().numpy() for a in state)
 
 
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for an integer tensor ``idx`` of any shape, 0-dim
+    included, without a host synchronisation: indexing by a 0-dim tensor
+    reads its value back to the host."""
+    return table[idx.long().reshape(-1)].reshape(idx.shape)
+
+
 def feedback_step(state: FeedbackState, snr_db: torch.Tensor, tables):
     """One decision update.  ``snr_db`` and the state's fields share a
     batch shape.  Returns (state', active MCS id)."""
@@ -92,9 +99,9 @@ def feedback_step(state: FeedbackState, snr_db: torch.Tensor, tables):
     th = tables["decision_th"]
 
     cur = state.last
-    down = snr_db < snr_th[cur.long()]
+    down = snr_db < lookup(snr_th, cur)
     can_up = cur + 1 < n
-    up = can_up & (snr_db > snr_th[torch.clamp(cur + 1, 0, n - 1).long()] + hyst)
+    up = can_up & (snr_db > lookup(snr_th, torch.clamp(cur + 1, 0, n - 1)) + hyst)
 
     candidate = torch.where(down, torch.clamp(cur - 1, min=0), torch.where(up, cur + 1, cur))
     propose = down | up

@@ -27,8 +27,9 @@ path uses ``max_ncws`` static slices per bps and a select instead, a
 TPU gather-avoidance giving the same values for constellations 1..4.)
 
 :func:`tb_reassemble` (streaming reassembly keyed by the header's TB
-number and offset) is a Python loop over frames with tensor state: the
-reference's ``lax.scan``, exact.
+number and offset) is the reference's ``lax.scan``, exact: on a GPU two
+CUDA kernels (``csrc/tb_ring.cu``), on the CPU a Python loop over frames
+with tensor state.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from gr_dtl_tpu_torch.ops import constellation as cn
-from gr_dtl_tpu_torch.ops import gf2, ldpc, repack
+from gr_dtl_tpu_torch.ops import gf2, ldpc, repack, tb_cuda
 from gr_dtl_tpu_torch.utils import config as cfgmod
 
 __all__ = ["CRC_LEN_BITS", "BANK_MM_MAX_CODES", "FecFrameOut", "FecParams", "make_fec_tables",
@@ -473,8 +474,9 @@ def tb_reassemble(state: TbRing, llrs: torch.Tensor, tb_no: torch.Tensor,
     into slot ``tb_offset // frame_bits`` of the buffer for its
     ``tb_no``; a frame announcing a NEW tb_no emits the previous buffer
     (slots never received stay at LLR 0 = erasure).  Header-invalid
-    frames change nothing.  A loop over the frames with tensor state,
-    no host sync.
+    frames change nothing.  On a GPU the two CUDA kernels of
+    ``csrc/tb_ring.cu`` (``ops/tb_cuda``), two launches whatever F; on the
+    CPU a plain loop over the frames.
 
     Args:
       state: TbRing from the previous batch.
@@ -485,6 +487,22 @@ def tb_reassemble(state: TbRing, llrs: torch.Tensor, tb_no: torch.Tensor,
     ``fec_id``/``tb_no`` [F], ``valid`` [F] (a finished TB was emitted at
     this position).
     """
+    if llrs.device.type != "cuda":
+        return _tb_reassemble_torch(state, llrs, tb_no, tb_offset, cnst_id, tb_payload, fec_id,
+                                    ok, fec)
+    # a CUDA tensor takes the kernels or raises
+    frame_bits_of_cnst = fec.cfg.frame_capacity_symbols * cn.BITS_PER_SYMBOL[:5]
+    new, emitted = tb_cuda.tb_reassemble_cuda(
+        tuple(state), llrs, *(a.int() for a in (tb_no, tb_offset, cnst_id, tb_payload, fec_id)),
+        ok, frame_bits_of_cnst)
+    return TbRing(*new), emitted
+
+
+def _tb_reassemble_torch(state: TbRing, llrs: torch.Tensor, tb_no: torch.Tensor,
+                         tb_offset: torch.Tensor, cnst_id: torch.Tensor, tb_payload: torch.Tensor,
+                         fec_id: torch.Tensor, ok: torch.Tensor, fec: FecParams):
+    """:func:`tb_reassemble` as a loop over the frames with tensor state:
+    the reference's ``lax.scan``, exact."""
     W = fec.W
     dev = llrs.device
     bps_tab = cn.tables(dev)[1]

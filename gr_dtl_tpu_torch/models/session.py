@@ -29,9 +29,13 @@ the feedback-driven constellation switch and echo.
 :class:`StreamDuplex` wires two ``StreamTx`` and two ``StreamRx`` into an
 always-on full-duplex modem with in-band adaptation.
 
-Every constructor takes its device explicitly.  ``StreamBurstRx`` and
-``StreamSimplex`` wait for ``ops/burst``; the ``probe=`` telemetry of
-``StreamRx`` waits for ``testbed/monitor`` (ROADMAP.md, queue 1, item T1).
+:class:`StreamBurstRx` scans a continuous reverse capture for feedback
+bursts, and :class:`StreamSimplex` is the always-on simplex pair: OFDM
+frames forward, the MCS decision back as a burst at a jittered position.
+
+Every constructor takes its device explicitly.  The ``probe=`` telemetry
+of ``StreamRx`` waits for ``testbed/monitor`` (ROADMAP.md, queue 1, item
+T1).
 """
 
 from __future__ import annotations
@@ -43,11 +47,12 @@ import numpy as np
 import torch
 
 from gr_dtl_tpu_torch.models import adaptive, fec_chain, receiver, streaming, transmitter
+from gr_dtl_tpu_torch.ops import burst, metrics, sync
 from gr_dtl_tpu_torch.ops import constellation as cn
-from gr_dtl_tpu_torch.ops import metrics, sync
 
 __all__ = ["BlockMasks", "Prefetched", "StreamRx", "StreamRxPipelined", "StreamRxMega",
-           "StreamTx", "StreamDuplex", "snapshot_from_reference"]
+           "StreamTx", "StreamBurstRx", "StreamSimplex", "StreamDuplex",
+           "snapshot_from_reference"]
 
 _PINNED_RING = 2  # pinned ingest buffers a session keeps
 
@@ -564,6 +569,107 @@ class StreamTx:
             "l_total": out.l_total.cpu().numpy(),
         }
         return out.samples.reshape(-1).cpu().numpy(), info
+
+
+class StreamBurstRx:
+    """Continuous reverse-channel scanner: feed me sample chunks of the
+    reverse capture, I emit every feedback burst found (0..max_bursts
+    per block), each exactly once.
+
+    The always-on feedback listener; see ops/burst.build_stream_burst_rx
+    for the scan design.  The held tail and the results stay on the
+    device.
+    """
+
+    def __init__(self, block_samples: int, device, modem=None, max_bursts: int = 4,
+                 threshold: float = 0.5):
+        self.device = torch.device(device)
+        self.modem = modem if modem is not None else burst.build_burst_modem(self.device)
+        self._step, self.tail_len = burst.build_stream_burst_rx(
+            self.modem, block_samples, max_bursts, threshold)
+        self.block_samples = block_samples
+        self._tail = torch.zeros(self.tail_len, dtype=torch.complex64, device=self.device)
+
+    def process(self, chunk) -> burst.BurstRxOut:
+        """One block of ``block_samples`` samples (numpy, or a tensor) ->
+        BurstRxOut with [max_bursts] leading dims, on the device."""
+        if chunk.shape[-1] != self.block_samples:
+            raise ValueError(f"feed exactly {self.block_samples} samples per call, "
+                             f"got {chunk.shape[-1]}")
+        x = torch.as_tensor(chunk).to(self.device, torch.complex64)
+        out = self._step(torch.cat([self._tail, x]))
+        self._tail = x[-self.tail_len:]
+        return out
+
+
+class StreamSimplex:
+    """Always-on simplex modem pair over user-supplied channels.
+
+    The streaming counterpart of models/simplex.py's session: node A
+    streams OFDM frames forward and scans a continuous reverse capture for
+    feedback bursts; node B demodulates frames, runs the MCS decision on
+    its SNR estimates and transmits the decision as a burst at a random
+    (jittered) position inside its reverse block.  Burst loss, jitter, and
+    noise are whatever ``channel_rev`` injects: the adaptation loop must
+    survive them (TX simply keeps its MCS until a burst decodes).
+
+    Args:
+      channel_fwd/channel_rev: callables, numpy samples -> samples as
+        numpy or as a tensor on ``device``.
+      device: where both nodes' work runs.
+      rev_block: reverse-capture samples per step (one scan block).
+      seed: of the numpy generator that draws the burst's position.
+    """
+
+    def __init__(self, txcfg, rxcfg, channel_fwd, channel_rev, device,
+                 frames_per_block: int = 8, rev_block: int = 4096, seed: int = 0):
+        self.device = torch.device(device)
+        self.tx = StreamTx(txcfg, device, frames_per_block)
+        self.rx = StreamRx(rxcfg, device, frames_per_block)
+        self.brx = StreamBurstRx(rev_block, device)
+        self.modem = self.brx.modem
+        self.chan_fwd = channel_fwd
+        self.chan_rev = channel_rev
+        self.rev_block = rev_block
+        self._rng = np.random.RandomState(seed)
+        self.tables = adaptive.build_mcs_tables(rxcfg)
+        self._tables_dev = adaptive.tables_to(self.tables, self.device)
+        self._fb = adaptive.initial_state(rxcfg.initial_mcs_id, (), self.device)
+
+    def step(self):
+        """One forward block + one reverse block; returns telemetry or
+        None when the TX queue and empty budget are exhausted."""
+        blk = self.tx.next_block()
+        if blk is None:
+            return None
+        samples, _info = blk
+        out, valid = self.rx.process(self.chan_fwd(samples))
+        ok = np.asarray(valid.header_ok & valid)
+
+        # RX node: decision on decoded frames -> feedback burst
+        rev = np.zeros(self.rev_block, np.complex64)
+        want = None
+        if ok.any():
+            self._fb, mcs_seq = adaptive.feedback_scan_masked(
+                self._fb, out.snr_db, torch.as_tensor(ok, device=self.device), self._tables_dev)
+            mcs = int(mcs_seq.cpu().numpy()[np.nonzero(ok)[0][-1]])
+            want = (int(self.tables["cnst"][mcs]), int(self.tables["fec"][mcs]))
+            i32 = lambda v: torch.tensor([v], dtype=torch.int32, device=self.device)
+            wave = burst.burst_tx(i32(want[0]), i32(want[1]), self.modem, pad=0)[0].cpu().numpy()
+            off = self._rng.randint(0, self.rev_block - len(wave))
+            rev[off: off + len(wave)] = wave
+
+        # TX node: scan the (lossy) reverse capture, apply the last
+        # decodable burst
+        bout = self.brx.process(self.chan_rev(rev))
+        okb = bout.ok.cpu().numpy()
+        applied = None
+        if okb.any():
+            i = int(np.nonzero(okb)[0][-1])
+            applied = int(bout.cnst_id.cpu().numpy()[i])
+            self.tx.set_feedback(applied)
+        return {"rx": out, "ok": ok, "want": want, "applied": applied,
+                "n_bursts": int(okb.sum())}
 
 
 class StreamDuplex:

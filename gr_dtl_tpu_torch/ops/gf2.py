@@ -30,6 +30,7 @@ __all__ = [
     "CrcSpec",
     "CRC32_FRAME",
     "CRC16_HEADER",
+    "CRC8_FEEDBACK",
     "CrcTables",
     "make_crc_tables",
     "crc_tables",
@@ -89,6 +90,8 @@ class CrcSpec:
 # frame payload CRC32 (reflect in+out) and header CRC16 of the protocol
 CRC32_FRAME = CrcSpec(32, 0x04C11DB7, 0xFFFFFFFF, 0xFFFFFFFF, True, True)
 CRC16_HEADER = CrcSpec(16, 0x1021, 0xFFFF, 0x0, False, True)
+# feedback-burst CRC8 (poly 0x07, init 0xFF, no reflection)
+CRC8_FEEDBACK = CrcSpec(8, 0x07, 0xFF, 0x00, False, False)
 
 
 def _int_to_bits(v: int, width: int) -> np.ndarray:

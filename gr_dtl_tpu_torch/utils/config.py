@@ -24,8 +24,10 @@ __all__ = [
     "OFDMConfig",
     "TxConfig",
     "RxConfig",
+    "FullDuplexConfig",
     "make_tx_config",
     "make_rx_config",
+    "make_full_duplex_config",
     "make_sync_word1",
     "make_sync_word2",
     "config_from_reference",
@@ -188,6 +190,14 @@ class RxConfig(OFDMConfig):
     use_sync_correct: bool = True
 
 
+@dc.dataclass
+class FullDuplexConfig(OFDMConfig):
+    sync_threshold: float = 0.95
+    use_sync_correct: bool = True
+    max_empty_frames: int = -1
+    sample_rate: int = 700000
+
+
 _CNST_NAMES = {
     "bpsk": ConstellationType.BPSK,
     "qpsk": ConstellationType.QPSK,
@@ -236,9 +246,14 @@ def make_rx_config(json_dict=None, **overrides) -> RxConfig:
     return _make_config(RxConfig(), _load(json_dict), **overrides)
 
 
+def make_full_duplex_config(json_dict=None, **overrides) -> FullDuplexConfig:
+    return _make_config(FullDuplexConfig(), _load(json_dict), **overrides)
+
+
 def config_from_reference(ref_cfg) -> OFDMConfig:
-    """The port's config equal to a reference ``TxConfig``/``RxConfig``
+    """The port's config equal to a reference ``TxConfig``/``RxConfig``/``FullDuplexConfig``
     object (read field by field; the reference package is not imported)."""
-    cls = {"TxConfig": TxConfig, "RxConfig": RxConfig}[type(ref_cfg).__name__]
+    cls = {"TxConfig": TxConfig, "RxConfig": RxConfig,
+           "FullDuplexConfig": FullDuplexConfig}[type(ref_cfg).__name__]
     kw = {f.name: getattr(ref_cfg, f.name) for f in dc.fields(cls)}
     return _make_config(cls(), None, **kw)

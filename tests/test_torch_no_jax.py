@@ -19,12 +19,19 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import torch
-from gr_dtl_tpu_torch.ops import scans_cuda, sync_cuda
-assert sync_cuda.timing_metric_cuda.LAUNCHES == 0
+from gr_dtl_tpu_torch.ops import scans_cuda, sync_cuda, tb_cuda
+assert sync_cuda.timing_metric_cuda.LAUNCHES == 0 and tb_cuda.tb_reassemble_cuda.LAUNCHES == 0
 assert scans_cuda.trigger_lock_scan_cuda.LAUNCHES == 0 and scans_cuda.frame_accounting_cuda.LAUNCHES == 0
-from gr_dtl_tpu_torch.models import session
+from gr_dtl_tpu_torch.models import fec_chain, session
+zeros = __import__("numpy").zeros
 rx = session.StreamRx(chip_smoke.cfgmod.make_rx_config(None, frame_length=4), "cpu", frames_per_block=2)
-rx.process(__import__("numpy").zeros(rx.block_samples, "complex64"))  # a block on the CPU needs no kernel
+rx.process(zeros(rx.block_samples, "complex64"))  # a block on the CPU needs no kernel
+# nor does a coded block with two frames a transport block (the TB ring's plain loop)
+cfg = chip_smoke.cfgmod.make_rx_config(str(chip_smoke.FEC_CONFIG), frame_length=10)
+H = chip_smoke.alist.load_alist(str(chip_smoke.ROOT / "examples" / chip_smoke.BANK_ALISTS[0]))
+rx = session.StreamRx(cfg, "cpu", frames_per_block=2, fec=fec_chain.build_fec(cfg, H, "cpu", tb_frames=2))
+assert len(rx.process(zeros(rx.block_samples, "complex64"))) == 3
+assert tb_cuda.tb_reassemble_cuda.LAUNCHES == 0 and sync_cuda.timing_metric_cuda.LAUNCHES == 0
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 print("imported", len(names), "modules:", *names)
 """
@@ -37,11 +44,12 @@ def test_port_imports_without_jax_or_nvcc():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 26, proc.stdout  # every module of slices A, B and C
+    assert n >= 30, proc.stdout  # every module of slices A, B, C and D
     for name in ("utils.alist", "ops.ldpc", "models.fec_chain", "ops.constellation",
                  "models.receiver", "models.transmitter", "ops.sync_cuda", "ops._cuda_build",
                  "ops.scans_cuda", "ops.metrics", "models.adaptive", "models.streaming",
-                 "models.session"):
+                 "models.session", "ops.channel", "ops.burst", "ops.tb_cuda", "models.simplex",
+                 "models.full_duplex"):
         assert f"gr_dtl_tpu_torch.{name}" in proc.stdout.split(), name
 
 
