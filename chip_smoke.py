@@ -11,9 +11,9 @@ as tools/bench_fec.py draws them.  Phases:
 
 1. device: the card's name and power limit, torch/CUDA versions, and
    whether nvcc and triton are present;
-2. build: compiles csrc/sync_metric.cu, csrc/stream_scans.cu and
-   csrc/tb_ring.cu for sm_90a from this checkout, one nvcc each, side by
-   side;
+2. build: compiles csrc/sync_metric.cu, csrc/stream_scans.cu,
+   csrc/tb_ring.cu and csrc/equalizer.cu for sm_90a from this checkout, one
+   nvcc each, side by side;
 3. kernel vs plain: the CUDA Schmidl-Cox kernel against its plain
    PyTorch version on the card, at the uncoded path's N, at two ragged
    lengths, on a [4, N] batch and at the edges of its tiling: one output
@@ -107,11 +107,36 @@ And slice D, at frame_length 20 and the default burst modem:
    TX climbs to 16QAM and never moves on a lost burst; one launch of each
    of the three kernels a step, counted.
 
+And the equalizer kernel (csrc/equalizer.cu), which every receive step of
+every phase above launches four times (header and payload call, two
+passes; reset and counted at every run):
+
+18. kernel vs plain (before phase 4): ``equalize_frame`` on CUDA tensors
+   against ``_equalize_frame_torch`` on synthetic frames at B = 1, 2, 31,
+   32, 33, 1024, 2048, header (n_sym 1) and payload (n_sym 20) calls, mixed
+   constellation ids and each alone, updating and frozen taps, strided
+   views of [B, 23, 64] spectra, and frames placed on the decision
+   boundaries: decisions equal, soft symbols and taps within 1e-5, noise
+   variance within rtol 1e-4, SNR within 1e-3 dB on every row; a row may
+   part from the plain loop only at a symbol whose equalized value lies
+   within 1e-5 of a decision boundary, and such rows are counted (under
+   0.1% of the rows on every input but the last);
+19. on the paths' own tensors: every ``equalize_frame`` call of one uncoded
+   B=2048 step, one coded B=1024 step at 25 and at 11 dB, the first three
+   blocks of StreamRx at F = 16 and 1024 and two rounds of every link also
+   goes through the plain loop, to the same bar; the 11 dB CRC rate beside
+   the one the plain loop gives on the same stream;
+20. a launch census: device kernels and copies a step by stage, for the
+   uncoded and both coded steps, a link round, a stream block;
+21. times: the kernel alone at B = 1, 32, 1024, 2048 for both calls
+   (profiler, over a ring of inputs) against its bound and the plain loop.
+
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
 failure exits non-zero before it.
 """
 
+import contextlib
 import importlib.util
 import json
 import shutil
@@ -125,7 +150,8 @@ import torch
 from gr_dtl_tpu_torch.models import adaptive, fec_chain, full_duplex, receiver, session, simplex
 from gr_dtl_tpu_torch.models import streaming, transmitter
 from gr_dtl_tpu_torch.ops import _cuda_build, burst, channel, constellation as cn, ldpc, metrics
-from gr_dtl_tpu_torch.ops import scans_cuda, sync, sync_cuda, tb_cuda
+from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda, scans_cuda, sync, sync_cuda, tb_cuda
+from gr_dtl_tpu_torch.tools import bench_equalizer as eq_bench
 from gr_dtl_tpu_torch.tools import bench_sync_metric as metric_bench
 from gr_dtl_tpu_torch.utils import alist, config as cfgmod
 
@@ -238,11 +264,13 @@ def main() -> int:
     # ---- 2. build ----
     t0 = time.perf_counter()
     # one nvcc each, side by side
-    _cuda_build.build_all(sync_cuda.build, scans_cuda.build, tb_cuda.build)
+    _cuda_build.build_all(sync_cuda.build, scans_cuda.build, tb_cuda.build, equalizer_cuda.build)
     print(f"[build] csrc/sync_metric.cu -> {sync_cuda.library_path().name}, csrc/stream_scans.cu "
-          f"-> {scans_cuda.library_path().name}, csrc/tb_ring.cu -> {tb_cuda.library_path().name} "
+          f"-> {scans_cuda.library_path().name}, csrc/tb_ring.cu -> {tb_cuda.library_path().name}, "
+          f"csrc/equalizer.cu -> {equalizer_cuda.library_path().name} "
           f"in {time.perf_counter() - t0:.2f} s")
-    for lib in (sync_cuda.library_path(), scans_cuda.library_path(), tb_cuda.library_path()):
+    for lib in (sync_cuda.library_path(), scans_cuda.library_path(), tb_cuda.library_path(),
+                equalizer_cuda.library_path()):
         log = lib.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
             if line.strip():
@@ -271,12 +299,16 @@ def main() -> int:
         "zeros": torch.zeros(3, 5000, dtype=torch.complex64, device=dev)})
     max_err = max(max_err, kernel_vs_plain({"scaled_1e3": 1e3 * randn(3, 9001)}, p_scale=1e6))
 
+    equalizer_vs_plain(dev)
+
     # ---- 4. the slice ----
-    sync_cuda.timing_metric_cuda.LAUNCHES = 0
+    reset_counts()
     out = rx_step(rxp, stream, B)
     torch.cuda.synchronize()
     launches = sync_cuda.timing_metric_cuda.LAUNCHES
-    print(f"[slice] kernel launches in the uncoded slice: {launches}")
+    EQ.counted(1, "uncoded slice")
+    print(f"[slice] kernel launches in the uncoded slice: Schmidl-Cox metric {launches}, equalizer "
+          f"{equalizer_cuda.equalize_frame_cuda.LAUNCHES}")
     check(launches > 0, "the slice did not launch the Schmidl-Cox kernel")
     n_ok = int(out.crc_ok.sum())
     print(f"[slice] crc_ok {n_ok}/{B}, header_ok {int(out.header_ok.sum())}/{B}, "
@@ -287,6 +319,9 @@ def main() -> int:
     check(out.soft_syms.shape == (B, cfg.frame_capacity_symbols)
           and bool(torch.isfinite(out.soft_syms).all()) and bool(torch.isfinite(out.snr_db).all()),
           "soft symbols or SNR not finite or of the wrong shape")
+
+    with EqualizerCheck(f"uncoded B={B}"):
+        rx_step(rxp, stream, B)
 
     small, _ = make_traffic(tcfg, 16, dev, gen)
     got = rx_step(rxp, small, 16)
@@ -336,6 +371,12 @@ def main() -> int:
             stages[k].append(ev[i].elapsed_time(ev[i + 1]))
     print("[timing] per stage, median of 5 (ms; detect_and_extract includes its metric): "
           + ", ".join(f"{k} {sorted(v)[2]:.3f}" for k, v in stages.items()))
+    census(f"uncoded B={B}", {
+        "detect_and_extract": lambda: receiver.detect_and_extract(stream, cfg, B),
+        "demodulate": lambda: receiver.demodulate(rxp, frames),
+        "equalize_passes (4 of them the equalizer kernel)": lambda: receiver.equalize_passes(rxp, spectra, taps),
+        "demap_and_verify": lambda: receiver.demap_and_verify(rxp, pay_eq, fields, header_ok, cnst, carr_off),
+    }, med, card)
 
     # kernel against the plain metric (plain, kernel, kernel, plain) at the
     # main path's N and at a streaming block, L2 cold; the card is `card`
@@ -345,7 +386,7 @@ def main() -> int:
     del stream, out, small, got, want, frames, spectra, pay_eq
 
     # ---- 6-7. the coded path ----
-    launches_coded, max_err_coded = coded_phase(dev, gen)
+    launches_coded, max_err_coded = coded_phase(dev, gen, card)
     print(f"[timing] after coded timing: {smi('clocks.sm,power.draw,temperature.gpu')}")
 
     print(f"[timing] schmidl_cox_metric: launches a step 1 uncoded ({launches} counted), 1 coded "
@@ -365,6 +406,7 @@ def main() -> int:
         entry["launches_per_step"] = entry["launches"] / (stream_blocks + d_blocks)
     stream_blocks += d_steps + d_blocks
     print(f"[timing] after the slice D phases: {smi('clocks.sm,power.draw,temperature.gpu')}")
+    eq_entry = time_equalizer(dev, card)
     print(card)
     print(json.dumps({"kernels": [{
         "name": "schmidl_cox_metric", "route": "cuda",
@@ -376,7 +418,7 @@ def main() -> int:
         "launches_per_step": (launches + launches_coded + stream_launches) / (2 + stream_blocks),
         "max_abs_err": max(max_err, max_err_coded, max_err_stream),
         "ms": timed["kernel_ms"], "ms_by": timed["kernel_ms_by"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}] + scan_kernels + [tb_kernel]}))
+        "bound_by": "bytes", "library_ms": None}] + scan_kernels + [tb_kernel, eq_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -441,7 +483,7 @@ def per_codeword_iters(rxp, stream, n):
     return iters.reshape(n, fec.max_ncws)[:, : int(fec.ncws_tab2[1, 2])]
 
 
-def coded_phase(dev, gen) -> int:
+def coded_phase(dev, gen, card) -> int:
     """Phases 6 and 7; returns the Schmidl-Cox kernel's launches in the
     coded path's run and its largest error against the plain metric on
     the coded streams."""
@@ -462,11 +504,13 @@ def coded_phase(dev, gen) -> int:
     metric_bench.measure("coded_step", streams[25.0][0],
                          torch.Generator(device=dev).manual_seed(SEED + 2))
     stream = streams[25.0][0]
-    sync_cuda.timing_metric_cuda.LAUNCHES = 0
+    reset_counts()
     out = rx_step(rxp, stream, B_FEC)
     torch.cuda.synchronize()
     launches = sync_cuda.timing_metric_cuda.LAUNCHES
-    print(f"[coded] kernel launches in the coded slice: {launches}")
+    EQ.counted(1, "coded slice")
+    print(f"[coded] kernel launches in the coded slice: Schmidl-Cox metric {launches}, equalizer "
+          f"{equalizer_cuda.equalize_frame_cuda.LAUNCHES}")
     check(launches > 0, "the coded slice did not launch the Schmidl-Cox kernel")
     check(out.payload.shape == (B_FEC, fec.max_payload_bytes), "coded payload shape")
     check(bool(torch.isfinite(out.soft_syms).all()) and bool(torch.isfinite(out.avg_iters).all()),
@@ -484,10 +528,23 @@ def coded_phase(dev, gen) -> int:
         check(torch.equal(getattr(got, k).cpu(), getattr(want, k)), f"coded 16-frame {k}: card vs CPU")
     print("[coded] 16 frames at 25 dB, card vs CPU: ints, bools and avg_iters equal")
 
+    with EqualizerCheck(f"coded B={B_FEC} at 25 dB"):
+        rx_step(rxp, stream, B_FEC)
+    reset_counts()
     out = rx_step(rxp, streams[11.0][0], B_FEC)
-    print(f"[coded] 11 dB: crc rate {out.crc_ok.float().mean().item():.4f}, header_ok "
+    EQ.counted(1, "coded slice at 11 dB")
+    with EqualizerCheck(f"coded B={B_FEC} at 11 dB") as chk:
+        rx_step(rxp, streams[11.0][0], B_FEC)
+    with plain_equalizer():
+        out_plain = rx_step(rxp, streams[11.0][0], B_FEC)
+    n_crc, n_crc_plain = int(out.crc_ok.sum()), int(out_plain.crc_ok.sum())
+    print(f"[coded] 11 dB: crc rate {out.crc_ok.float().mean().item():.4f} ({n_crc}/{B_FEC}; with the "
+          f"equalizer's plain loop on the same stream {n_crc_plain / B_FEC:.4f}, {n_crc_plain}/{B_FEC}), header_ok "
           f"{int(out.header_ok.sum())}/{B_FEC}, fec_ok {int(out.fec_ok.sum())}/{B_FEC}, mean BP "
           f"iterations {out.avg_iters.mean().item():.4f}")
+    # a row that parted from the plain loop at a decision boundary may decode otherwise
+    check(abs(n_crc - n_crc_plain) <= chk.boundary_rows,
+          f"coded 11 dB: {n_crc} frames pass their CRC, {n_crc_plain} on the plain equalizer loop")
     check(bool(torch.isfinite(out.avg_iters).all()), "coded 11 dB BP iterations not finite")
     small, _ = noisy(coded_tx(txp, qpsk[:32], None, seed=2)[0], 11.0, gen)
     got = rx_step(rxp, small, 32)
@@ -568,6 +625,14 @@ def coded_phase(dev, gen) -> int:
               + f"; BP message updates run {int(iters.max())} (of 15), on {cw.shape[0]} "
               f"codewords, mean iterations per codeword {iters.float().mean().item():.4f}",
               flush=True)
+        census(f"coded B={B_FEC} at {snr:g} dB", {
+            "detect_and_extract": lambda: receiver.detect_and_extract(stream, rcfg, B_FEC),
+            "demodulate": lambda: receiver.demodulate(rxp, frames),
+            "equalize_passes (4 of them the equalizer kernel)": lambda: receiver.equalize_passes(rxp, spectra, taps),
+            "soft LLRs + serialisation": lambda: receiver.demap_and_verify(
+                rxp, pay_eq, fields, header_ok, cnst, carr_off, defer_fec=True),
+            "fec_frame_decode": lambda: fec_chain.fec_frame_decode(fec, fec_in["llrs"], cnst, fec_in["tb_payload"]),
+        }, med, card)
     return launches, max_err
 
 
@@ -865,7 +930,8 @@ def same_as(results, want, what: str) -> None:
 
 def reset_counts() -> None:
     for w in (sync_cuda.timing_metric_cuda, scans_cuda.trigger_lock_scan_cuda,
-              scans_cuda.frame_accounting_cuda, tb_cuda.tb_reassemble_cuda):
+              scans_cuda.frame_accounting_cuda, tb_cuda.tb_reassemble_cuda,
+              equalizer_cuda.equalize_frame_cuda):
         w.LAUNCHES = 0
 
 
@@ -896,6 +962,7 @@ def uncoded_stream(F: int, rcfg, tcfg, dev, gen, card) -> tuple:
     counts = read_counts()
     check(counts == (n_blocks,) * 3, f"F={F}: kernel launches {counts} in {n_blocks} blocks, "
           "expected one of each a block")
+    EQ.counted(n_blocks, f"F={F} StreamRx")
     got, masks = decoded(plain, dev)
     check(got["frame_no"].shape[0] == n_frames, f"F={F}: {got['frame_no'].shape[0]} frames "
           f"decoded, {n_frames} sent")
@@ -906,13 +973,18 @@ def uncoded_stream(F: int, rcfg, tcfg, dev, gen, card) -> tuple:
     check(not masks["crc_ok"][-F + 1:].any(), f"F={F}: a frame decoded in idle air")
     print(f"[stream] F={F}: {n_blocks} blocks of {F * P} samples ({n_blocks - 1} of traffic, then idle "
           f"air), {n_frames} frames sent: every one decoded once, in order, payloads equal; n_lost "
-          f"0, n_frames {rx.n_frames}; kernel launches (metric, lock scan, accounting) {counts}",
-          flush=True)
+          f"0, n_frames {rx.n_frames}; kernel launches (metric, lock scan, accounting) {counts}, "
+          f"equalizer {EQ_PER_STEP * n_blocks} ({EQ_PER_STEP} a block)", flush=True)
 
     # the metric kernel against its plain version at the step's length
     ext = torch.as_tensor(stream[: rx.tail_len + F * P], device=dev)
     max_err = kernel_vs_plain({f"stream_block_F{F}": ext})
     scan_err = scans_on_path(rcfg, F, stream, plain, dev, f"uncoded stream F={F}")
+    if F in (min(STREAM_F), max(STREAM_F)):
+        rx_chk = mk["StreamRx"]()
+        with EqualizerCheck(f"StreamRx F={F}, blocks 0-2"):
+            for b in range(3):
+                rx_chk.process(stream[b * F * P:(b + 1) * F * P])
 
     # the variants, in turns with StreamRx; their results against StreamRx's
     times = {k: {"wall": [], "dev": []} for k in mk}
@@ -927,6 +999,7 @@ def uncoded_stream(F: int, rcfg, tcfg, dev, gen, card) -> tuple:
             w, d, res = run_receiver(r, stream, prefetch=(rnd == 1 and name != "StreamRx"))
             check(read_counts() == (n_blocks,) * 3, f"F={F} {name}: kernel launches {read_counts()} "
                   f"in {n_blocks} blocks, expected one of each a block")
+            EQ.counted(n_blocks, f"F={F} {name}")
             per = r.dispatch_samples // (F * P)  # blocks a call
             times[name]["wall"].append([x / per for x in w])
             times[name]["dev"].append([x / per for x in d])
@@ -934,7 +1007,8 @@ def uncoded_stream(F: int, rcfg, tcfg, dev, gen, card) -> tuple:
             check((r.n_lost, r.n_frames) == (rx.n_lost, rx.n_frames), f"F={F} {name}: counters")
     print(f"[stream] F={F}: {', '.join(k for k in mk if k != 'StreamRx')} (numpy and prefetched "
           "ingest) equal StreamRx bit for bit: masks, frame_no, payload, n_lost, n_frames; each run "
-          f"launched each of the three kernels {n_blocks} times in {n_blocks} blocks")
+          f"launched each of the three kernels {n_blocks} times in {n_blocks} blocks and the equalizer "
+          f"kernel {EQ_PER_STEP * n_blocks} times")
 
     # one profiled block of each receiver, after its warm-up
     for name, make in mk.items():
@@ -958,7 +1032,8 @@ def uncoded_stream(F: int, rcfg, tcfg, dev, gen, card) -> tuple:
               f"{[round(x, 3) for x in med_w]} -> {best:.3f} ms = {F * P / best / 1e3:.3f} "
               f"Msamples/s; CUDA-event ms a block {[round(x, 3) for x in med_d]}; profiled block: "
               f"wall {w_ms / per:.3f} ms (the profiler stretches it), device busy {busy / per:.3f} ms, "
-              f"{n_k / per:.0f} device kernels and copies a block; idle share {1 - busy / per / best:.4f} "
+              f"{n_k / per:.0f} device kernels and copies a block (4,223-4,229 with the equalizer as a Python "
+              f"loop); idle share {1 - busy / per / best:.4f} "
               f"against the unprofiled median, {1 - busy / w_ms:.4f} inside the profiled block ({card})",
               flush=True)
     del stream, sent, plain, got
@@ -1044,7 +1119,7 @@ def no_sync_in_dispatch(rcfg, tcfg, dev, gen) -> None:
         inside = [e for e in events if span.start <= e.time_range.start and e.time_range.end <= span.end]
         launches = [e.time_range for e in inside if e.name.startswith("cudaLaunchKernel")]
         waits = [e.time_range for e in inside if "Synchronize" in e.name]
-        check(len(launches) > 1000, f"pipelined block {i}: the profiler recorded {len(launches)} launches")
+        check(len(launches) > 100, f"pipelined block {i}: the profiler recorded {len(launches)} launches")
         # process(k+1) = dispatch of k+1, then the wait for k's vector
         check(len(waits) == 1 and waits[0].start >= max(t.end for t in launches),
               f"pipelined block {i}: {len(waits)} synchronising calls in process(), or one before the "
@@ -1084,6 +1159,7 @@ def card_vs_cpu_stream(rcfg, tcfg, dev, gen) -> None:
     check((rx.n_lost, rx.n_frames) == (rx_cpu.n_lost, rx_cpu.n_frames), "stream counters: card vs CPU")
     check(read_counts() == (4, 4, 4), f"card vs CPU: kernel launches {read_counts()} in 4 blocks on the "
           "card (the CPU session launches none)")
+    EQ.counted(4, "card vs CPU stream")
     # float32 on both, summed in other orders (cuBLAS and CPU matmuls)
     check(worst <= 1e-3, f"stream snr_db: card vs CPU differ by {worst} relative")
     print(f"[stream] 4 blocks at F=16, card vs CPU: masks, frame numbers, payload bytes and "
@@ -1151,6 +1227,7 @@ def coded_stream(dev, gen, card) -> tuple:
     counts = read_counts()
     tb_launches = tb_cuda.tb_reassemble_cuda.LAUNCHES
     check(counts == (n_blocks,) * 3, f"coded stream: kernel launches {counts} in {n_blocks} blocks")
+    EQ.counted(n_blocks, "coded stream")
     check(tb_launches == 2 * n_blocks, f"coded stream: {tb_launches} TB ring kernel launches in "
           f"{n_blocks} blocks, expected the walk and the copy once a block")
     scan_err = scans_on_path(rcfg, F, stream, results, dev, f"coded stream F={F}")
@@ -1234,6 +1311,7 @@ def tx_rx_and_duplex(dev, gen, card) -> tuple:
     counts = read_counts()
     n_rx_blocks = n_tx_blocks + 1
     check(counts == (n_rx_blocks,) * 3, f"TX -> RX: kernel launches {counts} in {n_rx_blocks} blocks")
+    EQ.counted(n_rx_blocks, "StreamTx -> StreamRx")
     check(b"".join(got) == b"".join(pdus), "StreamTx -> StreamRx: the PDUs' bytes did not come back in order")
     check(n_empty == 1 and rx.n_lost == 0, f"StreamTx: {n_empty} all-empty blocks for a budget of "
           f"{F} frames, n_lost {rx.n_lost}")
@@ -1266,6 +1344,7 @@ def tx_rx_and_duplex(dev, gen, card) -> tuple:
         runs[serialize] = (dpx, res, (time.perf_counter() - t0) * 1e3 / 12)
         check(read_counts() == (24, 24, 24), f"duplex: kernel launches {read_counts()} in 12 steps of "
               "two receivers, expected 2 of each a step")
+        EQ.counted(24, "StreamDuplex, two receivers a step")
         counts = tuple(a + b for a, b in zip(counts, read_counts()))
         n_rx_blocks += 24
         check(all(r is not None for r in res), "StreamDuplex stopped")
@@ -1583,6 +1662,7 @@ def channels_phase(dev, card) -> tuple:
     out = receiver.rx_frames(rxp, frames)
     torch.cuda.synchronize()
     check(read_counts()[0] == 1, "the impaired batch did not launch the Schmidl-Cox kernel once")
+    EQ.counted(1, "the impaired batch")
     counts[0] += 1
     steps += 1
     d_eps = (eps - CHANNEL_CFO).abs().max().item()
@@ -1612,6 +1692,7 @@ def channels_phase(dev, card) -> tuple:
     frames, _ = receiver.detect_and_extract(stream, rcfg, nf)
     out = receiver.rx_frames(rxp, frames)
     check(read_counts()[0] == 1, "the faded batch did not launch the Schmidl-Cox kernel once")
+    EQ.counted(1, "the faded batch")
     counts[0] += 1
     steps += 1
     ok = out.crc_ok
@@ -1643,6 +1724,7 @@ def channels_phase(dev, card) -> tuple:
             check(torch.equal(o.payload[good], sent["payload"][nos]), f"SFO {ppm} ppm: a payload differs")
             seen.index_add_(0, nos, torch.ones_like(nos, dtype=torch.int32))
         check(read_counts() == (n_blocks,) * 3, f"SFO: kernel launches {read_counts()} in {n_blocks} blocks")
+        EQ.counted(n_blocks, f"StreamRx at {ppm:+g} ppm")
         counts = [a + n_blocks for a in counts]
         blocks += n_blocks
         check(int(seen.max()) <= 1, f"SFO {ppm} ppm: a frame decoded twice")
@@ -1748,14 +1830,17 @@ def links_phase(dev, card) -> tuple:
     """Phases 16 and 17: the in-graph links for 32 rounds, and the
     streaming simplex pair.  Returns the three kernels' launches in
     StreamSimplex's run and its blocks."""
-    def timed_run(run, state, seed):
+    def timed_run(run, state, seed, what, rx_per_round):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        run(state, 2, generator=gen)  # warm-up: allocator pools, cuBLAS handles
+        with EqualizerCheck(f"{what}, 2 rounds at B=1"):  # and warm-up: allocator pools, cuBLAS handles
+            run(state, 2, generator=gen)
         torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
         state, telem = run(state, LINK_ROUNDS, generator=gen)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / LINK_ROUNDS
+        EQ.counted(rx_per_round * LINK_ROUNDS, f"{what}, {rx_per_round} receive steps a round")
         return {k: v.cpu().numpy() for k, v in telem.items()}, ms
 
     # ---- 16. simplex: forward OFDM, reverse burst ----
@@ -1763,7 +1848,7 @@ def links_phase(dev, card) -> tuple:
     for name, noise_fwd in (("high", NOISE_HIGH_SNR), ("low", NOISE_LOW_SNR)):
         run, tables = simplex.build_simplex(cfg, dev, noise_fwd=noise_fwd, noise_rev=0.1)
         state = simplex.initial_simplex_state(cfg, tables, dev)
-        telem, ms = timed_run(run, state, SEED + 18)
+        telem, ms = timed_run(run, state, SEED + 18, f"simplex.run ({name} SNR)", 1)
         tx = telem["tx_cnst"]
         check(telem["burst_ok"].mean() > 0.9, f"simplex {name}: bursts decoded {telem['burst_ok'].mean():.2f}")
         check(np.isfinite(telem["snr_db"]).all(), f"simplex {name}: snr_db not finite")
@@ -1781,6 +1866,10 @@ def links_phase(dev, card) -> tuple:
             print(f"[links] a table read by a 0-dim tensor index makes {len(by_0dim)} synchronising "
                   f"calls, through adaptive.lookup {len(by_view)}")
             check(not by_view, f"adaptive.lookup made synchronising calls: {by_view}")
+            _w, busy, n_k = profiled(lambda: run(state, 3, draws=draws), sacrifice=True)
+            print(f"[links] simplex.run, 3 profiled rounds: {n_k / 3:.0f} device kernels and copies a round "
+                  f"({EQ_PER_STEP} of them the equalizer kernel), device busy {busy / 3:.3f} ms a round, idle "
+                  f"share {1 - busy / 3 / ms:.4f} of the {ms:.1f} ms round ({card})")
         else:
             check((tx == BPSK).all(), f"simplex at noise {noise_fwd}: TX constellations {tx.tolist()}")
         print(f"[links] simplex.run, {LINK_ROUNDS} rounds, forward noise {noise_fwd} (snr_db median "
@@ -1798,7 +1887,7 @@ def links_phase(dev, card) -> tuple:
         run, tables = full_duplex.build_full_duplex(cfg, dev, noise_ab=NOISE_HIGH_SNR,
                                                     noise_ba=NOISE_LOW_SNR, fec=fec)
         state = full_duplex.initial_duplex_state(cfg, tables, dev)
-        telem, ms = timed_run(run, state, SEED + 19)
+        telem, ms = timed_run(run, state, SEED + 19, f"full_duplex.run ({name})", 2)
         a_tx, b_tx = telem["a_tx_cnst"], telem["b_tx_cnst"]
         check(a_tx[-1] == QAM16 and telem["b_crc_ok"][-8:].all(),
               f"full_duplex {name}: the clean direction's TX constellations {a_tx.tolist()}")
@@ -1811,7 +1900,9 @@ def links_phase(dev, card) -> tuple:
             draws = simplex.draw_rounds(run.draw_shapes, 3, dev, torch.Generator(device=dev).manual_seed(1))
             waits = sync_calls(lambda: run(state, 3, draws=draws))
             check(len(waits) <= 1, f"full_duplex.run of 3 rounds made synchronising calls: {waits}")
-            extra = f"; synchronising calls in 3 traced rounds: {len(waits)}"
+            _w, busy, n_k = profiled(lambda: run(state, 3, draws=draws), sacrifice=True)
+            extra = (f"; synchronising calls in 3 traced rounds: {len(waits)}; {n_k / 3:.0f} device kernels and "
+                     f"copies a round, device busy {busy / 3:.3f} ms, idle share {1 - busy / 3 / ms:.4f}")
         else:
             check((telem["a_tx_fec"] == 1).all() and (telem["b_tx_fec"] == 1).all(),
                   "full_duplex fec: the one-code ladder left code 1")
@@ -1849,6 +1940,7 @@ def links_phase(dev, card) -> tuple:
     ms = (time.perf_counter() - t0) * 1e3 / n_steps
     counts = read_counts()
     check(counts == (n_steps,) * 3, f"StreamSimplex: kernel launches {counts} in {n_steps} steps")
+    EQ.counted(n_steps, "StreamSimplex")
     applied = [h[1] for h in history]
     check(spx.tx.constellation == QAM16, f"StreamSimplex: the TX ended at {spx.tx.constellation}: {history}")
     check(any(drops) and not all(drops) and any(a is None for a in applied)
@@ -1873,6 +1965,188 @@ def slice_d_phases(dev, card) -> tuple:
     bursts_phase(dev, card)
     link_counts, link_steps = links_phase(dev, card)
     return tuple(a + b for a, b in zip(counts, link_counts)), steps, blocks + link_steps, max_err
+
+# ---------------------------------------------------------------------------
+# phases 18-21: the equalizer kernel (csrc/equalizer.cu)
+# ---------------------------------------------------------------------------
+
+EQ_PER_STEP = 4  # header and payload call, two passes (eq_passes = 2)
+EQ_CHECK_B = (1, 2, 31, 32, 33, 1024, 2048)
+
+
+class EqualizerLedger:
+    """What the script has seen of the equalizer kernel: its launches over
+    the counted runs of the main paths (4 a receive step, checked at every
+    run) and its comparisons with the plain loop."""
+
+    def __init__(self):
+        self.launches = self.steps = self.rows = self.boundary_rows = 0
+        self.max_abs_err = 0.0
+
+    def counted(self, steps: int, what: str, per_step: int = EQ_PER_STEP) -> None:
+        """After a run that began with the counts at 0."""
+        n = equalizer_cuda.equalize_frame_cuda.LAUNCHES
+        check(n == per_step * steps, f"{what}: {n} equalizer kernel launches in {steps} receive "
+              f"steps, expected {per_step} a step")
+        self.launches += n
+        self.steps += steps
+
+    def compared(self, res: dict, what: str) -> None:
+        check(res["fault_rows"] == 0, f"equalizer kernel vs plain on {what}: {res}")
+        self.rows += res["rows"]
+        self.boundary_rows += res["boundary_rows"]
+        self.max_abs_err = max(self.max_abs_err, res["max_abs_err"])
+
+
+EQ = EqualizerLedger()
+
+
+class EqualizerCheck:
+    """While active, every ``equalize_frame`` call a receive step makes also
+    goes through the plain loop on the same tensors, and the two are held
+    to the bar of ``equalizer_cuda.compare_with_plain`` (decisions equal,
+    soft and taps within 1e-5; rows that part on a decision boundary counted
+    apart, under 0.1% of the rows).  The step goes on with the kernel's
+    outputs.  Reads the device at every call: for check runs only."""
+
+    def __init__(self, what: str):
+        self.what, self.calls, self.rows, self.boundary_rows, self.max_abs_err = what, 0, 0, 0, 0.0
+
+    def __enter__(self):
+        self._orig = equalizer.equalize_frame
+
+        def both(spectra, init_taps, cnst_id, eq, sym_offset=0):
+            got = self._orig(spectra, init_taps, cnst_id, eq, sym_offset)
+            want = equalizer._equalize_frame_torch(spectra, init_taps, cnst_id, eq, sym_offset)
+            res = equalizer_cuda.compare_with_plain(got, want, cnst_id, eq, sym_offset)
+            EQ.compared(res, f"{self.what}, call {self.calls} ({tuple(spectra.shape)}, strides "
+                        f"{spectra.stride()}, sym_offset {sym_offset})")
+            self.calls += 1
+            self.rows += res["rows"]
+            self.boundary_rows += res["boundary_rows"]
+            self.max_abs_err = max(self.max_abs_err, res["max_abs_err"])
+            return got
+
+        equalizer.equalize_frame = both
+        return self
+
+    def __exit__(self, *exc):
+        equalizer.equalize_frame = self._orig
+        if exc[0] is None:
+            check(self.calls > 0, f"{self.what}: the path made no equalize_frame call")
+            check(self.boundary_rows <= max(1, self.rows // 1000),
+                  f"{self.what}: {self.boundary_rows} of {self.rows} rows part from the plain loop")
+            print(f"[equalizer] on the path's own tensors, {self.what}: {self.calls} equalize_frame calls, "
+                  f"{self.rows} rows: kernel vs plain loop 0 fault rows, {self.boundary_rows} rows parted at a "
+                  f"decision boundary, max abs err on the others {self.max_abs_err:.2e}", flush=True)
+
+
+@contextlib.contextmanager
+def plain_equalizer():
+    """The receive step on the plain loop (what the port ran before the kernel)."""
+    orig = equalizer.equalize_frame
+    equalizer.equalize_frame = equalizer._equalize_frame_torch
+    try:
+        yield
+    finally:
+        equalizer.equalize_frame = orig
+
+
+def equalizer_vs_plain(dev) -> None:
+    """Phase 18: the kernel against the plain loop on synthetic frames at
+    the shapes the paths hand it (header call n_sym 1, payload call n_sym
+    20), B = 1 .. 2048, mixed constellations (with an id 0) at every B and
+    each constellation alone at B = 33 and 2048, updating and frozen taps,
+    a strided view of a frame's spectra, and frames whose first symbol sits
+    within 2e-6 of the decision boundaries."""
+    n_cases = 0
+    for alpha in (0.1, 1.0):
+        eq = eq_bench.eq_tables(dev, alpha)
+        for B in EQ_CHECK_B:
+            ids = {"mixed": np.array([(1, 2, 3, 4, 0)[i % 5] for i in range(B)], np.int32)}
+            if B in (33, 2048):
+                ids.update({f"cnst {c}": np.full(B, c, np.int32) for c in (1, 2, 3, 4)})
+            if alpha == 1.0 and B not in (33, 2048):
+                continue
+            for name, cnst in ids.items():
+                for call, (n_sym, off) in eq_bench.CALLS.items():
+                    args = eq_bench.on_device(eq_bench.frame_inputs(eq, B, n_sym, off, cnst, B + n_sym), cnst, dev)
+                    before = equalizer_cuda.equalize_frame_cuda.LAUNCHES
+                    res = eq_bench.held_to_plain(eq, args, off, f"B={B} {call} {name} alpha={alpha}")
+                    check(equalizer_cuda.equalize_frame_cuda.LAUNCHES == before + 1,
+                          "equalize_frame on CUDA tensors did not launch the kernel once")
+                    check(res["boundary_rows"] <= max(1, B // 1000), f"B={B} {call} {name}: {res}")
+                    EQ.compared(res, f"B={B} {call} {name}")
+                    n_cases += 1
+    print(f"[equalizer] kernel vs plain loop on synthetic frames: {n_cases} cases (B = {list(EQ_CHECK_B)}, "
+          f"header and payload calls, mixed ids and each alone, alpha 0.1 and 1.0): 0 fault rows, "
+          f"{EQ.boundary_rows} of {EQ.rows} rows parted at a decision boundary, max abs err on the others "
+          f"{EQ.max_abs_err:.2e} (bar: decisions equal, soft and taps atol 1e-5)", flush=True)
+
+    eq = eq_bench.eq_tables(dev)
+    B = 2048
+    cnst = eq_bench.mixed_ids(B)
+    data, taps0 = eq_bench.frame_inputs(eq, B, 1 + FRAME_LENGTH, 0, cnst, 5)
+    frame = torch.zeros((B, 2 + 1 + FRAME_LENGTH, 64), dtype=torch.complex64, device=dev)
+    frame[:, 2:] = torch.as_tensor(data, device=dev)
+    taps, ids = torch.as_tensor(taps0, device=dev), torch.as_tensor(cnst, device=dev)
+    hdr_args = (frame[:, 2:3], taps, torch.ones_like(ids))
+    EQ.compared(eq_bench.held_to_plain(eq, hdr_args, 0, "strided header view"), "strided header view")
+    hdr = equalizer.equalize_frame(*hdr_args, eq, 0)
+    res = eq_bench.held_to_plain(eq, (frame[:, 3:], hdr.taps, ids), 1, "strided payload view")
+    EQ.compared(res, "strided payload view")
+    print(f"[equalizer] strided views of [B, 23, 64] spectra (strides {frame[:, 3:].stride()}) at B={B}: header "
+          f"and payload calls equal the plain loop ({res['boundary_rows']} boundary rows)")
+
+    args = eq_bench.on_device(eq_bench.boundary_inputs(eq, B, FRAME_LENGTH, 1, cnst, 7), cnst, dev)
+    res = eq_bench.held_to_plain(eq, args, 1, "frames at the decision boundaries")
+    print(f"[equalizer] B={B} frames whose first payload symbol sits within 2e-6 of a decision boundary on "
+          f"every data carrier: 0 fault rows, {res['boundary_rows']} rows decided differently from the plain "
+          f"loop (each at a carrier within 1e-5 of a boundary)", flush=True)
+
+
+def census(what: str, stages: dict, step_ms: float, card: str) -> None:
+    """Device kernels and copies, and device busy ms, of each stage of one
+    receive step, each stage profiled alone after one sacrificed call."""
+    total_n, total_busy, parts = 0, 0.0, []
+    for name, fn in stages.items():
+        for _ in range(3):  # a profiler window now and then comes back empty
+            _w, busy, n = profiled(fn, sacrifice=True)
+            if n:
+                break
+        check(n > 0, f"census of {what}: the profiler saw no device work in {name}")
+        total_n += n
+        total_busy += busy
+        parts.append(f"{name} {n} ({busy:.3f} ms busy)")
+    print(f"[census] {what}: device kernels and copies a step by stage: " + ", ".join(parts)
+          + f"; {total_n} a step, device busy {total_busy:.3f} ms, idle share {1 - total_busy / step_ms:.4f} "
+          f"of the {step_ms:.3f} ms step median ({card})", flush=True)
+
+
+def time_equalizer(dev, card: str) -> dict:
+    """Phase 21: the kernel alone at the paths' shapes (tools/bench_equalizer
+    times it the same way); returns its entry for the ``kernels`` line, at
+    the uncoded step's payload call."""
+    eq = eq_bench.eq_tables(dev)
+    timed = {(B, call): eq_bench.measure(eq, B, call, dev, card)
+             for B in eq_bench.BATCHES for call in eq_bench.CALLS}
+    for r in timed.values():
+        EQ.compared(r, f"B={r['B']} {r['call']}")
+    B = max(eq_bench.BATCHES)  # the uncoded step's batch
+    step = sum(timed[(B, call)]["ms"] for call in eq_bench.CALLS) * 2
+    bound = sum(timed[(B, call)]["bound_ms"] for call in eq_bench.CALLS) * 2
+    print(f"[equalizer] a receive step at B={B}: {EQ_PER_STEP} launches, {step * 1e3:.2f} us of kernel time "
+          f"against a bound of {bound * 1e3:.2f} us ({card})")
+    t = timed[(B, "payload")]
+    return {"name": "equalize_frame", "route": "cuda",
+            "source": "gr_dtl_tpu_torch/csrc/equalizer.cu",
+            "replaces": "gr_dtl_tpu/ops/equalizer.py:189",
+            "launches": EQ.launches, "launches_per_step": EQ.launches / EQ.steps,
+            "max_abs_err": EQ.max_abs_err, "boundary_rows": EQ.boundary_rows, "rows_compared": EQ.rows,
+            "ms": t["ms"], "ms_by": "profiler", "enqueue_ms": t["enqueue_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes", "bytes": t["bytes"], "library_ms": None,
+            "at_B": B, "at_n_sym": t["n_sym"],
+            "ms_at_B": {f"{b}/{c}": timed[(b, c)]["ms"] for b, c in timed}}
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ __all__ = [
     "hard_decision",
     "nearest_point",
     "nearest_point_table",
+    "near_decision_boundary",
     "soft_llrs",
     "soft_llrs_table",
 ]
@@ -210,6 +211,34 @@ def nearest_point_table(y: torch.Tensor, cnst_id: torch.Tensor):
     idx = torch.argmin(d2, dim=-1)  # first minimum, as jnp.argmin
     point = torch.gather(pts[..., None, :].expand(d2.shape), -1, idx[..., None])[..., 0]
     return idx.int(), point
+
+
+def near_decision_boundary(y: torch.Tensor, cnst_id: torch.Tensor, eps: float) -> torch.Tensor:
+    """True where ``y`` lies within ``eps`` of a decision boundary of
+    :func:`nearest_point` under its constellation: the imaginary axis for
+    BPSK (and every id outside 2..4, which it decides as BPSK), both axes
+    for QPSK, the eight rays midway between the points for 8PSK, the lines
+    re, im = -2l, 0, 2l for 16QAM.  Two float32 implementations of the
+    slicers can decide differently only there.
+
+    Args:
+      y:       [..., n] complex symbols.
+      cnst_id: per-frame constellation ids broadcastable to y's batch dims.
+      eps:     distance in the plane.
+    """
+    cid = _expand_to(cnst_id, y.shape)
+    re, im = y.real, y.imag
+    near_re, near_im = re.abs() <= eps, im.abs() <= eps
+    # 8PSK: distance to the nearest ray at an odd multiple of pi / 8 (the
+    # arc to it, which bounds the distance from above; the origin lies on all)
+    t = torch.atan2(im, re) * (4.0 / math.pi)
+    to_ray = (t - torch.floor(t) - 0.5).abs() * (math.pi / 4.0)
+    near_p = torch.abs(y) * to_ray <= eps
+    two_l = float(np.float32(2.0) * (np.float32(1.0) / np.sqrt(np.float32(10.0))))
+    near_m = ((re.abs() - two_l).abs() <= eps) | ((im.abs() - two_l).abs() <= eps) | near_re | near_im
+    return torch.where(cid == int(ConstellationType.QPSK), near_re | near_im,
+                       torch.where(cid == int(ConstellationType.PSK8), near_p,
+                                   torch.where(cid == int(ConstellationType.QAM16), near_m, near_re)))
 
 
 def _build_psk8_masks():

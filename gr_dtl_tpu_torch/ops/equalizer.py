@@ -2,11 +2,13 @@
 (port of gr_dtl_tpu/ops/equalizer.py).
 
 The decision-directed update is sequential across OFDM symbols and
-independent across carriers, so it is a Python loop over the frame's
-symbols with all carriers and the whole frame batch vectorized; masks
-select pilot/data/idle carriers.  Each symbol step is about twenty
-small elementwise launches on a GPU (ROADMAP K2 is the hand kernel for
-it).
+independent across carriers.  On CUDA tensors :func:`equalize_frame` is
+one launch of the hand-written kernel of ``csrc/equalizer.cu``
+(``ops/equalizer_cuda``), whatever the number of symbols.  Its plain
+version, :func:`_equalize_frame_torch`, is a Python loop over the frame's
+symbols with all carriers and the whole frame batch vectorized (masks
+select pilot/data/idle carriers, ~90 small launches a symbol on a GPU); it
+serves CPU tensors and is what the kernel is held against.
 
 Semantics, as the reference's:
  - taps update ``H = alpha*H + (1-alpha) * Y/ref`` with ``ref`` the known
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from gr_dtl_tpu_torch.ops import constellation as cn
-from gr_dtl_tpu_torch.ops import ofdm
+from gr_dtl_tpu_torch.ops import equalizer_cuda, ofdm
 
 __all__ = ["Equalizer", "build_equalizer", "equalizer_from_reference",
            "equalize_frame", "EqualizerOut"]
@@ -95,6 +97,16 @@ def equalize_frame(spectra: torch.Tensor, init_taps: torch.Tensor,
       sym_offset: absolute data-symbol index of spectra[:, 0] (0 = the
                  first header symbol); selects the pilot sets.
     """
+    if spectra.device.type != "cuda":
+        return _equalize_frame_torch(spectra, init_taps, cnst_id, eq, sym_offset)
+    # a CUDA tensor takes the kernel or raises
+    return EqualizerOut(*equalizer_cuda.equalize_frame_cuda(spectra, init_taps, cnst_id.int(), eq,
+                                                            sym_offset))
+
+
+def _equalize_frame_torch(spectra: torch.Tensor, init_taps: torch.Tensor,
+                          cnst_id: torch.Tensor, eq: Equalizer, sym_offset: int = 0) -> EqualizerOut:
+    """:func:`equalize_frame` in plain PyTorch, on any device."""
     B, n_sym, fft_len = spectra.shape
     pil = eq.pilot_mask
     alpha = eq.alpha
@@ -110,7 +122,7 @@ def equalize_frame(spectra: torch.Tensor, init_taps: torch.Tensor,
 
     # The reference freezes the taps from alpha >= 0.9995 on, though the
     # shortcut is exact only at alpha == 1; the port keeps that threshold.
-    if float(alpha) >= 0.9995:
+    if float(alpha) >= equalizer_cuda.FROZEN_ALPHA:
         pv = pvs[None]
         eqd = spectra / init_taps[:, None, :]
         _, dec = cn.nearest_point(eqd, sym_cnst[:, :, None])

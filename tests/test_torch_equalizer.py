@@ -29,7 +29,7 @@ ATOL = 1e-5
 FL = 8  # payload symbols
 
 
-def _frame_spectra(rng, B, cnst):
+def _frame_spectra(rng, B, cnst, FL=FL):
     """Received data-symbol spectra [B, 1 + FL, 64] (header + payload)
     through a per-frame smooth channel with a slow per-symbol phase drift,
     plus the channel itself as the initial taps (with an estimation error)."""
@@ -85,3 +85,45 @@ def test_equalize_frame_matches_reference(alpha):
         assert got.snr_db.dtype == got.noise_var.dtype == torch.float32
     if alpha >= 0.9995:  # the frozen branch keeps its input taps
         assert torch.equal(got.taps, torch.as_tensor(taps0))
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("alpha", [0.8, 0.95, 0.9995, 1.0])
+def test_equalize_frame_at_the_receiver_shapes_matches_reference(alpha, B):
+    """The shapes the receive step hands the equalizer: one frame (a link
+    round) or a batch, 20 payload symbols, the header and the payload as
+    strided slices of the frame's [B, 2 + 1 + 20, 64] spectra (the payload
+    at ``sym_offset = header_symbols``, from the header pass's taps), mixed
+    constellations 1..4."""
+    fl, n_sync = 20, 2
+    rng = np.random.RandomState(int(alpha * 1e4) + B)
+    cnst = (np.arange(B, dtype=np.int32) + (3 if B == 1 else 0)) % 4 + 1
+    data, taps0 = _frame_spectra(rng, B, cnst, FL=fl)
+    sync = (rng.randn(B, n_sync, 64) + 1j * rng.randn(B, n_sync, 64)).astype(np.complex64)
+    frame = torch.as_tensor(np.concatenate([sync, data], axis=1))  # [B, 23, 64]
+    ref_tab = ref_eq.build_equalizer(ref_config.make_rx_config(None, frame_length=fl, eq_alpha=alpha))
+    tab = equalizer.build_equalizer(config.make_rx_config(None, frame_length=fl, eq_alpha=alpha), "cpu")
+    hs = tab.header_syms
+    assert hs == 1 and frame.shape[1] == n_sync + hs + fl
+
+    taps, ref_taps = torch.as_tensor(taps0), jnp.asarray(taps0)
+    for sl, off, cid in ((slice(n_sync, n_sync + hs), 0, np.ones(B, np.int32)),
+                         (slice(n_sync + hs, None), hs, cnst)):
+        view = frame[:, sl]
+        assert view.shape[1] in (1, fl) and (B == 1 or not view.is_contiguous())
+        want = jax.jit(lambda y, h, c: ref_eq.equalize_frame(y, h, c, ref_tab, sym_offset=off))(
+            jnp.asarray(view.numpy()), ref_taps, jnp.asarray(cid))
+        got = equalizer.equalize_frame(view, taps, torch.as_tensor(cid), tab, sym_offset=off)
+        assert got.hard.shape == got.soft.shape == (B, view.shape[1], 64)
+        occ = np.nonzero(ref_tab["occ_mask"])[0]
+        sym_cid = np.where(off + np.arange(view.shape[1]) < hs, 1, cid[:, None])[:, :, None]
+        np.testing.assert_array_equal(
+            cn.hard_decision(got.hard[:, :, occ], torch.as_tensor(sym_cid)).numpy(),
+            np.asarray(ref_cn.hard_decision(want.hard[:, :, occ], jnp.asarray(sym_cid))))
+        np.testing.assert_allclose(got.hard.numpy(), np.asarray(want.hard), atol=ATOL)
+        np.testing.assert_allclose(got.soft.numpy(), np.asarray(want.soft), atol=ATOL)
+        np.testing.assert_allclose(got.taps.numpy(), np.asarray(want.taps), atol=ATOL)
+        np.testing.assert_allclose(got.noise_var.numpy(), np.asarray(want.noise_var), rtol=1e-4)
+        np.testing.assert_allclose(got.snr_db.numpy(), np.asarray(want.snr_db), atol=1e-3)
+        # the payload pass starts from the header pass's taps, each side from its own
+        taps, ref_taps = got.taps, want.taps

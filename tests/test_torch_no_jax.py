@@ -19,7 +19,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import torch
-from gr_dtl_tpu_torch.ops import scans_cuda, sync_cuda, tb_cuda
+from gr_dtl_tpu_torch.ops import equalizer_cuda, scans_cuda, sync_cuda, tb_cuda
 assert sync_cuda.timing_metric_cuda.LAUNCHES == 0 and tb_cuda.tb_reassemble_cuda.LAUNCHES == 0
 assert scans_cuda.trigger_lock_scan_cuda.LAUNCHES == 0 and scans_cuda.frame_accounting_cuda.LAUNCHES == 0
 from gr_dtl_tpu_torch.models import fec_chain, session
@@ -32,6 +32,7 @@ H = chip_smoke.alist.load_alist(str(chip_smoke.ROOT / "examples" / chip_smoke.BA
 rx = session.StreamRx(cfg, "cpu", frames_per_block=2, fec=fec_chain.build_fec(cfg, H, "cpu", tb_frames=2))
 assert len(rx.process(zeros(rx.block_samples, "complex64"))) == 3
 assert tb_cuda.tb_reassemble_cuda.LAUNCHES == 0 and sync_cuda.timing_metric_cuda.LAUNCHES == 0
+assert equalizer_cuda.equalize_frame_cuda.LAUNCHES == 0  # nor does the equalizer
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 print("imported", len(names), "modules:", *names)
 """
@@ -49,7 +50,7 @@ def test_port_imports_without_jax_or_nvcc():
                  "models.receiver", "models.transmitter", "ops.sync_cuda", "ops._cuda_build",
                  "ops.scans_cuda", "ops.metrics", "models.adaptive", "models.streaming",
                  "models.session", "ops.channel", "ops.burst", "ops.tb_cuda", "models.simplex",
-                 "models.full_duplex"):
+                 "models.full_duplex", "ops.equalizer", "ops.equalizer_cuda"):
         assert f"gr_dtl_tpu_torch.{name}" in proc.stdout.split(), name
 
 
