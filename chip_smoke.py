@@ -131,6 +131,28 @@ passes; reset and counted at every run):
 21. times: the kernel alone at B = 1, 32, 1024, 2048 for both calls
    (profiler, over a ring of inputs) against its bound and the plain loop.
 
+And the testbed's telemetry and the wire-compat mode:
+
+22. telemetry: StreamRx(probe=MonitorProbe(address=None)) on the uncoded
+   stream at F = 16 and 1024 over 16 blocks: one MonitorEqMsg per received
+   frame, every message parsed, constellation_key the sent constellation,
+   sent_counter 1..n; the first blocks against the port's CPU run (keys,
+   counters and loss rates equal, SNR and noise variance within 1e-3
+   relative); one launch of each kernel a block, counted; a traced probed
+   _dispatch holds no synchronising call; ms a block with and without the
+   probe in turns and the host ms spent building messages; a probed
+   StreamDuplex at F = 8 (a message per decoded frame each way);
+23. wire compat: the JAX package's test constants (QPSK / 8PSK / 16QAM
+   relabeled, a random sync PN), written by this script and installed
+   through a config's wire_compat: uncoded B=2048 mixed at noise 0.02 and
+   coded B=1024 QPSK at 25 dB, every frame decoded, the equalizer kernel's
+   table mode (4 launches a step, counted) bit-equal to the plain loop on
+   every call of both steps; then deactivated, a native batch decodes on
+   the closed-form slicers (no table-mode launch) while the receiver built
+   under the foreign tables still decodes a foreign stream; the table
+   mode's payload call timed at B = 1 / 32 / 1024 / 2048 against its bound,
+   beside the closed-form call on the same inputs.
+
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
 failure exits non-zero before it.
@@ -141,6 +163,7 @@ import importlib.util
 import json
 import shutil
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -151,9 +174,10 @@ from gr_dtl_tpu_torch.models import adaptive, fec_chain, full_duplex, receiver, 
 from gr_dtl_tpu_torch.models import streaming, transmitter
 from gr_dtl_tpu_torch.ops import _cuda_build, burst, channel, constellation as cn, ldpc, metrics
 from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda, scans_cuda, sync, sync_cuda, tb_cuda
+from gr_dtl_tpu_torch.testbed import monitor
 from gr_dtl_tpu_torch.tools import bench_equalizer as eq_bench
 from gr_dtl_tpu_torch.tools import bench_sync_metric as metric_bench
-from gr_dtl_tpu_torch.utils import alist, config as cfgmod
+from gr_dtl_tpu_torch.utils import alist, config as cfgmod, wire_compat
 
 B = 2048
 FRAME_LENGTH = 20
@@ -406,6 +430,8 @@ def main() -> int:
         entry["launches_per_step"] = entry["launches"] / (stream_blocks + d_blocks)
     stream_blocks += d_steps + d_blocks
     print(f"[timing] after the slice D phases: {smi('clocks.sm,power.draw,temperature.gpu')}")
+    telemetry_phase(dev, card)
+    wire_entry = wire_phase(dev, card)
     eq_entry = time_equalizer(dev, card)
     print(card)
     print(json.dumps({"kernels": [{
@@ -418,7 +444,7 @@ def main() -> int:
         "launches_per_step": (launches + launches_coded + stream_launches) / (2 + stream_blocks),
         "max_abs_err": max(max_err, max_err_coded, max_err_stream),
         "ms": timed["kernel_ms"], "ms_by": timed["kernel_ms_by"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}] + scan_kernels + [tb_kernel, eq_entry]}))
+        "bound_by": "bytes", "library_ms": None}] + scan_kernels + [tb_kernel, eq_entry, wire_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -933,6 +959,7 @@ def reset_counts() -> None:
               scans_cuda.frame_accounting_cuda, tb_cuda.tb_reassemble_cuda,
               equalizer_cuda.equalize_frame_cuda):
         w.LAUNCHES = 0
+    equalizer_cuda.equalize_frame_cuda.TABLE_LAUNCHES = 0
 
 
 def read_counts() -> tuple:
@@ -1064,35 +1091,7 @@ def no_sync_in_dispatch(rcfg, tcfg, dev, gen) -> None:
     stream, _ = make_stream(tcfg, 7 * F, 8, F * P, dev, gen)
     rx = session.StreamRx(rcfg, dev, frames_per_block=F)
     chunks = [stream[i * F * P:(i + 1) * F * P] for i in range(8)]
-    for c in chunks[:4]:
-        rx.process(c)  # warm: allocator pools, pinned buffers
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("stream_dispatch"):
-            d = rx._dispatch(chunks[4])
-        pending = not d.ready.query()
-    rx._readback(*d)
-    events = prof.events()
-    span = host_span(events, "stream_dispatch")
-    # the profiler itself synchronises the device when it stops: only the
-    # calls made inside the dispatch count
-    inside = [e.name for e in events
-              if span.start <= e.time_range.start and e.time_range.end <= span.end]
-    api, copies = {}, {}
-    for name in inside:
-        if name.startswith("cuda") and not name.startswith(("cudaGet", "cudaDeviceGet", "cudaOccupancy",
-                                                            "cudaFuncGet")):
-            api[name] = api.get(name, 0) + 1
-    for e in events:  # device-side copies, by kind
-        if e.name.startswith("Memcpy"):
-            copies[e.name] = copies.get(e.name, 0) + 1
-    print(f"[stream] CUDA runtime calls inside one uncoded _dispatch at F={F}: "
-          + ", ".join(f"{k} {n}" for k, n in sorted(api.items(), key=lambda kv: -kv[1]))
-          + "; copies on the device's timeline: "
-          + ", ".join(f"{k} {n}" for k, n in sorted(copies.items())))
-    check(any(k.startswith("cudaLaunchKernel") for k in api), "the profiler recorded no runtime calls")
-    waits = [k for k in list(api) + list(copies) if "Synchronize" in k or "Pageable" in k]
-    check(not waits, f"_dispatch made synchronising calls or pageable copies: {waits}")
+    pending = traced_dispatch(rx, chunks, "uncoded")
     n_pending = int(pending)
     for c in chunks[5:]:
         d = rx._dispatch(c)
@@ -1135,6 +1134,46 @@ def no_sync_in_dispatch(rcfg, tcfg, dev, gen) -> None:
           f"before the host's one wait for block k's vector; on the device, block k's copy to the host "
           f"had not yet ended at block k+1's first launch in {still_copying} of 3 blocks (first launch "
           f"minus copy end, us: {gaps})")
+
+
+def traced_dispatch(rx, chunks, what: str) -> bool:
+    """The CUDA runtime calls of one ``_dispatch`` (chunks[4], after four
+    blocks of warm-up: allocator pools, pinned buffers), traced by the
+    profiler: no synchronising call and no pageable copy may be among them.
+    Returns whether the block's readback was still pending when the
+    dispatch returned."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for c in chunks[:4]:
+        rx.process(c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("stream_dispatch"):
+            d = rx._dispatch(chunks[4])
+        pending = not d.ready.query()
+    rx._readback(*d)
+    events = prof.events()
+    span = host_span(events, "stream_dispatch")
+    # the profiler itself synchronises the device when it stops: only the
+    # calls made inside the dispatch count
+    inside = [e.name for e in events
+              if span.start <= e.time_range.start and e.time_range.end <= span.end]
+    api, copies = {}, {}
+    for name in inside:
+        if name.startswith("cuda") and not name.startswith(("cudaGet", "cudaDeviceGet", "cudaOccupancy",
+                                                            "cudaFuncGet")):
+            api[name] = api.get(name, 0) + 1
+    for e in events:  # device-side copies, by kind
+        if e.name.startswith("Memcpy"):
+            copies[e.name] = copies.get(e.name, 0) + 1
+    print(f"[stream] CUDA runtime calls inside one {what} _dispatch at F={rx.F}: "
+          + ", ".join(f"{k} {n}" for k, n in sorted(api.items(), key=lambda kv: -kv[1]))
+          + "; copies on the device's timeline: "
+          + ", ".join(f"{k} {n}" for k, n in sorted(copies.items())))
+    check(any(k.startswith("cudaLaunchKernel") for k in api), "the profiler recorded no runtime calls")
+    waits = [k for k in list(api) + list(copies) if "Synchronize" in k or "Pageable" in k]
+    check(not waits, f"{what} _dispatch made synchronising calls or pageable copies: {waits}")
+    check(tuple(d.acct.shape) == (rx._acct_words,), f"{what}: a packed vector of {tuple(d.acct.shape)} words")
+    return pending
 
 
 def card_vs_cpu_stream(rcfg, tcfg, dev, gen) -> None:
@@ -1322,17 +1361,7 @@ def tx_rx_and_duplex(dev, gen, card) -> tuple:
           f"in {n_rx_blocks} received blocks", flush=True)
 
     txcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH, max_empty_frames=-1)
-
-    def make_chan(snr_db, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-
-        def chan(samples):
-            x = torch.as_tensor(samples, device=dev)
-            nv = float(np.sqrt(float(np.mean(np.abs(samples) ** 2)) / 10 ** (snr_db / 10)))
-            return channel.awgn(x, nv, generator=g)
-
-        return chan
-
+    make_chan = lambda snr_db, seed: awgn_chan(snr_db, seed, dev)
     runs = {}
     for serialize in (False, True):
         dpx = session.StreamDuplex(txcfg, rcfg, txcfg, rcfg, make_chan(30.0, 11), make_chan(5.0, 12),
@@ -1366,6 +1395,19 @@ def tx_rx_and_duplex(dev, gen, card) -> tuple:
           f"each with 2 launches of each of the three kernels a step (counted: 24 in 12 steps); "
           f"wall ms a step: both dispatched first {ms0:.1f}, serialized {ms1:.1f} ({card})", flush=True)
     return counts, n_rx_blocks
+
+
+def awgn_chan(snr_db: float, seed: int, dev):
+    """A channel for the duplex: AWGN at snr_db of each block's measured
+    power, from a generator of its own."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def chan(samples):
+        x = torch.as_tensor(samples, device=dev)
+        nv = float(np.sqrt(float(np.mean(np.abs(samples) ** 2)) / 10 ** (snr_db / 10)))
+        return channel.awgn(x, nv, generator=g)
+
+    return chan
 
 
 def stream_phases(dev, card) -> tuple:
@@ -2007,10 +2049,13 @@ class EqualizerCheck:
     to the bar of ``equalizer_cuda.compare_with_plain`` (decisions equal,
     soft and taps within 1e-5; rows that part on a decision boundary counted
     apart, under 0.1% of the rows).  The step goes on with the kernel's
-    outputs.  Reads the device at every call: for check runs only."""
+    outputs.  A call in table mode (wire-compat tables) must be bit-equal
+    to the plain loop on every row.  Reads the device at every call: for
+    check runs only."""
 
     def __init__(self, what: str):
         self.what, self.calls, self.rows, self.boundary_rows, self.max_abs_err = what, 0, 0, 0, 0.0
+        self.table_rows = 0
 
     def __enter__(self):
         self._orig = equalizer.equalize_frame
@@ -2019,8 +2064,13 @@ class EqualizerCheck:
             got = self._orig(spectra, init_taps, cnst_id, eq, sym_offset)
             want = equalizer._equalize_frame_torch(spectra, init_taps, cnst_id, eq, sym_offset)
             res = equalizer_cuda.compare_with_plain(got, want, cnst_id, eq, sym_offset)
-            EQ.compared(res, f"{self.what}, call {self.calls} ({tuple(spectra.shape)}, strides "
-                        f"{spectra.stride()}, sym_offset {sym_offset})")
+            where = (f"{self.what}, call {self.calls} ({tuple(spectra.shape)}, strides {spectra.stride()}, "
+                     f"sym_offset {sym_offset})")
+            EQ.compared(res, where)
+            if eq.tab.table_mode:
+                n = eq_bench.rows_not_bit_equal(got, want)
+                check(n == 0, f"table mode: {n} rows not bit-equal to the plain loop on {where}")
+                self.table_rows += res["rows"]
             self.calls += 1
             self.rows += res["rows"]
             self.boundary_rows += res["boundary_rows"]
@@ -2038,7 +2088,9 @@ class EqualizerCheck:
                   f"{self.what}: {self.boundary_rows} of {self.rows} rows part from the plain loop")
             print(f"[equalizer] on the path's own tensors, {self.what}: {self.calls} equalize_frame calls, "
                   f"{self.rows} rows: kernel vs plain loop 0 fault rows, {self.boundary_rows} rows parted at a "
-                  f"decision boundary, max abs err on the others {self.max_abs_err:.2e}", flush=True)
+                  f"decision boundary, max abs err on the others {self.max_abs_err:.2e}"
+                  + (f"; {self.table_rows} rows in table mode, every one bit-equal" if self.table_rows else ""),
+                  flush=True)
 
 
 @contextlib.contextmanager
@@ -2147,6 +2199,226 @@ def time_equalizer(dev, card: str) -> dict:
             "bound_ms": t["bound_ms"], "bound_by": "bytes", "bytes": t["bytes"], "library_ms": None,
             "at_B": B, "at_n_sym": t["n_sym"],
             "ms_at_B": {f"{b}/{c}": timed[(b, c)]["ms"] for b, c in timed}}
+
+
+# ---------------------------------------------------------------------------
+# phases 22-23: the sessions' telemetry and the wire-compat mode
+# ---------------------------------------------------------------------------
+
+PROBE_F = (16, 1024)  # the stream's narrowest block and its full width
+PROBE_BLOCKS = 16     # 15 blocks of traffic, then one of idle air
+PROBE_CPU_BLOCKS = {16: 4, 1024: 2}  # blocks held against the port's CPU run
+WIRE_NATIVE_B = 256   # the native batch after the wire tables are removed
+
+
+def parse_all(blobs) -> list:
+    parser = monitor.MonitorParser()
+    return [parser.parse(b) for b in blobs]
+
+
+def same_message(got: dict, want: dict, what: str) -> float:
+    """Ints and the loss rate equal, the SNR and noise variance within 1e-3
+    relative (the bar of card vs CPU on a stream); returns the larger
+    relative difference."""
+    for k in ("proto_id", "sent_counter", "constellation_key", "fec_key", "lost_frames_rate"):
+        check(got[k] == want[k], f"{what}: {k} {got[k]} against {want[k]}")
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in ("estimated_snr_tag_key", "noise_tag_key"))
+    check(rel <= 1e-3, f"{what}: SNR or noise variance {rel} apart")
+    return rel
+
+
+def probe_stream(F: int, rcfg, tcfg, dev, gen, card) -> None:
+    """Phase 22 at one F: the probed StreamRx over a stream whose every frame
+    decodes, its messages against what was sent and against the CPU run,
+    and its cost a block."""
+    P = rcfg.frame_samples
+    n_frames = (PROBE_BLOCKS - 1) * F
+    stream, sent = make_stream(tcfg, n_frames, PROBE_BLOCKS, F * P, dev, gen)
+    probe = monitor.MonitorProbe(address=None)
+    rx = session.StreamRx(rcfg, dev, frames_per_block=F, probe=probe)
+    reset_counts()
+    _wall, _dev, results = run_receiver(rx, stream)
+    counts = read_counts()
+    check(counts == (PROBE_BLOCKS,) * 3, f"probed F={F}: kernel launches {counts} in {PROBE_BLOCKS} blocks")
+    EQ.counted(PROBE_BLOCKS, f"probed StreamRx F={F}")
+    msgs = parse_all(probe.captured)
+    n_rx = sum(int((v & v.header_ok).sum()) for _, v in results)
+    check(len(msgs) == n_rx == n_frames, f"probed F={F}: {len(msgs)} messages, {n_rx} frames received, "
+          f"{n_frames} sent")
+    check([m["sent_counter"] for m in msgs] == list(range(1, n_frames + 1))
+          and all(m["proto_id"] == monitor.EQ_MSG and m["lost_frames_rate"] == 0.0 for m in msgs),
+          f"probed F={F}: counters, proto ids or loss rates")
+    keys = torch.tensor([m["constellation_key"] for m in msgs], dtype=torch.int32)
+    check(torch.equal(keys, sent["cnst_id"].cpu()), f"probed F={F}: constellation_key differs from what was sent")
+    snr = np.array([m["estimated_snr_tag_key"] for m in msgs])
+    check(bool(np.isfinite(snr).all()) and snr.min() > 10.0, f"probed F={F}: SNR {snr.min()}..{snr.max()}")
+
+    nb = PROBE_CPU_BLOCKS[F]
+    cpu_probe = monitor.MonitorProbe(address=None)
+    rx_cpu = session.StreamRx(rcfg, "cpu", frames_per_block=F, probe=cpu_probe)
+    for b in range(nb):
+        rx_cpu.process(stream[b * F * P:(b + 1) * F * P])
+    want = parse_all(cpu_probe.captured)
+    check(len(want) >= (nb - 1) * F, f"probed F={F}: {len(want)} messages from the CPU run of {nb} blocks")
+    worst = max(same_message(g, w, f"probed F={F} message {i}, card vs CPU")
+                for i, (g, w) in enumerate(zip(msgs, want)))
+
+    # ms a block with and without the probe, in turns
+    wall, host = {"plain": [], "probed": []}, []
+    for turn in ("plain", "probed", "probed", "plain"):
+        r = session.StreamRx(rcfg, dev, frames_per_block=F,
+                             probe=monitor.MonitorProbe(address=None) if turn == "probed" else None)
+        w, _, _ = run_receiver(r, stream)
+        wall[turn].append(median(w[WARM_BLOCKS:]))
+        if turn == "probed":
+            host.append(r.probe_host_ms / (PROBE_BLOCKS - 1))  # the blocks that carry frames
+    print(f"[telemetry] F={F}: StreamRx(probe=MonitorProbe(address=None)) over {PROBE_BLOCKS} blocks, {n_frames} "
+          f"frames: {len(msgs)} MonitorEqMsg, one a received frame, all parsed, constellation_key the sent "
+          f"constellation, sent_counter 1..{n_frames}; the first {len(want)} against the CPU run: ints equal, SNR "
+          f"and noise variance within {worst:.2e} relative; kernel launches (metric, lock scan, accounting) "
+          f"{counts}, equalizer {EQ_PER_STEP * PROBE_BLOCKS}; wall ms a block (median after {WARM_BLOCKS} "
+          f"warm-up blocks, in turns plain, probed, probed, plain): plain {[round(x, 3) for x in wall['plain']]}, "
+          f"probed {[round(x, 3) for x in wall['probed']]}; host ms building messages a block "
+          f"{[round(x, 3) for x in host]} ({F} messages, "
+          f"{1e3 * min(host) / F:.2f} us a message) ({card})", flush=True)
+
+
+def telemetry_phase(dev, card) -> None:
+    """Phase 22: the probed receivers, a traced probed dispatch, a probed
+    StreamDuplex."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rcfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
+    tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
+    for F in PROBE_F:
+        probe_stream(F, rcfg, tcfg, dev, gen, card)
+        torch.cuda.empty_cache()
+    F, P = 16, rcfg.frame_samples
+    stream, _ = make_stream(tcfg, 7 * F, 8, F * P, dev, gen)
+    probe = monitor.MonitorProbe(address=None)
+    rx = session.StreamRx(rcfg, dev, frames_per_block=F, probe=probe)
+    traced_dispatch(rx, [stream[i * F * P:(i + 1) * F * P] for i in range(8)], "probed")
+    check(len(probe.captured) == rx.n_frames, "probed dispatch: a message for each received frame")
+    print(f"[telemetry] a probed _dispatch at F={F}: no synchronising call, no pageable copy; the packed "
+          f"vector holds {rx._acct_words} words (2 + 6F)", flush=True)
+
+    Fd = DUPLEX_F
+    txcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH, max_empty_frames=-1)
+    probes = [monitor.MonitorProbe(address=None) for _ in range(2)]
+    dpx = session.StreamDuplex(txcfg, rcfg, txcfg, rcfg, awgn_chan(30.0, 21, dev), awgn_chan(5.0, 22, dev), dev,
+                               frames_per_block=Fd, probe_a=probes[0], probe_b=probes[1])
+    reset_counts()
+    res = [dpx.step() for _ in range(12)]
+    torch.cuda.synchronize()
+    check(read_counts() == (24, 24, 24), f"probed duplex: kernel launches {read_counts()} in 12 steps")
+    EQ.counted(24, "probed StreamDuplex, two receivers a step")
+    for side, p, peer in (("a", probes[0], "b"), ("b", probes[1], "a")):
+        n_ok = sum(r[f"ctl_{side}"]["n_ok"] for r in res)
+        msgs = parse_all(p.captured)
+        check(len(msgs) == n_ok, f"probed duplex, {side}'s receiver: {len(msgs)} messages, {n_ok} frames decoded")
+        keys = [m["constellation_key"] for m in msgs]
+        sent = np.concatenate([r[side].cnst_id.cpu().numpy()[np.asarray(r[side].header_ok.cpu())] for r in res])
+        check(len(sent) >= n_ok and set(keys) <= {1, 2, 3, 4}, f"probed duplex, {side}: keys {set(keys)}")
+    keys_b = {m["constellation_key"] for m in parse_all(probes[1].captured)}
+    check(max(keys_b) > 1 and dpx.tx_a.constellation > 1, "probed duplex: A's TX did not climb at 30 dB")
+    print(f"[telemetry] StreamDuplex(probe_a, probe_b) at F={Fd}, 12 steps, 30 / 5 dB: "
+          f"{len(probes[1].captured)} messages at B (constellations {sorted(keys_b)}), "
+          f"{len(probes[0].captured)} at A, one a decoded frame; 2 launches of each kernel a step", flush=True)
+
+
+def wire_phase(dev, card) -> dict:
+    """Phase 23; returns the ``kernels`` entry of the equalizer kernel's
+    table mode."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    table_launches, chk_rows, chk_err = 0, 0, 0.0
+    # a native receiver and stream built first keep the native tables: the
+    # two steps are timed in turns below
+    native_rxp = receiver.build_rx(cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH), dev)
+    native_stream, _ = make_traffic(cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH), B, dev, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "wire_constants.json"
+        path.write_text(json.dumps(eq_bench.foreign_constants()))
+        tcfg = cfgmod.make_tx_config({"wire_compat": str(path)}, frame_length=FRAME_LENGTH)
+    try:
+        check(cn.TABLE_MODE, "a config with wire_compat did not install the tables")
+        rcfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
+        rxp = receiver.build_rx(rcfg, dev)
+        check(rxp.tab.table_mode, "a receiver built under the wire tables is not in table mode")
+        stream, sent = make_traffic(tcfg, B, dev, gen)
+        reset_counts()
+        out = rx_step(rxp, stream, B)
+        torch.cuda.synchronize()
+        check(sync_cuda.timing_metric_cuda.LAUNCHES == 1, "wire uncoded: the metric kernel was not launched once")
+        EQ.counted(1, "wire uncoded step")
+        n = equalizer_cuda.equalize_frame_cuda.TABLE_LAUNCHES
+        check(n == EQ_PER_STEP, f"wire uncoded: {n} table-mode launches of the equalizer kernel in a step")
+        table_launches += n
+        check_decoded(out, sent, f"wire uncoded B={B}")
+        with EqualizerCheck(f"wire uncoded B={B}") as chk:
+            rx_step(rxp, stream, B)
+        chk_rows, chk_err = chk_rows + chk.table_rows, max(chk_err, chk.max_abs_err)
+
+        _, _, txp_c, rxp_c = coded_params(BANK_ALISTS[1:], dev)
+        check(txp_c.tab.table_mode and rxp_c.tab.table_mode, "the coded models are not in table mode")
+        samples, sent_c = coded_tx(txp_c, np.full(B_FEC, 2, np.int32), None)
+        stream_c = noisy(samples, 25.0, gen)[0]
+        reset_counts()
+        out_c = rx_step(rxp_c, stream_c, B_FEC)
+        torch.cuda.synchronize()
+        EQ.counted(1, "wire coded step")
+        n = equalizer_cuda.equalize_frame_cuda.TABLE_LAUNCHES
+        check(n == EQ_PER_STEP, f"wire coded: {n} table-mode launches of the equalizer kernel in a step")
+        table_launches += n
+        check_decoded(out_c, sent_c, f"wire coded B={B_FEC} at 25 dB")
+        with EqualizerCheck(f"wire coded B={B_FEC} at 25 dB") as chk:
+            rx_step(rxp_c, stream_c, B_FEC)
+        chk_rows, chk_err = chk_rows + chk.table_rows, max(chk_err, chk.max_abs_err)
+        step_ms = {"native": [], "wire": []}
+        for turn in ("native", "wire", "wire", "native"):
+            r, st = (native_rxp, native_stream) if turn == "native" else (rxp, stream)
+            rx_step(r, st, B)
+            step_ms[turn].append(median([cuda_ms(lambda: rx_step(r, st, B), STEPS_PER_WINDOW) for _ in range(3)]))
+        print(f"[wire] uncoded B={B} step (detect_and_extract + rx_frames), median of 3 windows of "
+              f"{STEPS_PER_WINDOW} steps, in turns: native tables {[round(x, 3) for x in step_ms['native']]} ms, "
+              f"wire tables {[round(x, 3) for x in step_ms['wire']]} ms ({card})", flush=True)
+        print(f"[wire] foreign constants (QPSK / 8PSK / 16QAM relabeled, a random sync PN) through a config's "
+              f"wire_compat: uncoded B={B} mixed at noise {NOISE_V}: {int(out.crc_ok.sum())}/{B} CRC, payloads "
+              f"equal; coded B={B_FEC} QPSK at 25 dB: {int(out_c.crc_ok.sum())}/{B_FEC}; the equalizer kernel "
+              f"in table mode {EQ_PER_STEP} launches a step ({table_launches} counted), bit-equal to the plain "
+              f"loop on {chk_rows} rows of both steps ({card})", flush=True)
+    finally:
+        wire_compat.deactivate()
+
+    check(not cn.TABLE_MODE, "deactivate left the tables installed")
+    ntcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
+    nrxp = receiver.build_rx(cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH), dev)
+    stream_n, sent_n = make_traffic(ntcfg, WIRE_NATIVE_B, dev, gen)
+    reset_counts()
+    out_n = rx_step(nrxp, stream_n, WIRE_NATIVE_B)
+    out_w = rx_step(rxp, stream, B)  # built before deactivate: keeps the foreign tables
+    torch.cuda.synchronize()
+    check(equalizer_cuda.equalize_frame_cuda.TABLE_LAUNCHES == EQ_PER_STEP
+          and equalizer_cuda.equalize_frame_cuda.LAUNCHES == 2 * EQ_PER_STEP,
+          "after deactivate: the native step launched the table mode, or the foreign receiver did not")
+    check_decoded(out_n, sent_n, f"native B={WIRE_NATIVE_B} after deactivate")
+    check_decoded(out_w, sent, f"the foreign receiver, B={B}, after deactivate")
+    print(f"[wire] deactivated: a native batch of {WIRE_NATIVE_B} decodes on the closed-form slicers "
+          f"({int(out_n.crc_ok.sum())}/{WIRE_NATIVE_B}, no table-mode launch), and the receiver built under the "
+          f"foreign tables still decodes their stream ({int(out_w.crc_ok.sum())}/{B})", flush=True)
+    del stream, out, out_w, stream_c, out_c, rxp, rxp_c, txp_c, native_rxp, native_stream
+
+    timed = eq_bench.table_mode(dev, card)
+    t = timed[-1]  # B = 2048, the uncoded step's payload call
+    return {"name": "equalize_frame_table", "route": "cuda",
+            "source": "gr_dtl_tpu_torch/csrc/equalizer.cu",
+            "replaces": "gr_dtl_tpu/ops/equalizer.py:189", "decides_as": "gr_dtl_tpu/ops/constellation.py:410",
+            "launches": table_launches, "launches_per_step": table_launches / 2,
+            "max_abs_err": chk_err, "rows_compared": chk_rows, "rows_not_bit_equal": 0,
+            "ms": t["ms"], "ms_by": "profiler", "enqueue_ms": t["enqueue_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes", "bytes": t["bytes"], "library_ms": None,
+            "at_B": t["B"], "at_n_sym": t["n_sym"],
+            "closed_form_ms_same_inputs": min(t["closed_ms_in_turns"]),
+            "ms_at_B": {r["B"]: r["ms"] for r in timed},
+            "closed_form_ms_at_B": {r["B"]: min(r["closed_ms_in_turns"]) for r in timed}}
 
 
 if __name__ == "__main__":

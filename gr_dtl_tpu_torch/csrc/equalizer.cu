@@ -24,6 +24,15 @@
 // With `frozen` the update is switched off (the reference's branch from
 // alpha >= 0.9995 on) and no taps are written.
 //
+// Table mode (wire-compat tables: foreign label -> point layouts, for which
+// the closed-form slicers do not hold): dec is the table argmin of
+// ops/constellation.py::nearest_point_table instead, the first of the valid
+// points of the symbol's constellation row (2^id of them; bits per symbol
+// equal the id) at the least dr*dr + di*di, a NaN counting as the least, as
+// torch.argmin counts it; id 0, and any id outside 1..4, has no valid point
+// and decides the row-0 point 0.  It is the second instantiation of the same
+// kernel (kTable), so the closed-form one compiles as it did.
+//
 // What bounds it.  Bytes: a row reads n_sym x fft_len spectra and writes twice
 // as much (hard and soft), 24 bytes a carrier and symbol, against ~150
 // float32 operations: 65.0 MB at B = 2048, n_sym = 20, fft_len = 64, 19.4 us
@@ -75,6 +84,8 @@ namespace {
 constexpr int kBlockThreads = 128;  // a block: 128 / fft_len rows, or one longer row
 constexpr int kMaxFftLen = 256;     // the longest row a block takes
 constexpr int kAhead = 2;           // symbols loaded ahead of their step
+constexpr int kMaxPoints = 16;      // a row of the point table (MAX_POINTS)
+constexpr int kTypes = 5;           // rows of the point table (N_TYPES)
 
 // The slicers' constants, float32 as ops/constellation.py rounds them.
 constexpr float kQpskAmp = 0.353553385f;     // float32(0.5 * sqrt(2) / 2)
@@ -129,6 +140,64 @@ __device__ __forceinline__ float2 decide(float2 y, int cid, float psk_cos, float
     }
 }
 
+// The table-mode slicer.  pt: lane l holds point l % 16 of the symbol's
+// constellation row, read by shuffle; n_valid (0, 2, 4, 8 or 16) is one
+// value a warp, and every lane of the warp comes here.  The distances are
+// three of PyTorch's kernels and the sum a fourth, each rounding: no FMA.
+// The points go in groups of four: a group's distances are independent and
+// computed side by side, its first minimum taken by a tree of pairs, then
+// held against the best of the groups before it.  Lower indices are always
+// on the left, and the right one wins only when strictly nearer, or a NaN
+// against a number (torch.argmin counts a NaN as the least): the sequential
+// first-minimum rule.  (NVIDIA H100 80GB HBM3, 700 W, payload call at B = 1 /
+// 32 / 1024 / 2048 with mixed ids: a loop over the points, one at a time,
+// took 19.4 / 37.2 / 47.1 / 63.4 us; all 16 side by side 18.0 / 29.2 /
+// 40.0 / 76.6, 89 registers halving the blocks an SM holds; groups of four,
+// 57 registers, 18.5 / 34.4 / 44.8 / 61.1.)
+struct Candidate {
+    float d2;
+    float2 p;
+};
+
+__device__ __forceinline__ Candidate first_min(Candidate lo, Candidate hi) {
+    const bool take_hi = hi.d2 < lo.d2 || (isnan(hi.d2) && !isnan(lo.d2));
+    return take_hi ? hi : lo;
+}
+
+template <int N>
+__device__ __forceinline__ float2 decide_table_n(float2 y, float2 pt) {
+    constexpr int G = N < 4 ? N : 4;
+    Candidate best;
+#pragma unroll 1
+    for (int g = 0; g < N; g += G) {
+        Candidate c[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+            const float2 p = make_float2(__shfl_sync(0xffffffffu, pt.x, g + j), __shfl_sync(0xffffffffu, pt.y, g + j));
+            const float dr = __fsub_rn(y.x, p.x), di = __fsub_rn(y.y, p.y);
+            c[j] = {__fadd_rn(__fmul_rn(dr, dr), __fmul_rn(di, di)), p};
+        }
+#pragma unroll
+        for (int w = 1; w < G; w *= 2) {
+#pragma unroll
+            for (int j = 0; j + w < G; j += 2 * w) c[j] = first_min(c[j], c[j + w]);
+        }
+        best = g == 0 ? c[0] : first_min(best, c[0]);
+    }
+    return best.p;
+}
+
+__device__ __forceinline__ float2 decide_table(float2 y, float2 pt, int n_valid) {
+    switch (n_valid) {
+        case 2: return decide_table_n<2>(y, pt);
+        case 4: return decide_table_n<4>(y, pt);
+        case 8: return decide_table_n<8>(y, pt);
+        case 16: return decide_table_n<16>(y, pt);
+        default:  // no valid point: the argmin of all-inf distances, point 0
+            return make_float2(__shfl_sync(0xffffffffu, pt.x, 0), __shfl_sync(0xffffffffu, pt.y, 0));
+    }
+}
+
 // |z|^2 for the pilot sums.  torch.abs(z) ** 2 is hypotf squared; the sums are
 // taken in another order than PyTorch's anyway (agreement within rtol 1e-4), so
 // the two squares are summed directly, with hypot's rule that an infinite part
@@ -147,6 +216,7 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
+template <bool kTable>
 __global__ void __launch_bounds__(kMaxFftLen) equalizer_kernel(
     const float2* __restrict__ spectra, long long row_stride, long long sym_stride,
     const float2* __restrict__ taps_in, const int* __restrict__ cnst_id,
@@ -154,7 +224,7 @@ __global__ void __launch_bounds__(kMaxFftLen) equalizer_kernel(
     const float2* __restrict__ pilot_vals, int B, int n_sym, int fft_len, int n_hdr, float alpha,
     float one_minus_alpha, int frozen, float inv_tot, float2* __restrict__ hard,
     float2* __restrict__ soft, float2* __restrict__ taps_out, float* __restrict__ snr_db,
-    float* __restrict__ noise_var) {
+    float* __restrict__ noise_var, const float2* __restrict__ points) {
     __shared__ float warp_err2[kMaxFftLen / 32], warp_sig2[kMaxFftLen / 32];
     const int r = threadIdx.x / fft_len;    // this thread's row of the block
     const int k = threadIdx.x - r * fft_len;  // and its carrier
@@ -170,10 +240,20 @@ __global__ void __launch_bounds__(kMaxFftLen) equalizer_kernel(
         // 8PSK decides cos / sin of pos * (pi / 4), pos = 0..7: eight values, taken
         // once a warp by the accurate cosf / sinf and read by shuffle in the steps
         float psk_cos = 0.f, psk_sin = 0.f;
-        if (cid_payload == 3) {
+        if (!kTable && cid_payload == 3) {
             const float pang = __fmul_rn((float)(threadIdx.x & 7), kPiOverFour);
             psk_cos = cosf(pang);
             psk_sin = sinf(pang);
+        }
+        // table mode: the payload row's points and BPSK's (header symbols), a
+        // lane a point, and the payload row's count of valid points
+        float2 pay_pt = make_float2(0.f, 0.f), hdr_pt = make_float2(0.f, 0.f);
+        int n_pay = 0;
+        if (kTable) {
+            const int type = (cid_payload >= 1 && cid_payload < kTypes) ? cid_payload : 0;
+            pay_pt = points[type * kMaxPoints + (threadIdx.x & (kMaxPoints - 1))];
+            hdr_pt = points[1 * kMaxPoints + (threadIdx.x & (kMaxPoints - 1))];
+            n_pay = type ? 1 << type : 0;
         }
         // this carrier of the row's symbols: pointers that step a symbol at a time
         const float2* y_next = spectra + (size_t)row * row_stride + k;
@@ -200,7 +280,9 @@ __global__ void __launch_bounds__(kMaxFftLen) equalizer_kernel(
             // needed only after the division and the slicer: a hit in L1 by then
             const float2 pv = is_pil ? *pv_sym : make_float2(0.f, 0.f);
             const float2 eqd = cdiv(Y, H);
-            const float2 dec = decide(eqd, s < n_hdr ? 1 : cid_payload, psk_cos, psk_sin);
+            const float2 dec = kTable ? (s < n_hdr ? decide_table(eqd, hdr_pt, 2)
+                                                   : decide_table(eqd, pay_pt, n_pay))
+                                      : decide(eqd, s < n_hdr ? 1 : cid_payload, psk_cos, psk_sin);
             const float2 ref = is_pil ? pv : dec;
             if (is_pil) {
                 err2 += abs2(__fsub_rn(eqd.x, pv.x), __fsub_rn(eqd.y, pv.y));
@@ -256,20 +338,23 @@ __global__ void __launch_bounds__(kMaxFftLen) equalizer_kernel(
 // fft_len] contiguous complex64; cnst_id [B] int32; the masks [fft_len] bool;
 // snr_db / noise_var [B] float32.  n_hdr: the call's first n_hdr symbols are
 // header symbols (BPSK).  inv_tot: float32(1 / (n_sym * pilots a symbol)).
+// points: null for the closed-form slicers, else the [5, 16] complex64 point
+// table (table mode).
 extern "C" int equalizer_launch(const void* spectra, long long row_stride, long long sym_stride,
                                 const void* taps_in, const void* cnst_id, const void* occ_mask,
                                 const void* pilot_mask, const void* pilot_vals, int B, int n_sym,
                                 int fft_len, int n_hdr, float alpha, float one_minus_alpha,
                                 int frozen, float inv_tot, void* hard, void* soft, void* taps_out,
-                                void* snr_db, void* noise_var, void* stream) {
+                                void* snr_db, void* noise_var, const void* points, void* stream) {
     if (B < 1 || n_sym < 1 || fft_len < 32 || fft_len % 32 != 0 || fft_len > kMaxFftLen)
         return (int)cudaErrorInvalidValue;
     const int rows_per_block = fft_len >= kBlockThreads ? 1 : kBlockThreads / fft_len;
     const int blocks = (B + rows_per_block - 1) / rows_per_block;
-    equalizer_kernel<<<blocks, rows_per_block * fft_len, 0, (cudaStream_t)stream>>>(
+    auto kernel = points ? equalizer_kernel<true> : equalizer_kernel<false>;
+    kernel<<<blocks, rows_per_block * fft_len, 0, (cudaStream_t)stream>>>(
         (const float2*)spectra, row_stride, sym_stride, (const float2*)taps_in, (const int*)cnst_id,
         (const uint8_t*)occ_mask, (const uint8_t*)pilot_mask, (const float2*)pilot_vals, B, n_sym,
         fft_len, n_hdr, alpha, one_minus_alpha, frozen, inv_tot, (float2*)hard, (float2*)soft,
-        (float2*)taps_out, (float*)snr_db, (float*)noise_var);
+        (float2*)taps_out, (float*)snr_db, (float*)noise_var, (const float2*)points);
     return (int)cudaGetLastError();
 }

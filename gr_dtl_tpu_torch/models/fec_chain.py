@@ -215,7 +215,7 @@ def _cw_schedule(fec: FecParams, bps: torch.Tensor, fec_id: torch.Tensor | None 
 
 
 def _bps(cnst_id: torch.Tensor) -> torch.Tensor:
-    return cn.tables(cnst_id.device)[1][cnst_id.long()]
+    return cn.active(cnst_id.device).bps[cnst_id.long()]
 
 
 def fec_frame_build(fec: FecParams, payload: torch.Tensor, payload_len: torch.Tensor,
@@ -505,7 +505,7 @@ def _tb_reassemble_torch(state: TbRing, llrs: torch.Tensor, tb_no: torch.Tensor,
     the reference's ``lax.scan``, exact."""
     W = fec.W
     dev = llrs.device
-    bps_tab = cn.tables(dev)[1]
+    bps_tab = cn.active(dev).bps
     slots = torch.arange(W, device=dev)
     tb_no, tb_offset, cnst_id, tb_payload, fec_id = (
         a.int() for a in (tb_no, tb_offset, cnst_id, tb_payload, fec_id))

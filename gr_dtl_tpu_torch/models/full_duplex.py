@@ -91,7 +91,7 @@ def build_full_duplex(cfg, device, *, noise_ab: float, noise_ba: float, fec=None
     txp = transmitter.build_tx(cfg, device, fec)
     rxp = receiver.build_rx(cfg, device, fec)
     tables = adaptive.build_mcs_tables(cfg)
-    bps_table = cn.tables(device)[1]
+    bps_table = cn.active(device).bps
     i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
     cnst_of_mcs = i32(tables["cnst"])
     fec_of_mcs = i32(tables["fec"])

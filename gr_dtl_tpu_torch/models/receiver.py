@@ -64,10 +64,16 @@ class RxParams:
     crc_tables: gf2.CrcTables
     fec: fec_chain.FecParams | None  # the LDPC transport-block path (cfg.fec)
 
+    @property
+    def tab(self) -> cn.Tables:
+        """The constellation tables the model decides with (its equalizer's)."""
+        return self.eq.tab
+
 
 def build_rx(cfg, device, fec: fec_chain.FecParams | None = None) -> RxParams:
-    """All RX constants for a config, on ``device``.  A config with
-    ``cfg.fec`` needs ``fec`` (:func:`fec_chain.build_fec`)."""
+    """All RX constants for a config, on ``device``, with the installed
+    constellation tables and sync words.  A config with ``cfg.fec`` needs
+    ``fec`` (:func:`fec_chain.build_fec`)."""
     if cfg.fec and fec is None:
         raise ValueError("cfg.fec=True requires a fec table (fec_chain.build_fec)")
     eq = equalizer.build_equalizer(cfg, device)
@@ -81,7 +87,8 @@ def build_rx(cfg, device, fec: fec_chain.FecParams | None = None) -> RxParams:
 
 def rx_params_from_reference(d, device) -> RxParams:
     """:class:`RxParams` on ``device`` from the reference's ``build_rx``
-    dict with its leaves as numpy arrays."""
+    dict with its leaves as numpy arrays, and the installed constellation
+    tables."""
     return RxParams(
         cfg=cfgmod.config_from_reference(d["cfg"]),
         alloc=ofdm.allocator_from_reference(d["alloc"], device),
@@ -150,7 +157,7 @@ def equalize_passes(rxp: RxParams, spectra: torch.Tensor, taps: torch.Tensor,
     for p in range(eq_passes):
         # --- header pass (BPSK) ---
         hdr_eq = equalizer.equalize_frame(hdr_spec, taps, bpsk, eq_tab, sym_offset=0)
-        hdr_bits = cn.hard_decision(hdr_eq.soft[:, :, occ], bpsk[:, None, None])
+        hdr_bits = cn.hard_decision(hdr_eq.soft[:, :, occ], bpsk[:, None, None], rxp.tab)
         fields, header_ok = header.parse_header(
             hdr_bits.reshape(B, hs * cfg.n_data_carriers), cfg.fec)
         # constellation gate: update only on CRC ok and a valid id
@@ -189,8 +196,8 @@ def frame_llrs(rxp: RxParams, soft: torch.Tensor, cnst: torch.Tensor,
     s*bps .. s*bps+bps-1; zeros beyond S*bps).  Four static-k reshapes and
     a per-frame select."""
     B, S = soft.shape
-    llr_bits = cn.soft_llrs(soft, cnst[:, None], noise_var[:, None])  # [B, S, 4]
-    bps = cn.tables(soft.device)[1][cnst.long()]
+    llr_bits = cn.soft_llrs(soft, cnst[:, None], noise_var[:, None], rxp.tab)  # [B, S, 4]
+    bps = rxp.tab.bps[cnst.long()]
     maxF = rxp.fec.max_frame_bits
     llrs = torch.zeros((B, maxF), dtype=torch.float32, device=soft.device)
     for k in (1, 2, 3, 4):
@@ -212,14 +219,13 @@ def demap_and_verify(rxp: RxParams, pay_eq: equalizer.EqualizerOut,
     B = cnst.shape[0]
     dev = cnst.device
     soft = pay_eq.soft[:, :, rxp.alloc.occ_idx].reshape(B, cfg.frame_capacity_symbols)
-    _, bps_table, _ = cn.tables(dev)
-    bps = bps_table[cnst.long()]
+    bps = rxp.tab.bps[cnst.long()]
     common = dict(header_ok=header_ok, frame_no=fields.frame_no, cnst_id=cnst,
                   feedback_cnst=fields.feedback_cnst, fec_echo=fields.fec_feedback,
                   snr_db=pay_eq.snr_db, noise_var=pay_eq.noise_var, carr_offset=carr_off,
                   soft_syms=soft)
     if not cfg.fec:
-        dec = cn.hard_decision(soft, cnst[:, None])
+        dec = cn.hard_decision(soft, cnst[:, None], rxp.tab)
         frame_bytes = repack.symbols_to_bytes(dec, bps, cfg.max_frame_bytes())
         if cfg.scramble_bits:
             frame_bytes = scramble.scramble_frames(frame_bytes)

@@ -16,7 +16,10 @@ uncoded block step never waits for the device: no ``.item()``, no host
 ``if`` on a device value.  The host learns a block's facts from ONE int32
 vector ``[lost, received, valid[F], header_ok[F], crc_ok[F]]``, copied
 into pinned memory with an event; :meth:`StreamRx._readback` waits on that
-event only.  :class:`StreamRxPipelined` enqueues block k+1 before it waits
+event only.  With a telemetry ``probe`` the same vector also carries each
+frame's ``cnst_id`` and the bits of its float32 ``snr_db`` and
+``noise_var`` (``[2 + 6F]``), and the readback publishes one
+``MonitorEqMsg`` per received frame: no second copy from the device.  :class:`StreamRxPipelined` enqueues block k+1 before it waits
 for block k's vector; :class:`StreamRxMega` chains K block steps on the
 device behind one upload and one readback.
 
@@ -33,9 +36,7 @@ always-on full-duplex modem with in-band adaptation.
 bursts, and :class:`StreamSimplex` is the always-on simplex pair: OFDM
 frames forward, the MCS decision back as a burst at a jittered position.
 
-Every constructor takes its device explicitly.  The ``probe=`` telemetry
-of ``StreamRx`` waits for ``testbed/monitor`` (ROADMAP.md, queue 1, item
-T1).
+Every constructor takes its device explicitly.
 """
 
 from __future__ import annotations
@@ -85,12 +86,21 @@ class Prefetched(NamedTuple):
     ready: "torch.cuda.Event | None"  # the copy's completion; None on the CPU
 
 
+class _Telemetry(NamedTuple):
+    """A block's received frames' telemetry, as ``monitor.eq_messages`` reads it."""
+
+    cnst_id: np.ndarray
+    snr_db: np.ndarray
+    noise_var: np.ndarray
+
+
 class _Inflight(NamedTuple):
     """A dispatched block: its device results and its readback in flight."""
 
     out: receiver.RxOut
     valid: torch.Tensor
-    acct: torch.Tensor  # int32 [2 + 3F] or [K, 2 + 3F]: pinned host memory (CPU session: the tensor)
+    acct: torch.Tensor  # int32 [W] or [K, W], W = 2 + 3F (2 + 6F with a probe): pinned host
+    # memory (CPU session: the tensor)
     ready: "torch.cuda.Event | None"  # acct has arrived
     tb_out: dict | None
 
@@ -106,13 +116,14 @@ class StreamRx:
         (``block_samples``).
       fec: ``fec_chain.FecParams`` for a coded config; with ``fec.W > 1``
         :meth:`process` returns a third element with the decoded TBs.
+      probe: continuous telemetry, a ``testbed.monitor.MonitorProbe`` (or
+        anything with ``.send(bytes)``): every block read back publishes one
+        ``MonitorEqMsg`` per received frame (header CRC passed in a valid
+        slot), its ``lost_frames_rate`` taken after the block is booked.
+        ``probe_host_ms`` sums the host time spent building them.
     """
 
     def __init__(self, cfg, device, frames_per_block: int = 16, fec=None, probe=None):
-        if probe is not None:
-            raise NotImplementedError(
-                "StreamRx(probe=...) telemetry needs testbed/monitor, which is not ported "
-                "yet: ROADMAP.md, queue 1, item T1")
         self.cfg = cfg
         self.device = torch.device(device)
         self.F = frames_per_block
@@ -141,6 +152,18 @@ class StreamRx:
         self.last_valid = np.zeros(self.F, bool)
         self.last_header_ok = np.zeros(self.F, bool)
         self.last_crc_ok = np.zeros(self.F, bool)
+        self.probe = probe
+        self.probe_host_ms = 0.0
+        if probe is not None:
+            if not callable(getattr(probe, "send", None)):
+                raise TypeError(f"a probe needs a send(bytes) method, got {type(probe).__name__}")
+            from gr_dtl_tpu_torch.testbed import monitor
+
+            self._monitor = monitor
+            self._eq_envelope = monitor.MonitorProto(monitor.EQ_MSG)
+        # words of the packed vector a block: the counters and three masks, and
+        # with a probe each frame's constellation, SNR and noise variance
+        self._acct_words = 2 + (6 if probe is not None else 3) * self.F
         # ingest on the card: pinned host buffers, each with the event of
         # the last copy out of it, and a side stream for the copies
         self._pinned: list[list] = []
@@ -183,8 +206,13 @@ class StreamRx:
         # numbers only; undecoded slots never advance the expectation
         ok = out.header_ok & valid
         expected_no, _lost, totals = metrics.frame_accounting(expected_no, out.frame_no, ok)
-        # ONE packed accounting vector per block
-        acct_v = torch.cat([totals, valid.int(), out.header_ok.int(), out.crc_ok.int()])
+        # ONE packed accounting vector per block; with a probe it carries the
+        # telemetry too, the floats as their bits
+        parts = [totals, valid.int(), out.header_ok.int(), out.crc_ok.int()]
+        if self.probe is not None:
+            parts += [out.cnst_id.int(), out.snr_db.float().view(torch.int32),
+                      out.noise_var.float().view(torch.int32)]
+        acct_v = torch.cat(parts)
         return out, valid, lock_state, new_fallback, expected_no, acct_v, tb_state, tb_out
 
     # -- ingest ----------------------------------------------------------
@@ -278,7 +306,7 @@ class StreamRx:
         if ready is not None:
             ready.synchronize()
         F = self.F
-        a = acct.numpy().reshape(-1, 2 + 3 * F)  # one row a block
+        a = acct.numpy().reshape(-1, self._acct_words)  # one row a block
         self.n_lost += int(a[:, 0].sum())
         self.n_frames += int(a[:, 0].sum() + a[:, 1].sum())
         valid = a[:, 2: 2 + F].astype(bool).reshape(-1).view(BlockMasks)
@@ -287,9 +315,24 @@ class StreamRx:
         self.last_valid = valid
         self.last_header_ok = valid.header_ok
         self.last_crc_ok = valid.crc_ok
+        if self.probe is not None:
+            self._publish(a, valid)
         if self._use_tb:
             return out, valid, tb_out
         return out, valid
+
+    def _publish(self, a: np.ndarray, valid: "BlockMasks") -> None:
+        """One MonitorEqMsg per received frame of the read-back rows ``a``,
+        built on the host from the packed vector's telemetry words."""
+        t0 = time.perf_counter()
+        F = self.F
+        col = lambda k: np.ascontiguousarray(a[:, 2 + k * F: 2 + (k + 1) * F]).reshape(-1)
+        ok = np.nonzero(valid.header_ok & valid)[0]
+        frames = _Telemetry(cnst_id=col(3)[ok], snr_db=col(4).view(np.float32)[ok],
+                            noise_var=col(5).view(np.float32)[ok])
+        for msg in self._monitor.eq_messages(frames, self.lost_frame_rate):
+            self.probe.send(self._eq_envelope.build(msg))
+        self.probe_host_ms += (time.perf_counter() - t0) * 1e3
 
     def flush_tb(self):
         """Emit the in-progress transport block (end of stream).  Waits
@@ -396,7 +439,7 @@ class StreamRxPipelined(StreamRx):
 class StreamRxMega(StreamRx):
     """StreamRx with K blocks per call: one upload, K block steps chained
     on the device (tail, trigger lock, fallback, frame accounting, TB
-    ring), one ``[K, 2+3F]`` readback.
+    ring), one ``[K, 2+3F]`` readback (``[K, 2+6F]`` with a probe).
 
     The SMALL block's semantics stay: fold vote, trigger-lock update,
     fallback constellation and loss accounting advance every F frames

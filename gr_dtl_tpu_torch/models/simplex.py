@@ -118,7 +118,7 @@ def build_simplex(cfg, device, *, noise_fwd: float, noise_rev: float):
     rxp = receiver.build_rx(cfg, device)
     tables = adaptive.build_mcs_tables(cfg)
     modem = burst.build_burst_modem(device)
-    bps_table = cn.tables(device)[1]
+    bps_table = cn.active(device).bps
     i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
     cnst_of_mcs = i32(tables["cnst"])
     fec_of_mcs = i32(tables["fec"])

@@ -38,26 +38,30 @@ class TxParams:
     alloc: ofdm.Allocator
     crc_tables: gf2.CrcTables
     fec: fec_chain.FecParams | None  # the LDPC transport-block path (cfg.fec)
+    tab: cn.Tables  # the constellations symbols are mapped with, read at build time
 
 
 def build_tx(cfg, device, fec: fec_chain.FecParams | None = None) -> TxParams:
-    """All TX constants for a config, on ``device``.  A config with
-    ``cfg.fec`` needs ``fec`` (:func:`fec_chain.build_fec`)."""
+    """All TX constants for a config, on ``device``, with the installed
+    constellation tables and sync words.  A config with ``cfg.fec`` needs
+    ``fec`` (:func:`fec_chain.build_fec`)."""
     if cfg.fec and fec is None:
         raise ValueError("cfg.fec=True requires a fec table (fec_chain.build_fec)")
     return TxParams(cfg=cfg, alloc=ofdm.build_allocator(cfg, device),
                     crc_tables=gf2.crc_tables(gf2.CRC32_FRAME, cfg.max_frame_bytes(),
                                               torch.device(device)),
-                    fec=fec)
+                    fec=fec, tab=cn.active(device))
 
 
 def tx_params_from_reference(d, device) -> TxParams:
     """:class:`TxParams` on ``device`` from the reference's ``build_tx``
-    dict with its leaves as numpy arrays."""
+    dict with its leaves as numpy arrays, and the installed constellation
+    tables."""
     return TxParams(cfg=cfgmod.config_from_reference(d["cfg"]),
                     alloc=ofdm.allocator_from_reference(d["alloc"], device),
                     crc_tables=gf2.crc_tables_from_reference(d["crc_tables"], device),
-                    fec=None if d["fec"] is None else fec_chain.fec_from_reference(d["fec"], device))
+                    fec=None if d["fec"] is None else fec_chain.fec_from_reference(d["fec"], device),
+                    tab=cn.active(device))
 
 
 def tx_frames(txp: TxParams, payload: torch.Tensor, payload_len: torch.Tensor,
@@ -86,8 +90,7 @@ def tx_frames(txp: TxParams, payload: torch.Tensor, payload_len: torch.Tensor,
     cfg = txp.cfg
     B = payload.shape[0]
     dev = payload.device
-    _, bps_table, _ = cn.tables(dev)
-    bps = bps_table[cnst_id.long()]
+    bps = txp.tab.bps[cnst_id.long()]
     zeros = torch.zeros(B, dtype=torch.int32, device=dev)
 
     if cfg.fec:
@@ -121,11 +124,11 @@ def tx_frames(txp: TxParams, payload: torch.Tensor, payload_len: torch.Tensor,
             tb_offset=zeros, fec_scheme=zeros, tb_payload=zeros)
 
     sym_idx = repack.bytes_to_symbols(frame, bps, cfg.frame_capacity_symbols)
-    payload_pts = cn.map_symbols(sym_idx, cnst_id[:, None])
+    payload_pts = cn.map_symbols(sym_idx, cnst_id[:, None], txp.tab)
     payload_grid = payload_pts.reshape(B, cfg.frame_length, cfg.n_data_carriers)
     hbits = header.format_header(fields, cfg.fec)  # [B, 48 * header_symbols]
     bpsk = torch.full((B, 1), int(cn.ConstellationType.BPSK), device=dev)
-    hgrid = cn.map_symbols(hbits, bpsk).reshape(B, cfg.header_symbols, cfg.n_data_carriers)
+    hgrid = cn.map_symbols(hbits, bpsk, txp.tab).reshape(B, cfg.header_symbols, cfg.n_data_carriers)
 
     spectra = ofdm.allocate_carriers(torch.cat([hgrid, payload_grid], dim=1), txp.alloc)
     time_syms = ofdm.ofdm_modulate(spectra)

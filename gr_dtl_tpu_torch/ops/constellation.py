@@ -8,7 +8,13 @@ flow.  Ids match the reference enum: UNKNOWN=0, BPSK=1, QPSK=2, PSK8=3,
 QAM16=4.  Scalings: BPSK +-1, QPSK scaled by 0.5 ("normalized"), 8PSK
 on the unit circle, 16QAM on the +-1/+-3 grid scaled by 1/sqrt(10).
 
-The wire-compat table mode (foreign label layouts) is not ported yet.
+Wire-compat table mode (``utils/wire_compat``): :func:`set_wire_points`
+installs foreign label -> point tables, for which the closed-form slicers
+do not hold, and decisions then take the table reductions
+(:func:`nearest_point_table`, :func:`soft_llrs_table`).  A model reads the
+tables once, when it is built (:func:`active`, carried in its params), as
+a jitted reference model captures them when it is traced: one built before
+an ``activate`` keeps the tables it was built with.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import enum
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,6 +36,12 @@ __all__ = [
     "BITS_PER_SYMBOL",
     "VALID_MASK",
     "MIN_DIST",
+    "TABLE_MODE",
+    "Tables",
+    "active",
+    "set_wire_points",
+    "reset_points",
+    "min_distances",
     "map_symbols",
     "hard_decision",
     "nearest_point",
@@ -108,13 +121,89 @@ BIT_VALUES = np.broadcast_to(
      ).astype(np.float32), (N_TYPES, MAX_POINTS, MAX_BPS)).copy()
 
 
+_DEFAULT_POINTS = POINTS.copy()
+_DEFAULT_MIN_DIST = MIN_DIST.copy()
+
+# True while foreign (wire-compat) tables are installed: the closed-form
+# slicers assume this module's Gray layouts, so decisions take the table
+# reductions.  Read by :func:`active` when a model is built.
+TABLE_MODE = False
+_generation = 0  # counts installs, so the device copies of a set are never stale
+
+
+def _derived_from_points(pts: np.ndarray) -> np.ndarray:
+    """MIN_DIST of a POINTS table (type 0 gets 1)."""
+    md = np.ones(N_TYPES, np.float32)
+    for ty in range(1, N_TYPES):
+        p = pts[ty, : 1 << int(BITS_PER_SYMBOL[ty])]
+        d = np.abs(p[:, None] - p[None, :])
+        d[d == 0] = np.inf
+        md[ty] = d.min()
+    return md
+
+
+def set_wire_points(points_by_type: dict) -> None:
+    """Install foreign constellation tables (wire-compat mode).
+
+    Args:
+      points_by_type: {ConstellationType int: complex array of length
+        2^bps, indexed by symbol label}.  Bits per symbol of each type are
+        fixed by the protocol.  Models built afterwards decide by table.
+    """
+    global POINTS, MIN_DIST, TABLE_MODE, _generation
+    pts = _DEFAULT_POINTS.copy()
+    for ty, p in points_by_type.items():
+        ty = int(ty)
+        p = np.asarray(p, np.complex64)
+        n = 1 << int(BITS_PER_SYMBOL[ty])
+        if p.shape != (n,):
+            raise ValueError(f"type {ty}: expected {n} points, got {p.shape}")
+        pts[ty, :n] = p
+        pts[ty, n:] = p[np.arange(n, MAX_POINTS) % n]
+    POINTS = pts
+    MIN_DIST = _derived_from_points(pts)
+    TABLE_MODE = True
+    _generation += 1
+
+
+def reset_points() -> None:
+    """Restore the native Gray tables and the closed-form slicers."""
+    global POINTS, MIN_DIST, TABLE_MODE, _generation
+    POINTS = _DEFAULT_POINTS.copy()
+    MIN_DIST = _DEFAULT_MIN_DIST.copy()
+    TABLE_MODE = False
+    _generation += 1
+
+
+def min_distances() -> np.ndarray:
+    return MIN_DIST
+
+
+class Tables(NamedTuple):
+    """The constellation set a model maps and decides with, on one device."""
+
+    points: torch.Tensor  # [N_TYPES, MAX_POINTS] complex64
+    bps: torch.Tensor  # [N_TYPES] int64
+    valid: torch.Tensor  # [N_TYPES, MAX_POINTS] bool
+    min_dist: torch.Tensor  # [N_TYPES] float32
+    table_mode: bool  # decide by table reduction (wire-compat tables)
+
+
+def active(device) -> Tables:
+    """The installed tables on ``device`` (made once per install and device)."""
+    return _tables_at(torch.device(device), _generation)
+
+
 @functools.lru_cache(maxsize=None)
-def tables(device: torch.device):
-    """(POINTS, BITS_PER_SYMBOL, VALID_MASK) as tensors on ``device``
-    (complex64, int64, bool), made once per device."""
-    return (torch.as_tensor(POINTS, device=device),
-            torch.as_tensor(BITS_PER_SYMBOL, device=device).long(),
-            torch.as_tensor(VALID_MASK, device=device))
+def _tables_at(device: torch.device, generation: int) -> Tables:
+    return Tables(points=torch.as_tensor(POINTS, device=device),
+                  bps=torch.as_tensor(BITS_PER_SYMBOL, device=device).long(),
+                  valid=torch.as_tensor(VALID_MASK, device=device),
+                  min_dist=torch.as_tensor(MIN_DIST, device=device), table_mode=TABLE_MODE)
+
+
+def _tab(tab: Tables | None, device) -> Tables:
+    return active(device) if tab is None else tab
 
 
 def _expand_to(x: torch.Tensor, target_shape) -> torch.Tensor:
@@ -124,29 +213,35 @@ def _expand_to(x: torch.Tensor, target_shape) -> torch.Tensor:
     return x.expand(target_shape)
 
 
-def map_symbols(sym_idx: torch.Tensor, cnst_id: torch.Tensor) -> torch.Tensor:
+def map_symbols(sym_idx: torch.Tensor, cnst_id: torch.Tensor, tab: Tables | None = None) -> torch.Tensor:
     """Map integer symbols to complex points.
 
     Args:
       sym_idx: [..., n] integer symbol indices (0 .. 2^bps-1).
       cnst_id: per-frame constellation ids, broadcastable to sym_idx's
                batch dims (constant along the symbol axis).
+      tab:     the model's :class:`Tables`; None = the installed ones.
     Returns complex64 points, same shape as sym_idx.
     """
-    pts, _, _ = tables(sym_idx.device)
+    pts = _tab(tab, sym_idx.device).points
     cid = _expand_to(cnst_id, sym_idx.shape).long()
     return pts[cid, sym_idx.long()]
 
 
-def nearest_point(y: torch.Tensor, cnst_id: torch.Tensor):
+def nearest_point(y: torch.Tensor, cnst_id: torch.Tensor, tab: Tables | None = None):
     """Fused decision: (symbol index int32, decided point complex64).
 
     Closed form: BPSK/QPSK by sign, 16QAM by per-axis 4-level
     quantization, 8PSK by phase sector; QAM axis labels and 8PSK ring
     labels are Gray codes, so label = ``u ^ (u >> 1)``.  Matches the
     table argmin (:func:`nearest_point_table`) everywhere but on exact
-    decision boundaries.
+    decision boundaries.  Tables in table mode (wire-compat) take the
+    table argmin itself.  ``tab``: the model's tables; None = the
+    installed ones.
     """
+    tab = _tab(tab, y.device)
+    if tab.table_mode:
+        return nearest_point_table(y, cnst_id, tab)
     cid = _expand_to(cnst_id, y.shape)
     re = y.real
     im = y.imag
@@ -188,44 +283,61 @@ def nearest_point(y: torch.Tensor, cnst_id: torch.Tensor):
     return idx.int(), point
 
 
-def hard_decision(y: torch.Tensor, cnst_id: torch.Tensor) -> torch.Tensor:
+def hard_decision(y: torch.Tensor, cnst_id: torch.Tensor, tab: Tables | None = None) -> torch.Tensor:
     """Nearest-point symbol indices (int32), vectorized over a mixed batch.
 
     Args:
       y:       [..., n] complex received symbols.
       cnst_id: per-frame constellation ids broadcastable to y's batch dims.
+      tab:     the model's :class:`Tables`; None = the installed ones.
     """
-    return nearest_point(y, cnst_id)[0]
+    return nearest_point(y, cnst_id, tab)[0]
 
 
-def nearest_point_table(y: torch.Tensor, cnst_id: torch.Tensor):
-    """Table-reduction nearest-point decision: the oracle for
-    :func:`nearest_point` (distance to every valid point, first argmin)."""
-    pts_t, _, valid_t = tables(y.device)
+def _frame_distances(y: torch.Tensor, cnst_id: torch.Tensor, tab: Tables):
+    """(d2 [..., n, P] squared distances to each frame's points, inf at the
+    padded ones; the frames' point rows [batch..., P]; their type ids)."""
     cid = _expand_to(cnst_id, y.shape)[..., 0].long()  # per-frame rows
-    pts = pts_t[cid]  # [batch..., P]
-    ok = valid_t[cid]
+    pts = tab.points[cid]  # [batch..., P]
     dr = y.real[..., None] - pts.real[..., None, :]
     di = y.imag[..., None] - pts.imag[..., None, :]
-    d2 = torch.where(ok[..., None, :], dr * dr + di * di, math.inf)
+    return torch.where(tab.valid[cid][..., None, :], dr * dr + di * di, math.inf), pts, cid
+
+
+def nearest_point_table(y: torch.Tensor, cnst_id: torch.Tensor, tab: Tables | None = None):
+    """Table-reduction nearest-point decision (distance to every valid
+    point, first argmin): the oracle for :func:`nearest_point`'s closed
+    form and the decision of table mode."""
+    d2, pts, _ = _frame_distances(y, cnst_id, _tab(tab, y.device))
     idx = torch.argmin(d2, dim=-1)  # first minimum, as jnp.argmin
     point = torch.gather(pts[..., None, :].expand(d2.shape), -1, idx[..., None])[..., 0]
     return idx.int(), point
 
 
-def near_decision_boundary(y: torch.Tensor, cnst_id: torch.Tensor, eps: float) -> torch.Tensor:
+def near_decision_boundary(y: torch.Tensor, cnst_id: torch.Tensor, eps: float,
+                           tab: Tables | None = None) -> torch.Tensor:
     """True where ``y`` lies within ``eps`` of a decision boundary of
     :func:`nearest_point` under its constellation: the imaginary axis for
     BPSK (and every id outside 2..4, which it decides as BPSK), both axes
     for QPSK, the eight rays midway between the points for 8PSK, the lines
     re, im = -2l, 0, 2l for 16QAM.  Two float32 implementations of the
-    slicers can decide differently only there.
+    slicers can decide differently only there.  Tables in table mode: the
+    edges of the nearest point's Voronoi cell, (d_j^2 - d_0^2) / 2|p_j - p_0|
+    for every other valid point j.
 
     Args:
       y:       [..., n] complex symbols.
       cnst_id: per-frame constellation ids broadcastable to y's batch dims.
       eps:     distance in the plane.
+      tab:     the model's :class:`Tables`; None = the installed ones.
     """
+    tab = _tab(tab, y.device)
+    if tab.table_mode:
+        d2, pts, _ = _frame_distances(y, cnst_id, tab)
+        near = torch.gather(pts[..., None, :].expand(d2.shape), -1, torch.argmin(d2, -1, keepdim=True))
+        d0 = d2.amin(dim=-1, keepdim=True)
+        to_edge = (d2 - d0) / (2.0 * (pts[..., None, :] - near).abs())  # inf at padded points; nan at p_0
+        return (to_edge.nan_to_num(nan=math.inf) <= eps).any(dim=-1)
     cid = _expand_to(cnst_id, y.shape)
     re, im = y.real, y.imag
     near_re, near_im = re.abs() <= eps, im.abs() <= eps
@@ -282,7 +394,8 @@ def _psk8_llrs(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     return torch.cat([llr3, torch.zeros_like(llr3[..., :1])], dim=-1)
 
 
-def soft_llrs(y: torch.Tensor, cnst_id: torch.Tensor, noise_var: torch.Tensor) -> torch.Tensor:
+def soft_llrs(y: torch.Tensor, cnst_id: torch.Tensor, noise_var: torch.Tensor,
+              tab: Tables | None = None) -> torch.Tensor:
     """Max-log LLRs per bit, LSB-first bit order, by closed-form slicers.
 
     LLR > 0 means bit 0 more likely (log P(b=0) - log P(b=1)), the LDPC
@@ -295,8 +408,13 @@ def soft_llrs(y: torch.Tensor, cnst_id: torch.Tensor, noise_var: torch.Tensor) -
       y:         [..., n] complex received symbols.
       cnst_id:   per-frame constellation id, broadcastable to the batch dims.
       noise_var: per-frame noise variance (sigma^2), broadcastable like cnst_id.
+      tab:       the model's :class:`Tables` (table mode: :func:`soft_llrs_table`);
+                 None = the installed ones.
     Returns [..., n, MAX_BPS] float32 LLRs; bits above the frame's bps are 0.
     """
+    tab = _tab(tab, y.device)
+    if tab.table_mode:
+        return soft_llrs_table(y, cnst_id, noise_var, tab)
     cid = _expand_to(cnst_id, y.shape)
     nv = torch.clamp(_expand_to(noise_var, y.shape), min=1e-12)
     re = y.real.float()
@@ -319,26 +437,23 @@ def soft_llrs(y: torch.Tensor, cnst_id: torch.Tensor, noise_var: torch.Tensor) -
     c = cid[..., None]
     llr = torch.where(c == 1, bpsk, torch.where(c == 2, qpsk, torch.where(c == 3, psk8, qam16)))
     llr = llr / nv[..., None]
-    _, bps, _ = tables(y.device)
-    bit_ok = torch.arange(MAX_BPS, device=y.device) < bps[cid.long()][..., None]
+    bit_ok = torch.arange(MAX_BPS, device=y.device) < tab.bps[cid.long()][..., None]
     return torch.where(bit_ok, llr, 0.0).float()
 
 
-def soft_llrs_table(y: torch.Tensor, cnst_id: torch.Tensor, noise_var: torch.Tensor) -> torch.Tensor:
+def soft_llrs_table(y: torch.Tensor, cnst_id: torch.Tensor, noise_var: torch.Tensor,
+                    tab: Tables | None = None) -> torch.Tensor:
     """Table-reduction max-log LLRs over every valid point: the oracle for
-    :func:`soft_llrs`, same contract."""
-    pts_t, bps_t, valid_t = tables(y.device)
+    :func:`soft_llrs`'s closed forms and the LLRs of table mode, same
+    contract."""
+    tab = _tab(tab, y.device)
     bitvals = _soft_tables(y.device)[3]
-    cid_b = _expand_to(cnst_id, y.shape)[..., 0].long()  # per-frame rows
-    pts = pts_t[cid_b]  # [batch..., P]
-    dr = y.real[..., None] - pts.real[..., None, :]
-    di = y.imag[..., None] - pts.imag[..., None, :]
-    d2 = torch.where(valid_t[cid_b][..., None, :], dr * dr + di * di, math.inf)  # [..., n, P]
+    d2, _, cid_b = _frame_distances(y, cnst_id, tab)  # [..., n, P]
     nv = _expand_to(noise_var, y.shape)
     metric = -d2 / torch.clamp(nv, min=1e-12)[..., None]  # log-likelihood per point
     m = metric[..., :, None]  # [..., n, P, 1]
     bvb = bitvals[cid_b][..., None, :, :]  # [batch..., 1, P, MAX_BPS]
     ll0 = torch.where(bvb == 0, m, -math.inf).amax(dim=-2)
     ll1 = torch.where(bvb == 1, m, -math.inf).amax(dim=-2)
-    bit_ok = torch.arange(MAX_BPS, device=y.device) < bps_t[cid_b][..., None, None]
+    bit_ok = torch.arange(MAX_BPS, device=y.device) < tab.bps[cid_b][..., None, None]
     return torch.where(bit_ok, ll0 - ll1, 0.0).float()

@@ -10,6 +10,10 @@ symbols with all carriers and the whole frame batch vectorized (masks
 select pilot/data/idle carriers, ~90 small launches a symbol on a GPU); it
 serves CPU tensors and is what the kernel is held against.
 
+The decision is the model's: the closed-form Gray slicers of
+``ops/constellation``, or, with wire-compat tables (``eq.tab.table_mode``),
+the table argmin, in the kernel and in the plain loop alike.
+
 Semantics, as the reference's:
  - taps update ``H = alpha*H + (1-alpha) * Y/ref`` with ``ref`` the known
    pilot value on pilot carriers and the decided symbol on data carriers,
@@ -43,7 +47,8 @@ class EqualizerOut(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class Equalizer:
-    """Pilot layout constants (the reference's ``build_equalizer`` dict).
+    """Pilot layout constants (the reference's ``build_equalizer`` dict)
+    and the constellation tables the model decides with.
 
     pilot_vals[s, k]: known pilot value for data-symbol s (0 = header).
     """
@@ -54,10 +59,12 @@ class Equalizer:
     alpha: float
     header_syms: int
     n_pilots: int
+    tab: cn.Tables  # the decisions' tables, read when the model is built
 
 
 def equalizer_from_reference(d, device) -> Equalizer:
-    """:class:`Equalizer` on ``device`` from a reference-layout dict."""
+    """:class:`Equalizer` on ``device`` from a reference-layout dict, with
+    the installed constellation tables."""
     return Equalizer(
         occ_mask=torch.as_tensor(np.asarray(d["occ_mask"], bool), device=device),
         pilot_mask=torch.as_tensor(np.asarray(d["pilot_mask"], bool), device=device),
@@ -65,6 +72,7 @@ def equalizer_from_reference(d, device) -> Equalizer:
         alpha=float(d["alpha"]),
         header_syms=int(d["header_syms"]),
         n_pilots=int(np.sum(d["pilot_mask"])),
+        tab=cn.active(device),
     )
 
 
@@ -125,7 +133,7 @@ def _equalize_frame_torch(spectra: torch.Tensor, init_taps: torch.Tensor,
     if float(alpha) >= equalizer_cuda.FROZEN_ALPHA:
         pv = pvs[None]
         eqd = spectra / init_taps[:, None, :]
-        _, dec = cn.nearest_point(eqd, sym_cnst[:, :, None])
+        _, dec = cn.nearest_point(eqd, sym_cnst[:, :, None], eq.tab)
         hard = torch.where(pil[None, None, :], pv, dec)
         err = torch.where(pil[None, None, :], eqd - pv, 0.0)
         noise_var = torch.clamp((torch.abs(err) ** 2).sum(dim=(1, 2)) / tot, min=1e-12)
@@ -140,7 +148,7 @@ def _equalize_frame_torch(spectra: torch.Tensor, init_taps: torch.Tensor,
         Y = spectra[:, s]
         pv = pvs[s][None, :]
         eqd = Y / H
-        _, dec = cn.nearest_point(eqd, sym_cnst[:, s, None])
+        _, dec = cn.nearest_point(eqd, sym_cnst[:, s, None], eq.tab)
         ref = torch.where(pil[None, :], pv, dec)
         ref_safe = torch.where(torch.abs(ref) > 0, ref, 1.0)
         H = torch.where(upd, alpha * H + (1.0 - alpha) * Y / ref_safe, H)

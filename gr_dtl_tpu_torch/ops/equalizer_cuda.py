@@ -7,7 +7,12 @@ PyTorch version is ``ops/equalizer.py::_equalize_frame_torch``.  The
 library is built at first use (``ops/_cuda_build``); importing this module
 needs neither ``nvcc`` nor a GPU.  The wrapper launches on PyTorch's
 current stream, never synchronises, reads nothing back, and counts its
-launches (one a call) in ``equalize_frame_cuda.LAUNCHES``.
+launches (one a call) in ``equalize_frame_cuda.LAUNCHES``, and those in
+table mode in ``equalize_frame_cuda.TABLE_LAUNCHES`` as well.
+
+The kernel decides as the model does: by the closed-form Gray slicers, or,
+with wire-compat tables (``eq.tab.table_mode``), by the table argmin over
+``eq.tab.points`` (the kernel's second instantiation, ``kTable``).
 
 Decisions feed back into the taps, so one decision that falls on the other
 side of a boundary changes that carrier for the rest of the frame:
@@ -48,7 +53,7 @@ def build() -> ctypes.CDLL:
     lib = _cuda_build.load(SOURCE, NVCC_FLAGS)
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.equalizer_launch.argtypes = [p, ll, ll, p, p, p, p, p, i, i, i, i, f, f, i, f,
-                                     p, p, p, p, p, p]
+                                     p, p, p, p, p, p, p]
     lib.equalizer_launch.restype = i
     return lib
 
@@ -80,7 +85,8 @@ def equalize_frame_cuda(spectra: torch.Tensor, init_taps: torch.Tensor, cnst_id:
                  of the frame's symbols is taken as it is).
       init_taps: [B, fft_len] complex64, contiguous.
       cnst_id:   [B] int32 payload constellation ids.
-      eq:        ``ops/equalizer.Equalizer`` with its tensors on the same device.
+      eq:        ``ops/equalizer.Equalizer`` with its tensors on the same device;
+                 with ``eq.tab.table_mode`` the kernel decides by table.
       sym_offset: absolute data-symbol index of ``spectra[:, 0]``.
     Returns (hard, soft [B, n_sym, fft_len] complex64, taps [B, fft_len]
     complex64, snr_db, noise_var [B] float32); with ``eq.alpha`` >=
@@ -113,6 +119,10 @@ def equalize_frame_cuda(spectra: torch.Tensor, init_taps: torch.Tensor, cnst_id:
     _check("eq.occ_mask", eq.occ_mask, torch.bool, (fft_len,))
     _check("eq.pilot_mask", eq.pilot_mask, torch.bool, (fft_len,))
     _check("eq.pilot_vals", eq.pilot_vals, torch.complex64, (n_rows, fft_len))
+    points = None
+    if eq.tab.table_mode:
+        points = eq.tab.points
+        _check("eq.tab.points", points, torch.complex64, (cn.N_TYPES, cn.MAX_POINTS))
 
     dev = spectra.device
     frozen = float(eq.alpha) >= FROZEN_ALPHA
@@ -134,14 +144,17 @@ def equalize_frame_cuda(spectra: torch.Tensor, init_taps: torch.Tensor, cnst_id:
             eq.pilot_vals[sym_offset:].data_ptr(), B, n_sym, fft_len, n_hdr,
             float(np.float32(alpha)), float(np.float32(1.0 - alpha)), int(frozen), float(inv_tot),
             hard.data_ptr(), soft.data_ptr(), taps.data_ptr(), snr_db.data_ptr(),
-            noise_var.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            noise_var.data_ptr(), None if points is None else points.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"equalizer_launch failed: CUDA error {rc}")
     equalize_frame_cuda.LAUNCHES += 1
+    equalize_frame_cuda.TABLE_LAUNCHES += points is not None
     return hard, soft, taps, snr_db, noise_var
 
 
 equalize_frame_cuda.LAUNCHES = 0
+equalize_frame_cuda.TABLE_LAUNCHES = 0
 
 
 def _abs_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -154,7 +167,7 @@ def _abs_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def compare_with_plain(got, want, cnst_id: torch.Tensor, eq, sym_offset: int = 0,
-                       atol: float = 1e-5, eps: float = 1e-5) -> dict:
+                       atol: float = 1e-5, eps: float = 1e-5, decision_atol: float = 0.0) -> dict:
     """Hold one ``EqualizerOut`` (``got``, the kernel's) against another
     (``want``, the plain version's) on the same inputs, row by row.
 
@@ -165,9 +178,13 @@ def compare_with_plain(got, want, cnst_id: torch.Tensor, eq, sym_offset: int = 0
     a *boundary* row when, at the first symbol with an unequal decision, the
     soft symbols still agree within ``atol`` and every carrier decided
     differently has its plain soft symbol within ``eps`` of a decision
-    boundary of that symbol's constellation
+    boundary of that symbol's constellation under ``eq.tab``
     (:func:`constellation.near_decision_boundary`); from there on its taps
     may differ.  Every other row is a *fault*.
+
+    ``decision_atol``: two decided points this close count as one decision
+    (for two versions whose tables hold a point in float32 values an ulp
+    apart, such as the closed-form slicers and the native table).
 
     Returns counts ``rows``, ``boundary_rows``, ``fault_rows`` and
     ``max_abs_err`` (soft, hard and taps, over the clean rows), as Python
@@ -178,7 +195,7 @@ def compare_with_plain(got, want, cnst_id: torch.Tensor, eq, sym_offset: int = 0
     sym_cnst = torch.where((abs_idx < eq.header_syms)[None, :], int(cn.ConstellationType.BPSK),
                            cnst_id[:, None].int())  # [B, n_sym]
     d_hard_abs, d_soft = _abs_diff(got.hard, want.hard), _abs_diff(got.soft, want.soft)
-    d_hard = d_hard_abs != 0  # [B, n_sym, fft]
+    d_hard = d_hard_abs > decision_atol  # [B, n_sym, fft]
     err = torch.maximum(torch.maximum(d_soft.amax(dim=(1, 2)), d_hard_abs.amax(dim=(1, 2))),
                         _abs_diff(got.taps, want.taps).amax(dim=1))
     stats_ok = ((_abs_diff(got.noise_var, want.noise_var) <= 1e-4 * want.noise_var.abs().nan_to_num())
@@ -189,7 +206,7 @@ def compare_with_plain(got, want, cnst_id: torch.Tensor, eq, sym_offset: int = 0
     first = torch.where(sym_differs.any(dim=1), sym_differs.int().argmax(dim=1), n_sym)
     pick = torch.clamp(first, max=n_sym - 1)
     rows = torch.arange(B, device=want.soft.device)
-    near = cn.near_decision_boundary(want.soft[rows, pick], sym_cnst[rows, pick][:, None], eps)
+    near = cn.near_decision_boundary(want.soft[rows, pick], sym_cnst[rows, pick][:, None], eps, eq.tab)
     flipped = d_hard[rows, pick]
     before = torch.arange(n_sym, device=want.soft.device)[None, :] <= first[:, None]
     soft_ok = (torch.where(before[:, :, None], d_soft, 0.0).amax(dim=(1, 2)) <= atol)

@@ -35,6 +35,8 @@ __all__ = [
     "make_crc_tables",
     "crc_tables",
     "crc_tables_from_reference",
+    "crc_host",
+    "gf2_matmul",
     "crc_device",
 ]
 
@@ -153,6 +155,40 @@ def crc_tables_from_reference(d, device) -> CrcTables:
 def crc_tables(spec: CrcSpec, max_len_bytes: int, device: torch.device) -> CrcTables:
     """:func:`make_crc_tables` on ``device``, made once per (spec, size, device)."""
     return crc_tables_from_reference(make_crc_tables(spec, max_len_bytes), device)
+
+
+def _bitrev(v: int, width: int) -> int:
+    out = 0
+    for _ in range(width):
+        out = (out << 1) | (v & 1)
+        v >>= 1
+    return out
+
+
+def crc_host(data, spec: CrcSpec) -> int:
+    """Bitwise CRC on the host, one byte at a time: the golden model the
+    affine tables are held to.  ``data``: bytes, or a uint8 array."""
+    data = np.frombuffer(bytes(data), np.uint8) if isinstance(data, (bytes, bytearray)) \
+        else np.asarray(data, np.uint8)
+    reg = spec.init
+    top = 1 << (spec.width - 1)
+    mask = (1 << spec.width) - 1
+    for byte in data.tolist():
+        if spec.reflect_in:
+            byte = _bitrev(byte, 8)
+        reg ^= byte << (spec.width - 8)
+        for _ in range(8):
+            reg = ((reg << 1) ^ spec.poly) if reg & top else (reg << 1)
+            reg &= mask
+    if spec.reflect_out:
+        reg = _bitrev(reg, spec.width)
+    return reg ^ spec.xor_out
+
+
+def gf2_matmul(bits: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """(bits @ mat) mod 2 as a float32 matmul of 0/1 values: exact while
+    the sums stay below 2^24 (TF32 is off in this package)."""
+    return torch.remainder(bits.float() @ mat.float(), 2.0)
 
 
 def _bytes_to_crc_bitstream(msg: torch.Tensor, spec: CrcSpec) -> torch.Tensor:

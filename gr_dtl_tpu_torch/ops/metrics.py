@@ -23,18 +23,20 @@ __all__ = ["constellation_metric", "frame_accounting", "lost_frames"]
 
 
 def constellation_metric(hard: torch.Tensor, soft: torch.Tensor,
-                         cnst_id: torch.Tensor) -> torch.Tensor:
+                         cnst_id: torch.Tensor, tab: cn.Tables | None = None) -> torch.Tensor:
     """Per-subcarrier normalized error metric.
 
     Args:
       hard: [B, n_sym, n_carriers] decided symbols.
       soft: same shape, equalized pre-decision symbols.
       cnst_id: [B] constellation ids.
+      tab: the model's constellation tables (``RxParams.tab``); None = the
+        installed ones (wire-compat tables have their own least distances).
     Returns [B, n_carriers] float32: mean |hard - soft|^2 over symbols,
     divided by the constellation's least distance.
     """
     err = (torch.abs(hard - soft) ** 2).mean(dim=1)
-    mind = torch.as_tensor(cn.MIN_DIST, device=hard.device)[cnst_id.long()]
+    mind = (cn.active(hard.device) if tab is None else tab).min_dist[cnst_id.long()]
     return (err / torch.clamp(mind[:, None], min=1e-12)).float()
 
 

@@ -25,7 +25,9 @@ __all__ = [
     "build_allocator",
     "allocator_from_reference",
     "allocate_carriers",
+    "extract_carriers",
     "add_cyclic_prefix",
+    "remove_cyclic_prefix",
 ]
 
 
@@ -122,6 +124,18 @@ def allocate_carriers(data_syms: torch.Tensor, alloc: Allocator) -> torch.Tensor
     n_sync = n_sym - data_syms.shape[1]
     grid[:, n_sync:, alloc.occ_idx] = data_syms
     return grid
+
+
+def extract_carriers(spectra: torch.Tensor, alloc: Allocator) -> torch.Tensor:
+    """Inverse of :func:`allocate_carriers`: the occupied carriers' values
+    of the data symbols, [B, n_data_syms, fft_len] (sync symbols removed)
+    -> [B, n_data_syms, n_data_carriers]."""
+    return spectra[:, :, alloc.occ_idx]
+
+
+def remove_cyclic_prefix(samples: torch.Tensor, fft_len: int, cp_len: int) -> torch.Tensor:
+    """[..., n_sym, cp+fft] -> [..., n_sym, fft_len]: the prefix dropped."""
+    return samples[..., cp_len:]
 
 
 def add_cyclic_prefix(time_syms: torch.Tensor, cp_len: int) -> torch.Tensor:

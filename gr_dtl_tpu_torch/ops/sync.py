@@ -41,6 +41,8 @@ __all__ = [
     "cfo_correct",
     "extract_windows",
     "extract_frames",
+    "extract_frames_batch",
+    "fine_cfo_batch",
 ]
 
 
@@ -51,12 +53,19 @@ def _rows(x: torch.Tensor, starts: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def _median_trunc(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.median(x).astype(int32)`` of an integer vector: for an even
+    """``jnp.median(x, axis=-1).astype(int32)`` of integers: for an even
     count the mean of the two middle values, truncated toward zero.
     (``torch.median`` would return the lower middle value.)"""
-    n = x.shape[0]
-    s = torch.sort(x).values
-    return torch.div(s[(n - 1) // 2] + s[n // 2], 2, rounding_mode="trunc")
+    n = x.shape[-1]
+    s = torch.sort(x, dim=-1).values
+    return torch.div(s[..., (n - 1) // 2] + s[..., n // 2], 2, rounding_mode="trunc")
+
+
+def _rows_batch(x: torch.Tensor, starts: torch.Tensor, length: int) -> torch.Tensor:
+    """[S, B, length] windows x[s, starts[s, i] : + length] of [S, N] rows
+    (starts already in range), as one gather."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    return x[rows, starts[..., None] + torch.arange(length, device=x.device)]
 
 
 def extract_windows(stream: torch.Tensor, trig: torch.Tensor, length: int) -> torch.Tensor:
@@ -99,7 +108,7 @@ def _periodic_starts(x_len: int, base: torch.Tensor, period: int, n: int,
         raise ValueError(f"row length {length} exceeds the period {period}")
     xp_len = left_pad + x_len + period + length
     start = torch.clamp(base + left_pad, 0, xp_len - n * period)
-    return start + torch.arange(n, device=base.device) * period
+    return start[..., None] + torch.arange(n, device=base.device) * period
 
 
 def _periodic_rows(x: torch.Tensor, base: torch.Tensor, period: int, n: int,
@@ -109,6 +118,58 @@ def _periodic_rows(x: torch.Tensor, base: torch.Tensor, period: int, n: int,
     zeros (it is not clipped), and ``period + length`` on the right."""
     xp = F.pad(x, (left_pad, period + length))
     return _rows(xp, _periodic_starts(x.shape[-1], base, period, n, length, left_pad), length)
+
+
+def extract_frames_batch(streams: torch.Tensor, trig: torch.Tensor, period: int,
+                         tol: int = 4) -> torch.Tensor:
+    """:func:`extract_frames` over a batch of streams, with ONE uniformity
+    vote for the whole batch: when every stream's triggers sit within
+    ``tol`` of its own median anchor ``base_s + k*period``, every stream
+    takes its periodic windows; otherwise every stream takes the exact
+    per-trigger windows.  The vote is a ``torch.where`` on the start
+    indices, followed by one gather: no host round trip.
+
+    Args:
+      streams: [S, N] per-stream sample rows.
+      trig:    [S, B] per-stream window starts.
+    Returns [S, B, period].
+    """
+    S, N = streams.shape
+    B = trig.shape[1]
+    slow = torch.clamp(trig.long(), 0, N - period)
+    if N < B * period:  # the uniform grid would not fit
+        return _rows_batch(streams, slow, period)
+    k = torch.arange(B, device=trig.device)
+    rel = trig.long() - k * period
+    base = _median_trunc(rel)  # [S]
+    uniform = torch.all(torch.abs(rel - base[:, None]) <= tol)
+    fast = torch.clamp(base, 0, N - B * period)[:, None] + k * period
+    return _rows_batch(streams, torch.where(uniform, fast, slow), period)
+
+
+def fine_cfo_batch(P: torch.Tensor, trig: torch.Tensor, cp_len: int, period: int,
+                   tol: int = 4) -> torch.Tensor:
+    """:func:`fine_cfo` (with ``period``) over a batch of streams, with ONE
+    uniformity vote for the whole batch, as :func:`extract_frames_batch`.
+
+    Args:
+      P:    [S, N'] per-stream correlation rows.
+      trig: [S, B] triggers.
+    Returns [S, B] fractional CFO.
+    """
+    L = cp_len + 1
+    B = trig.shape[1]
+    n = P.shape[-1]
+    t = trig.long()
+    slow = torch.clamp(t - cp_len // 2, 0, n - L)
+    k = torch.arange(B, device=t.device)
+    rel = t - k * period
+    base = _median_trunc(rel)  # [S]
+    uniform = torch.all(torch.abs(rel - base[:, None]) <= tol)
+    fast = _periodic_starts(n, base - cp_len // 2, period, B, L, left_pad=cp_len)
+    Pp = F.pad(P, (cp_len, period + L))
+    wins = _rows_batch(Pp, torch.where(uniform, fast, slow + cp_len), L)
+    return (torch.angle(wins.sum(-1)) / math.pi).float()
 
 
 def _moving_sum(x: torch.Tensor, w: int) -> torch.Tensor:

@@ -4,9 +4,9 @@ Numpy only: same OFDM numerology defaults (fft 64, cp 16, 48 data + 4
 pilot carriers, 127-long pilot scramble sequence, frame of 20 payload
 symbols), same MCS ladder, same layered override scheme (dataclass
 defaults <- JSON dict <- kwargs), same self-chosen sync words from a
-fixed seed.  The wire-compat override (foreign sync words and
-constellation labels) is not ported yet; a config that asks for it
-raises.
+fixed seed.  A config whose ``wire_compat`` names a wire-constants file
+installs that file's sync words and constellation tables
+(``utils/wire_compat``) for every model built afterwards.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ __all__ = [
     "make_full_duplex_config",
     "make_sync_word1",
     "make_sync_word2",
+    "set_wire_sync_words",
     "config_from_reference",
 ]
 
@@ -54,6 +55,27 @@ DEFAULT_PILOT_CARRIERS: t.Tuple[int, ...] = (-21, -7, 7, 21)
 
 _SYNC_SEED = 42
 
+# wire-compat override (utils/wire_compat.activate): when set, the sync-word
+# makers return these frequency-domain vectors instead of the self-chosen PN
+_WIRE_SYNC1: t.Optional[np.ndarray] = None
+_WIRE_SYNC2: t.Optional[np.ndarray] = None
+
+
+def set_wire_sync_words(w1, w2) -> None:
+    """Install (or, with None, remove) foreign sync words."""
+    global _WIRE_SYNC1, _WIRE_SYNC2
+    _WIRE_SYNC1 = None if w1 is None else np.asarray(w1, np.complex64)
+    _WIRE_SYNC2 = None if w2 is None else np.asarray(w2, np.complex64)
+
+
+def _wire_word(w: np.ndarray, which: int, fft_len: int) -> np.ndarray:
+    if len(w) != fft_len:
+        # never fall back: foreign constellations with the native PN would be
+        # a mixed configuration that interoperates with nothing
+        raise ValueError(f"wire-compat sync word {which} is {len(w)} bins but fft_len={fft_len}; "
+                         "the active wire-constants file does not match this config")
+    return w.copy()
+
 
 def _active_carriers(occupied, pilots):
     return sorted(set(occupied) | set(pilots))
@@ -65,8 +87,11 @@ def make_sync_word1(fft_len=64, occupied=DEFAULT_OCCUPIED_CARRIERS,
 
     Energy only on even (centered) carriers -> the 64-sample useful part
     repeats with period 32, which the Schmidl-Cox autocorrelator detects.
-    Returned as a centered length-fft_len frequency-domain vector.
+    Returned as a centered length-fft_len frequency-domain vector; the
+    installed wire-compat word instead, if there is one.
     """
+    if _WIRE_SYNC1 is not None:
+        return _wire_word(_WIRE_SYNC1, 1, fft_len)
     rng = np.random.RandomState(_SYNC_SEED)
     w = np.zeros(fft_len, dtype=np.complex64)
     for c in _active_carriers(occupied, pilots):
@@ -78,7 +103,10 @@ def make_sync_word1(fft_len=64, occupied=DEFAULT_OCCUPIED_CARRIERS,
 
 def make_sync_word2(fft_len=64, occupied=DEFAULT_OCCUPIED_CARRIERS,
                     pilots=DEFAULT_PILOT_CARRIERS) -> np.ndarray:
-    """Sync word 2: PN(+-1) on all active carriers (channel estimation)."""
+    """Sync word 2: PN(+-1) on all active carriers (channel estimation);
+    the installed wire-compat word instead, if there is one."""
+    if _WIRE_SYNC2 is not None:
+        return _wire_word(_WIRE_SYNC2, 2, fft_len)
     rng = np.random.RandomState(_SYNC_SEED + 1)
     w = np.zeros(fft_len, dtype=np.complex64)
     for c in _active_carriers(occupied, pilots):
@@ -97,7 +125,7 @@ class OFDMConfig:
     pilot_sym_scramble_seq: t.Tuple[int, ...] = PILOT_SYM_SCRAMBLE_SEQ
     rolloff: int = 0
     scramble_bits: bool = False
-    wire_compat: str = ""  # not ported: a non-empty value raises
+    wire_compat: str = ""  # a wire-constants JSON file: installed when the config is made
     frame_length: int = 20  # payload OFDM symbols per frame
     frame_store_folder: str = "/tmp"
     fec: bool = False
@@ -225,9 +253,9 @@ def _make_config(cfg, json_dict: t.Optional[dict], **overrides):
             if hasattr(cfg, key):
                 setattr(cfg, key, parsers.get(key, lambda v: v)(val))
     if cfg.wire_compat:
-        raise NotImplementedError(
-            "wire_compat (foreign sync words and constellation labels) is "
-            "not ported yet: ROADMAP.md, queue 1, item W1")
+        from gr_dtl_tpu_torch.utils import wire_compat
+
+        wire_compat.activate(cfg.wire_compat)
     return cfg
 
 

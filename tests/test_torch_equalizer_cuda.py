@@ -12,7 +12,12 @@ bit equality cannot be promised; the bar is: decisions equal, soft symbols
 and taps within atol 1e-5, noise variance within rtol 1e-4, SNR within 1e-3
 dB (the tolerances of tests/test_torch_equalizer.py) on every row, except
 rows that part at a symbol whose equalized value lies within 1e-5 of a
-decision boundary, and those stay under 0.1% of the rows.  On a machine
+decision boundary, and those stay under 0.1% of the rows.  Table mode
+(wire-compat tables: the table argmin, written as PyTorch's chain of
+kernels rounds it) is held to more: bit-equal to the plain loop on every
+row, boundary inputs included; and the table mode on the native tables
+decides the closed form's points (within an ulp: the table holds them
+rounded from float64) but at a boundary.  On a machine
 with the card but without JAX or pytest-xdist:
 ``python3 -m pytest -o addopts= --noconftest -q tests/test_torch_equalizer_cuda.py``.
 """
@@ -28,13 +33,21 @@ import torch
 from gr_dtl_tpu_torch.ops import constellation as cn
 from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda
 from gr_dtl_tpu_torch.tools import bench_equalizer
+from gr_dtl_tpu_torch.utils import wire_compat
 
 FRAME_LENGTH = 20
 LVL = float(np.float32(1.0) / np.sqrt(np.float32(10.0)))
 
 
-def eq_tables(device, alpha=0.8):
-    return bench_equalizer.eq_tables(device, alpha)
+def eq_tables(device, alpha=0.8, tables=None):
+    """The equalizer constants; ``tables``: None (the closed form),
+    "foreign" (the relabeled wire tables) or "native" (the native points in
+    table mode)."""
+    tab = None
+    if tables is not None:
+        consts = bench_equalizer.foreign_constants() if tables == "foreign" else wire_compat.dump_native()
+        tab = bench_equalizer.wire_tables(device, consts)
+    return bench_equalizer.eq_tables(device, alpha, tab)
 
 
 frame_inputs = bench_equalizer.frame_inputs  # synthetic frames, shared with the timing tool
@@ -192,6 +205,49 @@ def test_library_path_needs_no_compiler():
     assert equalizer_cuda.SOURCE.is_file()
 
 
+def test_compare_with_plain_takes_decisions_an_ulp_apart_as_one():
+    """The closed-form slicers and the native table hold the 8PSK and 16QAM
+    points an ulp apart: with decision_atol the two plain loops agree."""
+    eq_c, eq_n = eq_tables("cpu"), eq_tables("cpu", tables="native")
+    B = 8
+    cnst = bench_equalizer.mixed_ids(B)
+    args = bench_equalizer.on_device(frame_inputs(eq_c, B, 6, 1, cnst, seed=5), cnst, "cpu")
+    got, want = equalizer.equalize_frame(*args, eq_n, 1), equalizer.equalize_frame(*args, eq_c, 1)
+    assert not torch.equal(got.hard, want.hard)
+    strict = equalizer_cuda.compare_with_plain(got, want, args[2], eq_c, 1)
+    loose = equalizer_cuda.compare_with_plain(got, want, args[2], eq_c, 1, decision_atol=1e-6)
+    assert strict["fault_rows"] > 0 and loose["fault_rows"] == loose["boundary_rows"] == 0
+
+
+def test_table_mode_plain_loop_on_foreign_tables():
+    """The plain loop in table mode: each decision is the foreign table's
+    argmin, and the relabeling moves no point, so the closed form decides
+    the same points (within an ulp)."""
+    eq_t, eq_c = eq_tables("cpu", tables="foreign"), eq_tables("cpu")
+    assert eq_t.tab.table_mode and not eq_c.tab.table_mode
+    B = 12
+    cnst = bench_equalizer.mixed_ids(B)
+    args = bench_equalizer.on_device(frame_inputs(eq_t, B, 4, 1, cnst, seed=6), cnst, "cpu")
+    got = equalizer.equalize_frame(*args, eq_t, 1)
+    data = eq_t.occ_mask & ~eq_t.pilot_mask
+    assert torch.equal(got.hard[:, :, data], cn.nearest_point_table(got.soft[:, :, data], args[2][:, None, None],
+                                                                    eq_t.tab)[1])
+    want = equalizer.equalize_frame(*args, eq_c, 1)
+    res = equalizer_cuda.compare_with_plain(got, want, args[2], eq_c, 1, decision_atol=1e-6)
+    assert res["fault_rows"] == res["boundary_rows"] == 0
+
+
+def test_source_table_mode_matches_the_tables():
+    """The table-mode slicer's layout: rows of MAX_POINTS, N_TYPES rows,
+    2^id valid points (bits per symbol equal the id)."""
+    src = equalizer_cuda.SOURCE.read_text()
+    assert int(re.search(r"constexpr int kMaxPoints = (\d+);", src).group(1)) == cn.MAX_POINTS
+    assert int(re.search(r"constexpr int kTypes = (\d+);", src).group(1)) == cn.N_TYPES
+    np.testing.assert_array_equal(cn.BITS_PER_SYMBOL, np.arange(cn.N_TYPES))
+    np.testing.assert_array_equal(cn.VALID_MASK, np.arange(cn.MAX_POINTS)[None, :] < (1 << np.arange(cn.N_TYPES))[:, None] * (np.arange(cn.N_TYPES) > 0)[:, None])
+    assert "__fmul_rn(dr, dr)" in src and "__fadd_rn(" in src
+
+
 def test_source_constants_are_the_slicers_float32_values():
     """The kernel decides with the constants of ops/constellation.py,
     rounded to float32 as PyTorch rounds a Python scalar."""
@@ -329,3 +385,62 @@ def test_equalizer_wrapper_refuses_on_the_card(gpu):
         call(spectra, taps0, cnst, eq, FRAME_LENGTH)
     with pytest.raises(ValueError, match="eq.occ_mask"):
         call(spectra, taps0, cnst, eq_tables("cpu"), 1)
+
+
+def _table_inputs(gpu, B, n_sym, ids, seed, boundary=False, tables="foreign", alpha=0.8):
+    eq = eq_tables(gpu, alpha, tables)
+    cnst = np.array([ids[i % len(ids)] for i in range(B)], np.int32)
+    sym_offset = 0 if n_sym == 1 else 1
+    make = bench_equalizer.boundary_inputs if boundary else frame_inputs
+    spectra, taps0 = make(eq, B, n_sym, sym_offset, cnst, seed)
+    return eq, (torch.as_tensor(spectra, device=gpu), torch.as_tensor(taps0, device=gpu),
+                torch.as_tensor(cnst, device=gpu), eq, sym_offset)
+
+
+def hold_bit_equal(got, want):
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    assert bench_equalizer.rows_not_bit_equal(got, want) == 0
+    for a, b in zip(got[3:], want[3:]):  # snr_db, noise_var: sums in another order
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables", ["foreign", "native"])
+@pytest.mark.parametrize("case", list(CNST_CASES))
+@pytest.mark.parametrize("n_sym", [1, 20])
+@pytest.mark.parametrize("B", [1, 33, 2048])
+def test_table_mode_kernel_is_bit_equal_to_plain_loop(gpu, B, n_sym, case, tables):
+    """Table mode on the foreign and on the native tables, every
+    constellation alone and mixed (with an id 0: no valid point), one
+    launch a call: hard, soft and taps bit-equal to the plain loop."""
+    eq, args = _table_inputs(gpu, B, n_sym, CNST_CASES[case], seed=B + 7 * n_sym, tables=tables)
+    before = equalizer_cuda.equalize_frame_cuda.LAUNCHES
+    got = equalizer.equalize_frame(*args)
+    assert equalizer_cuda.equalize_frame_cuda.LAUNCHES == before + 1
+    hold_bit_equal(got, equalizer._equalize_frame_torch(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.8, 1.0])
+def test_table_mode_kernel_at_the_decision_boundaries(gpu, alpha):
+    """Symbols placed within 2e-6 of a boundary, where one rounding decides:
+    still bit-equal (the distances are rounded as PyTorch rounds them)."""
+    eq, args = _table_inputs(gpu, 2048, 20, [1, 2, 3, 4], seed=7, boundary=True, alpha=alpha)
+    got = equalizer.equalize_frame(*args)
+    hold_bit_equal(got, equalizer._equalize_frame_torch(*args))
+    if alpha >= equalizer_cuda.FROZEN_ALPHA:
+        assert got.taps is args[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [33, 2048])
+def test_table_mode_on_native_tables_decides_as_the_closed_form(gpu, B):
+    eq_n, args = _table_inputs(gpu, B, 20, [1, 2, 3, 4], seed=B, tables="native")
+    eq_c = eq_tables(gpu)
+    got = equalizer.equalize_frame(*args[:3], eq_n, 1)
+    want = equalizer.equalize_frame(*args[:3], eq_c, 1)
+    torch.cuda.synchronize()
+    res = equalizer_cuda.compare_with_plain(got, want, args[2], eq_c, 1, decision_atol=1e-6)
+    assert res["fault_rows"] == 0 and res["boundary_rows"] <= max(1, B // 1000), res

@@ -75,18 +75,23 @@ def test_config_fields_and_sizes(src, kind):
 
 
 def test_wire_compat_config_raises():
-    with pytest.raises(NotImplementedError, match="W1"):
+    """A config's wire_compat file is installed when the config is made: a
+    file that is not there raises, and nothing is installed."""
+    with pytest.raises(FileNotFoundError, match="constants.json"):
         config.make_rx_config(None, wire_compat="constants.json")
+    assert not cn.TABLE_MODE
 
 
 def test_constellation_tables():
     np.testing.assert_array_equal(cn.POINTS, ref_cn.POINTS)
     np.testing.assert_array_equal(cn.BITS_PER_SYMBOL, ref_cn.BITS_PER_SYMBOL)
     np.testing.assert_array_equal(cn.VALID_MASK, ref_cn.VALID_MASK)
-    pts, bps, valid = cn.tables(torch.device("cpu"))
-    np.testing.assert_array_equal(pts.numpy(), ref_cn.POINTS)
-    np.testing.assert_array_equal(bps.numpy(), ref_cn.BITS_PER_SYMBOL)
-    np.testing.assert_array_equal(valid.numpy(), ref_cn.VALID_MASK)
+    tab = cn.active(torch.device("cpu"))
+    np.testing.assert_array_equal(tab.points.numpy(), ref_cn.POINTS)
+    np.testing.assert_array_equal(tab.bps.numpy(), ref_cn.BITS_PER_SYMBOL)
+    np.testing.assert_array_equal(tab.valid.numpy(), ref_cn.VALID_MASK)
+    np.testing.assert_array_equal(tab.min_dist.numpy(), ref_cn.MIN_DIST)
+    assert not tab.table_mode and tab is cn.active("cpu")  # made once per device
 
 
 @pytest.mark.parametrize("spec_name,max_len", [("CRC32_FRAME", 480), ("CRC32_FRAME", 60),

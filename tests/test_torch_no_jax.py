@@ -33,6 +33,18 @@ rx = session.StreamRx(cfg, "cpu", frames_per_block=2, fec=fec_chain.build_fec(cf
 assert len(rx.process(zeros(rx.block_samples, "complex64"))) == 3
 assert tb_cuda.tb_reassemble_cuda.LAUNCHES == 0 and sync_cuda.timing_metric_cuda.LAUNCHES == 0
 assert equalizer_cuda.equalize_frame_cuda.LAUNCHES == 0  # nor does the equalizer
+# the telemetry (capture mode needs no pyzmq) and the wire-compat tables
+from gr_dtl_tpu_torch.testbed import monitor
+from gr_dtl_tpu_torch.utils import wire_compat
+probe = monitor.MonitorProbe(address=None)
+rx = session.StreamRx(chip_smoke.cfgmod.make_rx_config(None, frame_length=4), "cpu", frames_per_block=2,
+                      probe=probe)
+rx.process(zeros(rx.block_samples, "complex64"))
+assert probe.captured == [] and "zmq" not in sys.modules
+wire_compat.activate(wire_compat.dump_native())
+rx = session.StreamRx(chip_smoke.cfgmod.make_rx_config(None, frame_length=4), "cpu", frames_per_block=2)
+wire_compat.deactivate()
+assert rx.rxp.tab.table_mode and equalizer_cuda.equalize_frame_cuda.LAUNCHES == 0
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 print("imported", len(names), "modules:", *names)
 """
@@ -45,12 +57,14 @@ def test_port_imports_without_jax_or_nvcc():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 30, proc.stdout  # every module of slices A, B, C and D
+    assert n >= 36, proc.stdout  # every module of slices A, B, C and D, the testbed, wire compat
     for name in ("utils.alist", "ops.ldpc", "models.fec_chain", "ops.constellation",
                  "models.receiver", "models.transmitter", "ops.sync_cuda", "ops._cuda_build",
                  "ops.scans_cuda", "ops.metrics", "models.adaptive", "models.streaming",
                  "models.session", "ops.channel", "ops.burst", "ops.tb_cuda", "models.simplex",
-                 "models.full_duplex", "ops.equalizer", "ops.equalizer_cuda"):
+                 "models.full_duplex", "ops.equalizer", "ops.equalizer_cuda", "testbed.monitor",
+                 "testbed.collect", "testbed.frame_store", "testbed.proto.monitor_pb2",
+                 "utils.wire_compat", "utils.logging"):
         assert f"gr_dtl_tpu_torch.{name}" in proc.stdout.split(), name
 
 

@@ -118,6 +118,27 @@ def test_allocate_carriers_and_cyclic_prefix(frame_length):
                                   np.asarray(ref_ofdm.add_cyclic_prefix(want, 16)))
 
 
+@pytest.mark.parametrize("frame_length", [4, 20])
+def test_extract_carriers_and_remove_cyclic_prefix(frame_length):
+    """The inverses: carriers taken back out of a grid (sync symbols removed)
+    and the prefix dropped, as the reference's (exact: placement only)."""
+    rng = np.random.RandomState(5)
+    cfg = config.make_tx_config(None, frame_length=frame_length)
+    ref_alloc = ref_ofdm.build_allocator(ref_config.make_tx_config(None, frame_length=frame_length))
+    alloc = ofdm.build_allocator(cfg, "cpu")
+    data = _cplx(rng, 3, cfg.header_symbols + frame_length, cfg.n_data_carriers)
+    grid = ofdm.allocate_carriers(torch.as_tensor(data), alloc)[:, cfg.n_sync_symbols:]
+    got = ofdm.extract_carriers(grid, alloc)
+    np.testing.assert_array_equal(_np(got), np.asarray(ref_ofdm.extract_carriers(jnp.asarray(_np(grid)), ref_alloc)))
+    np.testing.assert_array_equal(_np(got), data)
+    with_cp = _cplx(rng, 2, 5, 80)
+    got = ofdm.remove_cyclic_prefix(torch.as_tensor(with_cp), 64, 16)
+    np.testing.assert_array_equal(_np(got), np.asarray(ref_ofdm.remove_cyclic_prefix(jnp.asarray(with_cp), 64, 16)))
+    time_syms = _cplx(rng, 2, 5, 64)
+    np.testing.assert_array_equal(
+        _np(ofdm.remove_cyclic_prefix(ofdm.add_cyclic_prefix(torch.as_tensor(time_syms), 16), 64, 16)), time_syms)
+
+
 # ---------------------------------------------------------------- byte layer
 
 @pytest.mark.parametrize("spec_name,max_len", [("CRC32_FRAME", 480), ("CRC16_HEADER", 10)])
@@ -133,8 +154,30 @@ def test_crc_device(spec_name, max_len):
     got = gf2.crc_device(torch.as_tensor(msg), torch.as_tensor(lengths),
                          gf2.crc_tables(getattr(gf2, spec_name), max_len, torch.device("cpu")))
     np.testing.assert_array_equal(_np(got), np.asarray(want).astype(np.int64))
-    spec = getattr(ref_gf2, spec_name)
-    assert [ref_gf2.crc_host(msg[i, : lengths[i]], spec) for i in range(B)] == _np(got).tolist()
+    spec = getattr(gf2, spec_name)
+    assert [gf2.crc_host(msg[i, : lengths[i]], spec) for i in range(B)] == _np(got).tolist()
+
+
+@pytest.mark.parametrize("spec_name", ["CRC32_FRAME", "CRC16_HEADER", "CRC8_FEEDBACK"])
+def test_crc_host_matches_reference(spec_name):
+    rng = np.random.RandomState(8)
+    spec, ref_spec = getattr(gf2, spec_name), getattr(ref_gf2, spec_name)
+    for n in (0, 1, 7, 64, 301):
+        msg = rng.randint(0, 256, n).astype(np.uint8)
+        for data in (msg, msg.tobytes(), bytearray(msg.tobytes())):
+            assert gf2.crc_host(data, spec) == ref_gf2.crc_host(data, ref_spec)
+    assert gf2.crc_host(b"123456789", gf2.CRC32_FRAME) == 0xCBF43926  # the CRC-32 check value
+
+
+def test_gf2_matmul_matches_reference():
+    rng = np.random.RandomState(9)
+    bits = rng.randint(0, 2, (6, 500)).astype(np.float32)
+    mat = rng.randint(0, 2, (500, 32)).astype(np.float32)
+    got = gf2.gf2_matmul(torch.as_tensor(bits), torch.as_tensor(mat))
+    want = np.asarray(ref_gf2.gf2_matmul(jnp.asarray(bits), jnp.asarray(mat)))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), (bits.astype(np.int64) @ mat.astype(np.int64)) % 2)
 
 
 @pytest.mark.parametrize("has_fec", [False, True])

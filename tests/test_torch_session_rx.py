@@ -27,6 +27,7 @@ from gr_dtl_tpu.utils import config as ref_config
 
 from gr_dtl_tpu_torch.models import session, streaming, transmitter
 from gr_dtl_tpu_torch.ops import constellation as cn
+from gr_dtl_tpu_torch.testbed import monitor
 from gr_dtl_tpu_torch.utils import config
 
 FRAME_LENGTH, F, K = 10, 4, 3
@@ -309,8 +310,11 @@ def test_single_frame_blocks_keep_the_short_tail_like_reference(cfgs):
 
 
 def test_stream_rx_refuses_a_probe_and_wrong_lengths(cfgs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A probe must have send(bytes) (the probed sessions themselves are in
+    tests/test_torch_session_probe.py); chunks must be a block long."""
+    with pytest.raises(TypeError, match="send"):
         session.StreamRx(cfgs[0], "cpu", frames_per_block=F, probe=object())
+    assert session.StreamRx(cfgs[0], "cpu", frames_per_block=F, probe=monitor.MonitorProbe(None))._acct_words == 2 + 6 * F
     rx = session.StreamRx(cfgs[0], "cpu", frames_per_block=F)
     with pytest.raises(ValueError, match="feed exactly"):
         rx.process(np.zeros(rx.block_samples - 1, np.complex64))

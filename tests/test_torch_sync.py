@@ -161,6 +161,55 @@ def test_extract_frames_and_fine_cfo_branches(name):
     assert np.all(np.abs(rel - int(np.median(rel))) <= 4) == fast
 
 
+def _batch_trigger_sets(P, S, B):
+    """Per-stream trigger rows for the batch forms: every stream affine with
+    small jitter (the fast path), one stream drifting (the whole batch takes
+    the gather), and anchors before the stream's start (clipped / zero-padded)."""
+    k = np.arange(B, dtype=np.int32) * P
+    jit = np.array([0, 1, -2, 2, -1], np.int32)[:B]
+    affine = np.stack([k + 80 + 7 * s + jit for s in range(S)])
+    drift = affine.copy()
+    drift[1] += np.arange(B, dtype=np.int32) * 3
+    early = np.stack([k - 30 + 5 * s + jit for s in range(S)])
+    return {"fast": affine, "one_stream_drifts": drift, "fast_clipped": early}
+
+
+@pytest.mark.parametrize("name", ["fast", "one_stream_drifts", "fast_clipped"])
+def test_batch_extraction_and_fine_cfo_match_reference(name):
+    """extract_frames_batch / fine_cfo_batch (tests/test_sync_numerics.py's
+    cases): one uniformity vote for the whole batch, as the reference's."""
+    rng = np.random.RandomState(3)
+    P, S, B = 560, 3, 5
+    trig = _batch_trigger_sets(P, S, B)[name]
+    streams = _cplx(rng, S, B * P + 700)
+    got = sync.extract_frames_batch(torch.as_tensor(streams), torch.as_tensor(trig), P)
+    want = np.asarray(ref_sync.extract_frames_batch(jnp.asarray(streams), jnp.asarray(trig), P))
+    assert got.shape == (S, B, P)
+    np.testing.assert_array_equal(got.numpy(), want)  # a gather: exact
+    if name == "one_stream_drifts":  # every stream took its own windows
+        for s in range(S):
+            np.testing.assert_array_equal(got[s].numpy(), sync.extract_windows(
+                torch.as_tensor(streams[s]), torch.as_tensor(trig[s]), P).numpy())
+    Pm = _cplx(rng, S, B * P + 700)
+    got = sync.fine_cfo_batch(torch.as_tensor(Pm), torch.as_tensor(trig), 16, P)
+    want = np.asarray(ref_sync.fine_cfo_batch(jnp.asarray(Pm), jnp.asarray(trig), 16, P))
+    assert got.shape == (S, B) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=EPS_ATOL)
+    for s in range(S):  # a batch of one stream is fine_cfo with a period
+        one = sync.fine_cfo_batch(torch.as_tensor(Pm[s:s + 1]), torch.as_tensor(trig[s:s + 1]), 16, P)
+        np.testing.assert_array_equal(one[0].numpy(), sync.fine_cfo(
+            torch.as_tensor(Pm[s]), torch.as_tensor(trig[s]), 16, period=P).numpy())
+
+
+def test_batch_extraction_of_short_streams_takes_the_gather():
+    rng = np.random.RandomState(6)
+    streams = _cplx(rng, 2, 1000)
+    trig = np.array([[-5, 0, 10, 990, 400], [3, 300, 600, 900, 995]], np.int32)
+    np.testing.assert_array_equal(
+        sync.extract_frames_batch(torch.as_tensor(streams), torch.as_tensor(trig), 300).numpy(),
+        np.asarray(ref_sync.extract_frames_batch(jnp.asarray(streams), jnp.asarray(trig), 300)))
+
+
 def test_extract_windows_and_short_stream():
     rng = np.random.RandomState(4)
     stream = _cplx(rng, 1000)
