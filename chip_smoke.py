@@ -153,6 +153,28 @@ And the testbed's telemetry and the wire-compat mode:
    mode's payload call timed at B = 1 / 32 / 1024 / 2048 against its bound,
    beside the closed-form call on the same inputs.
 
+And slice E, the sharded session of parallel/, on a one-rank NCCL group
+(world size 1 on cuda:0, a 1 x 1 grid: NCCL takes one rank a card, so the
+multi-rank grids are the CPU tests' work over gloo):
+
+24. sharded: ShardedStreamRx at S = 64 streams, F = 32 frames a block of
+   frame_length 20 (2048 frames, 3,768,320 samples a block), stream s from
+   sample 300 + 37 s mod 1500 so that block boundaries cut frames, 2
+   warm-up and 16 timed blocks, then one of idle air: every sent frame
+   decoded once, in order, with the sent bytes, n_lost 0; one launch of the
+   metric kernel, one of each scan kernel (every stream in one launch) and
+   four of the equalizer a block, counted; streams 0, 21, 42, 63 equal
+   StreamRx on the same samples; the batched scan kernels against their
+   plain loops stream by stream on the block step's own tensors; coded W = 2
+   (examples/config_fec.json, 25 dB, S = 8, F = 64): every TB decodes, the
+   last by flush_tb, two TB ring launches a block for all 8 rings, counted;
+   the megastep K = 4 at S = 64, F = 16 equal to the K = 1 session; a small
+   case equal to the port's CPU run; entry.dryrun_multichip(1) on the card;
+   the batched K4 and K5 against their plain loops on synthetic inputs
+   (S = 1, 8, 64; T and F = 1 .. 1024, error 0); wall ms a block,
+   Msamples/s, device-busy ms and idle share, and the batched kernels'
+   times beside S launches of the single-stream form.
+
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
 failure exits non-zero before it.
@@ -425,13 +447,30 @@ def main() -> int:
     d_counts, d_steps, d_blocks, max_err_d = slice_d_phases(dev, card)
     stream_launches += d_counts[0]
     max_err_stream = max(max_err_stream, max_err_d)
+    scan_blocks = stream_blocks + d_blocks
     for i, entry in enumerate(scan_kernels):
         entry["launches"] += d_counts[i + 1]
-        entry["launches_per_step"] = entry["launches"] / (stream_blocks + d_blocks)
+        entry["launches_per_step"] = entry["launches"] / scan_blocks
     stream_blocks += d_steps + d_blocks
     print(f"[timing] after the slice D phases: {smi('clocks.sm,power.draw,temperature.gpu')}")
     telemetry_phase(dev, card)
     wire_entry = wire_phase(dev, card)
+    # ---- 24. slice E: the sharded session ----
+    shard = sharded_phase(dev, card)
+    tot = shard["totals"]
+    launches += tot["k1"]
+    stream_blocks += tot["blocks"]
+    scan_blocks += tot["blocks"]
+    for entry, key in zip(scan_kernels, ("trigger_lock_scan", "frame_accounting")):
+        entry["launches"] += tot[key]
+        entry["launches_per_step"] = entry["launches"] / scan_blocks
+        entry["max_abs_err"] = max(entry["max_abs_err"], shard["max_abs_err"])
+        entry["batched"] = dict(shard["times"][key], launches=tot[key],
+                                launches_per_block=tot[key] / tot["blocks"])
+    tb_kernel["launches"] += tot["tb_reassemble"]
+    tb_kernel["max_abs_err"] = max(tb_kernel["max_abs_err"], shard["max_abs_err"])
+    tb_kernel["batched"] = dict(shard["times"]["tb_reassemble"], launches=tot["tb_reassemble"],
+                                launches_per_block=tot["tb_reassemble"] / tot["tb_blocks"])
     eq_entry = time_equalizer(dev, card)
     print(card)
     print(json.dumps({"kernels": [{
@@ -712,15 +751,21 @@ def profiled(fn, sacrifice: bool = False):
 
 
 def kernel_profiler_ms(fn, kernel_name: str, reps: int):
-    """Mean device duration (ms) of the kernel named so over reps calls of fn."""
+    """Mean device duration (ms) of the kernel named so over reps calls of
+    fn.  The profiler may miss every launch of a short window late in the
+    process (see ``profiled``): a window that saw none is taken again, and
+    three such windows fail the run."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if kernel_name in e.key and e.self_device_time_total > 0]
-    count = sum(e.count for e in found)
-    return sum(e.self_device_time_total for e in found) / count / 1e3 if count else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if kernel_name in e.key and e.self_device_time_total > 0]
+        count = sum(e.count for e in found)
+        if count:
+            return sum(e.self_device_time_total for e in found) / count / 1e3
+    check(False, f"the profiler saw no {kernel_name} in three windows of {reps} calls")
 
 
 def lock_inputs(T: int, seed: int, dev):
@@ -2419,6 +2464,479 @@ def wire_phase(dev, card) -> dict:
             "closed_form_ms_same_inputs": min(t["closed_ms_in_turns"]),
             "ms_at_B": {r["B"]: r["ms"] for r in timed},
             "closed_form_ms_at_B": {r["B"]: min(r["closed_ms_in_turns"]) for r in timed}}
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the sharded session (parallel/) on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+SHARD_S, SHARD_F = 64, 32        # streams, frames a block: 2048 frames, 3,768,320 samples a block
+SHARD_WARM, SHARD_TIMED = 2, 16  # blocks of traffic: warm-up, then timed; then one of idle air
+SHARD_STREAMRX = (0, 21, 42, 63)  # streams held against StreamRx on the same samples
+SHARD_CODED = (8, 64, 4)         # coded W = 2 at 25 dB: streams, frames a block, blocks
+SHARD_MEGA = (64, 16, 4, 8)      # the megastep: streams, frames a block, K, blocks
+SHARD_SMALL = (4, 8, 4)          # the card against the port's CPU run: streams, F, blocks
+# synthetic inputs of the batched scans and TB ring against their plain loops
+SHARD_SCAN_CASES = [(1, 16), (1, 32), (1, 1024), (8, 16), (8, 32), (8, 1024), (64, 16), (64, 32), (64, 64)]
+SHARD_TB_CASES = [(1, 1), (1, 1024), (8, 64), (8, 256), (64, 64)]
+
+
+def shard_streams(tcfg, S: int, n_frames: int, n_blocks: int, block_samples: int, dev, gen,
+                  seed: int, fec=None):
+    """S streams of n_frames frames each, stream s from sample 300 + 37 s
+    mod 1500 (so that every block boundary cuts a frame), idle air to
+    n_blocks blocks: uncoded, mixed constellations 1..4 filled to capacity
+    and noise voltage NOISE_V; coded (``fec``), one QPSK transport block of
+    W frames each at 25 dB of the measured power.  Returns (samples as host
+    numpy [S, n_blocks * block_samples], what was sent: [S, n_frames]
+    tensors on ``dev``)."""
+    rng = np.random.RandomState(seed)
+    P, n = tcfg.frame_samples, S * n_frames
+    if fec is None:
+        cnst = rng.randint(1, 5, (S, n_frames)).astype(np.int32)
+        maxb = tcfg.max_frame_bytes()
+        cap = np.array([0] + [tcfg.frame_bytes(b) - 4 for b in (1, 2, 3, 4)], np.int32)
+        plen = cap[cn.BITS_PER_SYMBOL[cnst]]
+        pad = torch.randint(0, 256, (n, maxb), generator=gen, device=dev, dtype=torch.uint8)
+    else:
+        cnst = np.full((S, n_frames), 2, np.int32)
+        maxb = fec.max_payload_bytes
+        plen = np.where(np.arange(n_frames) % fec.W == 0, int(fec.user_bytes_tab[2]), 0)
+        plen = np.broadcast_to(plen, (S, n_frames)).astype(np.int32)
+        pad = None
+    payload = rng.randint(0, 256, (S, n_frames, maxb)).astype(np.uint8)
+    payload[np.arange(maxb)[None, None, :] >= plen[:, :, None]] = 0
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    sent = {"payload": t(payload), "payload_len": t(plen), "cnst_id": t(cnst),
+            "frame_no": (torch.arange(n_frames, device=dev, dtype=torch.int32) % 4096).expand(S, -1)}
+    out = transmitter.tx_frames(transmitter.build_tx(tcfg, dev, fec), sent["payload"].reshape(n, maxb),
+                                sent["payload_len"].reshape(n), sent["cnst_id"].reshape(n),
+                                torch.zeros(n, dtype=torch.int32, device=dev),
+                                sent["frame_no"].reshape(n).contiguous(), pad)
+    samples = out.samples.reshape(S, n_frames * P)
+    x = torch.zeros((S, n_blocks * block_samples), dtype=torch.complex64, device=dev)
+    for i in range(S):
+        off = 300 + (37 * i) % 1500
+        x[i, off: off + n_frames * P] = samples[i]
+    nv = NOISE_V if fec is None else float(np.sqrt(float((samples.abs() ** 2).mean()) / 10 ** 2.5))
+    return channel.awgn(x, nv, generator=gen).cpu().numpy(), sent
+
+
+def run_sharded(srx, x: np.ndarray):
+    """Every call of ``x`` through the sharded session: wall ms a call and,
+    a call, (out, valid, header_ok, crc_ok[, tb])."""
+    D = srx.dispatch_samples
+    walls, res = [], []
+    for i in range(x.shape[1] // D):
+        t0 = time.perf_counter()
+        r = srx.process(x[:, i * D:(i + 1) * D])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        res.append((r[0], r[1].copy(), srx.last_header_ok.copy(), srx.last_crc_ok.copy()) + tuple(r[2:]))
+    torch.cuda.synchronize()
+    return walls, res
+
+
+def sharded_frames(res) -> tuple:
+    """The leaves [S, calls * K * F] (masks numpy, the rest where they lie)
+    of a run's calls, in frame order."""
+    S = res[0][1].shape[0]
+    masks = {k: np.concatenate([r[i] for r in res], axis=1)
+             for i, k in ((1, "valid"), (2, "header_ok"), (3, "crc_ok"))}
+    out = {}
+    for k in ("frame_no", "payload", "payload_len", "cnst_id", "header_ok", "crc_ok"):
+        leaves = [getattr(r[0], k) for r in res]
+        trail = leaves[0].shape[-1:] if k == "payload" else ()
+        out[k] = torch.cat([a.reshape(S, -1, *trail) for a in leaves], 1)
+    return out, masks
+
+
+def check_sharded_decoded(res, sent, srx, what: str) -> int:
+    """Every sent frame of every stream decoded once, in order, with the sent
+    bytes; nothing lost.  Returns the frames decoded."""
+    S, n_frames = sent["cnst_id"].shape
+    dev = sent["cnst_id"].device
+    out, masks = sharded_frames(res)
+    keep = masks["valid"] & masks["crc_ok"]
+    per = keep.sum(axis=1)
+    check((per == n_frames).all(), f"{what}: frames decoded a stream {per.tolist()}, {n_frames} sent")
+    sel = torch.as_tensor(keep, device=dev)
+    for k, v in sent.items():
+        got = out[k][sel].reshape(v.shape)
+        check(torch.equal(got, v), f"{what}: decoded {k} differs from what was sent, or its order")
+    check((srx.n_lost == 0).all() and (srx.n_frames == n_frames).all(),
+          f"{what}: n_lost {srx.n_lost.max()}, n_frames {sorted(set(srx.n_frames.tolist()))}")
+    return int(keep.sum())
+
+
+def sharded_launches() -> tuple:
+    return (sync_cuda.timing_metric_cuda.LAUNCHES, scans_cuda.trigger_lock_scan_cuda.LAUNCHES,
+            scans_cuda.frame_accounting_cuda.LAUNCHES, tb_cuda.tb_reassemble_cuda.LAUNCHES,
+            equalizer_cuda.equalize_frame_cuda.LAUNCHES)
+
+
+class BatchedScanCheck:
+    """While active, every call of the lock scan, the frame accounting and
+    the TB ring (the batched kernels on the card) also runs the plain loop,
+    stream by stream, on CPU copies of the same inputs, and every output and
+    carried word must be equal.  The path goes on with the kernels'
+    outputs.  Reads the device at every call: for check runs only."""
+
+    def __init__(self, what: str, fec_cpu=None):
+        self.what, self.fec_cpu, self.calls, self.worst = what, fec_cpu, {}, 0.0
+
+    def _seen(self, name: str, err: float, shape) -> None:
+        check(err == 0, f"{self.what}: batched {name} kernel vs plain loop on {tuple(shape)}: off by {err}")
+        self.calls[name] = self.calls.get(name, 0) + 1
+        self.worst = max(self.worst, err)
+
+    def __enter__(self):
+        self._orig = (streaming.trigger_lock_scan, metrics.frame_accounting, fec_chain.tb_reassemble)
+        lock0, acct0, tb0 = self._orig
+        cpu = lambda xs: [a.cpu() for a in xs]
+
+        def lock(state, cand, found, period, tol=4):
+            got = lock0(state, cand, found, period, tol)
+            want = lock0(streaming.TriggerLockState(*cpu(state)), cand.cpu(), found.cpu(), period, tol)
+            g = streaming.TriggerLockState(*cpu(got[0]))
+            self._seen("trigger_lock_scan", int_err(lock_pairs(g, want[0], got[1][0].cpu(), want[1][0],
+                                                               got[1][1].cpu(), want[1][1])), cand.shape)
+            return got
+
+        def acct(expected_no, frame_no, ok, rule="received"):
+            got = acct0(expected_no, frame_no, ok, rule)
+            want = acct0(expected_no.cpu(), frame_no.cpu(), ok.cpu(), rule)
+            self._seen("frame_accounting", int_err(list(zip(cpu(got), want))), frame_no.shape)
+            return got
+
+        def tb(state, llrs, *rest):
+            got = tb0(state, llrs, *rest)
+            want = tb0(fec_chain.TbRing(*cpu(state)), llrs.cpu(), *cpu(rest[:-1]), self.fec_cpu)
+            err = tb_err((fec_chain.TbRing(*cpu(got[0])), {k: v.cpu() for k, v in got[1].items()}), want)
+            self._seen("tb_reassemble", err, llrs.shape)
+            return got
+
+        streaming.trigger_lock_scan, metrics.frame_accounting, fec_chain.tb_reassemble = lock, acct, tb
+        return self
+
+    def __exit__(self, *exc):
+        streaming.trigger_lock_scan, metrics.frame_accounting, fec_chain.tb_reassemble = self._orig
+        if exc[0] is None:
+            check(self.calls, f"{self.what}: no scan call was checked")
+            print(f"[sharded-kernels] on the block step's own tensors, {self.what}: batched kernels equal "
+                  f"their plain per-stream loops, calls {self.calls}, largest |kernel - plain| {self.worst:g}",
+                  flush=True)
+
+
+def batched_vs_plain(dev) -> float:
+    """The batched scan kernels ([S, T], state carried over two calls) and
+    the batched TB ring (S rings, W = 2) against the plain loops stream by
+    stream on synthetic inputs; returns the largest error, which must be 0."""
+    worst = 0.0
+    for S, T in SHARD_SCAN_CASES:
+        lock = plain = None
+        exp = exp0 = torch.full((S,), -1, dtype=torch.int32, device=dev)
+        for call in range(2):
+            ins = [lock_inputs(T, 7919 * S + 31 * T + 1000 * call + s, dev) for s in range(S)]
+            c, f = torch.stack([i[0] for i in ins]), torch.stack([i[1] for i in ins])
+            lock = streaming.initial_lock_state(dev, (S,)) if lock is None else lock
+            plain = streaming.initial_lock_state("cpu", (S,)) if plain is None else plain
+            lock, (trig, valid) = streaming.trigger_lock_scan(lock, c, f, 1840)
+            plain, (trig0, valid0) = streaming.trigger_lock_scan(plain, c.cpu(), f.cpu(), 1840)
+            g = streaming.TriggerLockState(*(a.cpu() for a in lock))
+            err = int_err(lock_pairs(g, plain, trig.cpu(), trig0, valid.cpu(), valid0))
+            n, o = acct_inputs(S * T, S + T + call, 4000 + call * (T + 3), dev)
+            n, o = n.reshape(S, T), o.reshape(S, T)
+            exp, lost, totals = metrics.frame_accounting(exp, n, o)
+            exp0, lost0, totals0 = metrics.frame_accounting(exp0.cpu(), n.cpu(), o.cpu())
+            err = max(err, int_err([(lost.cpu(), lost0), (totals.cpu(), totals0), (exp.cpu(), exp0)]))
+            check(err == 0, f"batched scan kernels vs plain at S={S}, T={T}, call {call}: off by {err}")
+            worst = max(worst, err)
+            lock = lock._replace(expected=lock.expected - T * 1840)
+            plain = plain._replace(expected=plain.expected - T * 1840)
+    W = 2
+    fec, fec_cpu = tb_fec(dev, W), tb_fec("cpu", W)
+    for S, F in SHARD_TB_CASES:
+        state, plain = fec_chain.init_tb_state(fec, dev, (S,)), fec_chain.init_tb_state(fec_cpu, "cpu", (S,))
+        for call in range(2):
+            recs = [tb_headers(F, W, fec, 100 * F + 10 * s + call, 3 * call, dev) for s in range(S)]
+            args = [torch.stack(col) for col in zip(*recs)]
+            tb_cuda.tb_reassemble_cuda.LAUNCHES = 0
+            got = fec_chain.tb_reassemble(state, *args, fec)
+            check(tb_cuda.tb_reassemble_cuda.LAUNCHES == 2, f"batched TB ring at S={S}: not 2 launches")
+            want = fec_chain.tb_reassemble(plain, *(a.cpu() for a in args), fec_cpu)
+            err = tb_err((fec_chain.TbRing(*(a.cpu() for a in got[0])),
+                          {k: v.cpu() for k, v in got[1].items()}), want)
+            check(err == 0, f"batched TB ring vs plain at S={S}, F={F}, call {call}: off by {err}")
+            worst = max(worst, err)
+            state, plain = got[0], want[0]
+    print(f"[sharded-kernels] batched trigger_lock_scan and frame_accounting against the plain loop stream by "
+          f"stream at (S, T) = {SHARD_SCAN_CASES}, and the batched TB ring (W = 2) at (S, F) = "
+          f"{SHARD_TB_CASES}, two carried calls each: largest |kernel - plain| {worst:g}", flush=True)
+    return worst
+
+
+def time_batched(dev, card) -> dict:
+    """The batched kernels at the sharded path's shapes beside S launches of
+    the single-stream form on the same rows: device ms by the profiler (the
+    S single launches summed), and the S launches' ms between events."""
+    out = {}
+    S, T = SHARD_S, SHARD_F
+    c, f = (torch.stack(x) for x in zip(*[lock_inputs(T, 50 + s, dev) for s in range(S)]))
+    packed = torch.zeros((S, 4), dtype=torch.int32, device=dev)
+    n, o = (a.reshape(S, T) for a in acct_inputs(S * T, 77, 4000, dev))
+    exp = torch.full((S,), -1, dtype=torch.int32, device=dev)
+    calls = {"trigger_lock_scan": (lambda: scans_cuda.trigger_lock_scan_cuda(packed, c, f, 1840),
+                                   lambda s: scans_cuda.trigger_lock_scan_cuda(packed[s], c[s], f[s], 1840),
+                                   "trigger_lock_scan_kernel"),
+             "frame_accounting": (lambda: scans_cuda.frame_accounting_cuda(exp, n, o),
+                                  lambda s: scans_cuda.frame_accounting_cuda(exp[s:s + 1], n[s], o[s]),
+                                  "frame_accounting_kernel")}
+    for name, (batched, one, kname) in calls.items():
+        loop = lambda: [one(s) for s in range(S)]
+        batched(), loop()
+        torch.cuda.synchronize()
+        ms = kernel_profiler_ms(batched, kname, 50)
+        ms_one = kernel_profiler_ms(loop, kname, 5)
+        loop_ev = min(cuda_ms(loop, 5) for _ in range(2))
+        nbytes = scans_cuda.scan_bytes(T, S)[name]
+        bound = max(nbytes / HBM_BYTES_PER_S, 12 * S * T / FP32_OPS_PER_S) * 1e3
+        out[name] = {"S": S, "T": T, "ms": ms, "ms_by": "profiler", "single_ms_x_S": ms_one * S,
+                     "single_x_S_events_ms": loop_ev, "bound_ms": bound, "bytes": nbytes}
+        print(f"[sharded-timing] {name} [S={S}, T={T}]: one batched launch {ms * 1e3:.2f} us device (profiler); "
+              f"{S} single-stream launches {ms_one * S * 1e3:.2f} us device summed, {loop_ev * 1e3:.1f} us between "
+              f"events with the host's enqueue; {nbytes} bytes, bound {bound * 1e6:.1f} ns ({card})", flush=True)
+    Sc, Fc, _ = SHARD_CODED
+    W = 2
+    fec = tb_fec(dev, W)
+    recs = [tb_headers(Fc, W, fec, 900 + s, 0, dev) for s in range(Sc)]
+    args = [torch.stack(col) for col in zip(*recs)]
+    state = fec_chain.init_tb_state(fec, dev, (Sc,))
+    batched = lambda: fec_chain.tb_reassemble(state, *args, fec)
+    loop = lambda: [fec_chain.tb_reassemble(fec_chain.TbRing(*(a[s] for a in state)), *(a[s] for a in args), fec)
+                    for s in range(Sc)]
+    batched(), loop()
+    torch.cuda.synchronize()
+    walk, copy = (kernel_profiler_ms(batched, k, 50) for k in ("tb_ring_walk_kernel", "tb_ring_copy_kernel"))
+    walk1, copy1 = (kernel_profiler_ms(loop, k, 5) for k in ("tb_ring_walk_kernel", "tb_ring_copy_kernel"))
+    loop_ev = min(cuda_ms(loop, 5) for _ in range(2))
+    nbytes = tb_cuda.tb_bytes(Fc, W, fec.max_frame_bits, Sc)
+    bound = max(nbytes / HBM_BYTES_PER_S, 12 * Sc * Fc / FP32_OPS_PER_S) * 1e3
+    out["tb_reassemble"] = {"S": Sc, "F": Fc, "W": W, "ms": walk + copy, "ms_by": "profiler", "walk_ms": walk,
+                            "copy_ms": copy, "single_ms_x_S": (walk1 + copy1) * Sc,
+                            "single_x_S_events_ms": loop_ev, "bound_ms": bound, "bytes": nbytes}
+    print(f"[sharded-timing] tb_reassemble [S={Sc}, F={Fc}, W={W}]: walk {walk * 1e3:.2f} + copy {copy * 1e3:.2f} us "
+          f"device (profiler); {Sc} single rings {(walk1 + copy1) * Sc * 1e3:.2f} us device summed, "
+          f"{loop_ev * 1e3:.1f} us between events; {nbytes} bytes, bound {bound * 1e3:.2f} us ({card})", flush=True)
+    return out
+
+
+def sharded_phase(dev, card) -> dict:
+    """Phase 24: the sharded session of parallel/ on a one-rank NCCL group
+    and a 1 x 1 grid (NCCL refuses two ranks on one card; the CPU tests run
+    the multi-rank grids over gloo).  Returns the launches of the counted
+    runs, their blocks, the largest errors and the batched kernels' times."""
+    import torch.distributed as tdist
+
+    from gr_dtl_tpu_torch import entry
+    from gr_dtl_tpu_torch.parallel import dist as pdist, launch, mesh as meshmod
+    from gr_dtl_tpu_torch.parallel.session import ShardedStreamRx
+
+    t_phase = time.perf_counter()
+    pdist.init_group(0, 1, f"127.0.0.1:{launch.free_port()}", dev)
+    try:
+        x = torch.arange(8, dtype=torch.float32, device=dev)
+        tdist.all_reduce(x)
+        g = torch.empty(8, device=dev)
+        tdist.all_gather_into_tensor(g, x)
+        torch.cuda.synchronize()
+        check(torch.equal(g, x) and torch.equal(x, torch.arange(8.0, device=dev)), "NCCL world of one")
+        mesh = meshmod.make_mesh(1, 1, device=dev)
+        print(f"[sharded] process group: backend {tdist.get_backend()}, world {tdist.get_world_size()}, grid "
+              f"{mesh.shape} on {dev} (an all_reduce and an all_gather ran)", flush=True)
+        return _sharded_runs(dev, card, mesh, ShardedStreamRx, entry, t_phase)
+    finally:
+        tdist.destroy_process_group()
+
+
+def _sharded_runs(dev, card, mesh, ShardedStreamRx, entry, t_phase) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    rcfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
+    tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
+    S, F, P = SHARD_S, SHARD_F, rcfg.frame_samples
+    n_blocks = SHARD_WARM + SHARD_TIMED + 1
+    n_frames = (n_blocks - 1) * F - 1
+    x, sent = shard_streams(tcfg, S, n_frames, n_blocks, F * P, dev, gen, SEED + 24)
+    keys = ("k1", "trigger_lock_scan", "frame_accounting", "tb_reassemble")
+    totals = dict.fromkeys(keys + ("blocks", "tb_blocks"), 0)
+
+    def counted(n, k5, what):
+        """After a run of n blocks that began with the counts at 0: one metric
+        launch, one of each scan kernel, four of the equalizer and k5 of the
+        TB ring kernels a block."""
+        got = sharded_launches()
+        want = (n, n, n, k5 * n)
+        check(got[:4] == want, f"{what}: launches (metric, lock scan, accounting, TB ring) {got[:4]} in {n} "
+              f"blocks, expected {want}")
+        EQ.counted(n, what)
+        for k, v in zip(keys, got):
+            totals[k] += v
+        totals["blocks"] += n
+        totals["tb_blocks"] += n if k5 else 0
+        return got
+
+    # the main path: S streams of F frames a block, 2 warm-up blocks, 16 timed, one of idle air
+    srx = ShardedStreamRx(rcfg, mesh, S, F, device=dev)
+    reset_counts()
+    walls, res = run_sharded(srx, x)
+    got = counted(n_blocks, 0, f"sharded S={S} F={F}")
+    n_dec = check_sharded_decoded(res, sent, srx, f"sharded S={S} F={F}")
+    timed = walls[SHARD_WARM: SHARD_WARM + SHARD_TIMED]
+    med = median(timed)
+    n_samp = S * F * P
+    print(f"[sharded] S={S} streams, F={F} frames a block ({S * F} frames, {n_samp} samples, "
+          f"{n_samp * 8 / 1e6:.1f} MB a block), {n_blocks} chained blocks ({SHARD_WARM} warm-up, {SHARD_TIMED} "
+          f"timed, one of idle air), frames from sample 300 + 37 s mod 1500: all {n_dec} sent frames decoded "
+          f"once, in order, payloads equal; n_lost 0; launches a block: metric {got[0] // n_blocks}, lock scan "
+          f"{got[1] // n_blocks}, accounting {got[2] // n_blocks}, equalizer {got[4] // n_blocks}", flush=True)
+    # four of the streams through StreamRx on the same samples
+    diff_other = 0
+    out_s, masks = sharded_frames(res)
+    for s in SHARD_STREAMRX:
+        rx = session.StreamRx(rcfg, dev, frames_per_block=F)
+        _w, _d, single = run_receiver(rx, x[s])
+        out1, m1 = decoded_all(single)
+        for k in ("valid", "header_ok", "crc_ok"):
+            check(np.array_equal(masks[k][s], m1[k]), f"sharded vs StreamRx, stream {s}: {k} differs")
+        dec = torch.as_tensor(masks["valid"][s] & masks["header_ok"][s], device=dev)
+        for k in ("frame_no", "payload", "payload_len", "cnst_id", "crc_ok"):
+            a, b = out_s[k][s], out1[k]
+            check(torch.equal(a[dec], b[dec]), f"sharded vs StreamRx, stream {s}: {k} differs on a decoded slot")
+            diff_other += int((a[~dec] != b[~dec]).reshape(int((~dec).sum()), -1).any(-1).sum()) if k == "payload" else 0
+        check((rx.n_lost, rx.n_frames) == (int(srx.n_lost[s]), int(srx.n_frames[s])),
+              f"sharded vs StreamRx, stream {s}: counters")
+    print(f"[sharded] streams {SHARD_STREAMRX} equal StreamRx on the same samples bit for bit: masks on every slot, "
+          f"frame numbers, payloads, lengths, constellations and CRC flags on every decoded slot, counters; "
+          f"undecoded slots whose payload bytes differ: {diff_other}", flush=True)
+
+    # the step's own tensors through the plain loops (a separate, uncounted run)
+    chk = ShardedStreamRx(rcfg, mesh, S, F, device=dev)
+    with BatchedScanCheck(f"sharded S={S} F={F}, blocks 0-2"):
+        for b in range(3):
+            chk.process(x[:, b * F * P:(b + 1) * F * P])
+    with EqualizerCheck(f"sharded S={S} F={F}, block 0"):
+        ShardedStreamRx(rcfg, mesh, S, F, device=dev).process(x[:, : F * P])
+
+    # one profiled block after two warm-up blocks
+    prof = ShardedStreamRx(rcfg, mesh, S, F, device=dev)
+    for b in range(SHARD_WARM):
+        prof.process(x[:, b * F * P:(b + 1) * F * P])
+    w_ms, busy, n_k = profiled(lambda: prof.process(x[:, SHARD_WARM * F * P:(SHARD_WARM + 1) * F * P]))
+    print(f"[sharded-timing] S={S} F={F}: wall ms a block, median of the {SHARD_TIMED} timed blocks {med:.3f} "
+          f"(min {min(timed):.3f}, max {max(timed):.3f}) = {n_samp / med / 1e3:.1f} Msamples/s; profiled block: wall "
+          f"{w_ms:.3f} ms, device busy {busy:.3f} ms, {n_k} device kernels and copies; idle share "
+          f"{1 - busy / med:.4f} against the median, {1 - busy / w_ms:.4f} inside the profiled block ({card})",
+          flush=True)
+    del res, out_s, x, sent
+
+    # coded, W = 2, 25 dB
+    Sc, Fc, nbc = SHARD_CODED
+    ccfg_t = cfgmod.make_tx_config(str(FEC_CONFIG), frame_length=FRAME_LENGTH)
+    ccfg_r = cfgmod.make_rx_config(str(FEC_CONFIG), frame_length=FRAME_LENGTH)
+    fec, fec_cpu = tb_fec(dev, 2), tb_fec("cpu", 2)
+    Pc = ccfg_r.frame_samples
+    nfc = (nbc - 1) * Fc
+    xc, sentc = shard_streams(ccfg_t, Sc, nfc, nbc, Fc * Pc, dev, gen, SEED + 25, fec=fec)
+    csrx = ShardedStreamRx(ccfg_r, mesh, Sc, Fc, fec, device=dev)
+    reset_counts()
+    cwalls, cres = run_sharded(csrx, xc)
+    counted(nbc, 2, f"sharded coded S={Sc} F={Fc} W=2")
+    fl = csrx.flush_tb()
+    tbs = [dict() for _ in range(Sc)]
+    for r in cres + [(None, None, None, None, fl)]:
+        tb = {k: v.cpu().numpy() for k, v in r[4].items()}
+        for s in range(Sc):
+            for i in np.nonzero(tb["valid"][s])[0]:
+                no = int(tb["tb_no"][s, i])
+                check(no not in tbs[s], f"sharded coded: stream {s} TB {no} emitted twice")
+                tbs[s][no] = bool(tb["crc_ok"][s, i]) and np.array_equal(
+                    tb["payload"][s, i, : int(tb["payload_len"][s, i])],
+                    sentc["payload"][s, 2 * no, : int(sentc["payload_len"][s, 2 * no])].cpu().numpy())
+    G = nfc // 2
+    for s in range(Sc):
+        check(sorted(tbs[s]) == list(range(G)) and all(tbs[s].values()),
+              f"sharded coded: stream {s} TBs {sorted(k for k, v in tbs[s].items() if v)[:8]}.. of {G} decoded")
+    check(bool(fl["valid"].all()), "sharded coded: flush_tb did not emit every stream's last TB")
+    print(f"[sharded] coded W=2 (examples/config_fec.json, 25 dB) S={Sc} F={Fc}, {nbc} blocks: all {Sc * G} TBs "
+          f"decode to the sent bytes, once each, the last of every stream by flush_tb; TB ring launches "
+          f"{2} a block (counted), wall ms a block {[round(w, 1) for w in cwalls]}", flush=True)
+    with BatchedScanCheck(f"sharded coded S={Sc} F={Fc}, blocks 0-1", fec_cpu):
+        chk = ShardedStreamRx(ccfg_r, mesh, Sc, Fc, fec, device=dev)
+        for b in range(2):
+            chk.process(xc[:, b * Fc * Pc:(b + 1) * Fc * Pc])
+    del xc, sentc, cres
+
+    # the megastep K = 4 at S = 64, F = 16, against the K = 1 session
+    Sm, Fm, K, nbm = SHARD_MEGA
+    xm, sentm = shard_streams(tcfg, Sm, (nbm - 1) * Fm - 1, nbm, Fm * P, dev, gen, SEED + 26)
+    mega = ShardedStreamRx(rcfg, mesh, Sm, Fm, blocks_per_dispatch=K, device=dev)
+    reset_counts()
+    mwalls, mres = run_sharded(mega, xm)
+    counted(nbm, 0, f"sharded megastep K={K}")
+    check_sharded_decoded(mres, sentm, mega, f"sharded megastep K={K}")
+    _w1, one = run_sharded(ShardedStreamRx(rcfg, mesh, Sm, Fm, device=dev), xm)
+    (om, mm), (o1, m1) = sharded_frames(mres), sharded_frames(one)
+    for k in mm:
+        check(np.array_equal(mm[k], m1[k]), f"megastep vs K=1: {k} differs")
+    for k in om:
+        check(torch.equal(om[k], o1[k]), f"megastep vs K=1: {k} differs")
+    print(f"[sharded] megastep K={K} at S={Sm}, F={Fm}: {nbm} blocks in {nbm // K} calls equal the K=1 session "
+          f"bit for bit (masks, frame numbers, payloads), every frame decoded; one launch of the metric, two of "
+          f"the scans and four of the equalizer a block (counted); wall ms a call {[round(w, 1) for w in mwalls]}",
+          flush=True)
+    del xm, sentm, mres, one
+
+    # a small case against the port's CPU run
+    Ss, Fs, nbs = SHARD_SMALL
+    xs, _ = shard_streams(tcfg, Ss, (nbs - 1) * Fs - 1, nbs, Fs * P, dev, gen, SEED + 27)
+    _w, rc = run_sharded(ShardedStreamRx(rcfg, mesh, Ss, Fs, device=dev), xs)
+    _w, rp = run_sharded(ShardedStreamRx(rcfg, meshmod_cpu(), Ss, Fs, device="cpu"), xs)
+    (oc, mc), (op_, mp_) = sharded_frames(rc), sharded_frames(rp)
+    for k in mc:
+        check(np.array_equal(mc[k], mp_[k]), f"sharded small, card vs CPU: {k} differs")
+    dec = torch.as_tensor(mc["valid"] & mc["header_ok"])
+    for k in oc:
+        check(torch.equal(oc[k].cpu()[dec], op_[k][dec]), f"sharded small, card vs CPU: {k} differs")
+    snr_c = torch.cat([r[0].snr_db.reshape(Ss, -1) for r in rc], 1).cpu()[dec]
+    snr_p = torch.cat([r[0].snr_db.reshape(Ss, -1) for r in rp], 1)[dec]
+    d_snr = float((snr_c - snr_p).abs().max())
+    check(d_snr <= 5e-2, f"sharded small, card vs CPU: snr_db off by {d_snr}")
+    print(f"[sharded] small case S={Ss} F={Fs}, {nbs} blocks: card equals the port's CPU run (masks on every slot; "
+          f"ints and bytes on the {int(dec.sum())} decoded slots; max|d snr_db| {d_snr:.2e})", flush=True)
+
+    entry.dryrun_multichip(1, dev)
+    print("[sharded] entry.dryrun_multichip(1) on the card: the uncoded and coded sharded loopbacks and three "
+          "chained ShardedStreamRx blocks decode every frame", flush=True)
+
+    err = batched_vs_plain(dev)
+    times = time_batched(dev, card)
+    print(f"[sharded] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return {"totals": totals, "max_abs_err": err, "times": times, "wall_ms": med,
+            "msamples_per_s": n_samp / med / 1e3, "busy_ms": busy}
+
+
+def meshmod_cpu():
+    """A 1 x 1 grid on the CPU (collectives of size 1 launch nothing)."""
+    from gr_dtl_tpu_torch.parallel import mesh as meshmod
+    return meshmod.make_mesh(1, 1, device="cpu")
+
+
+def decoded_all(results) -> tuple:
+    """A StreamRx run's leaves and masks over every slot, in frame order."""
+    cat = lambda k: torch.cat([getattr(o, k) for o, _ in results])
+    masks = {"valid": np.concatenate([np.asarray(v) for _, v in results]),
+             "header_ok": np.concatenate([v.header_ok for _, v in results]),
+             "crc_ok": np.concatenate([v.crc_ok for _, v in results])}
+    return {k: cat(k) for k in ("frame_no", "payload", "payload_len", "cnst_id", "header_ok", "crc_ok")}, masks
 
 
 if __name__ == "__main__":

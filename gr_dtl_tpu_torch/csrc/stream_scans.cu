@@ -16,16 +16,21 @@
 // What bounds them.  Neither bytes nor operations: T items of 10 bytes
 // (40 KB at T = 4096) and a dozen integer operations each.  The kernel is
 // a sequential state machine with a four-word carry, so its time is the
-// launch latency plus T dependent steps of one thread.
+// launch latency plus T dependent steps of one thread, whatever S.
 //
-// Design.  One thread of one block walks the T items in device memory with
-// the carry in registers.  The loads do not depend on the carry, so they
-// run ahead of the dependent chain (const __restrict__: the read-only
-// path, one 128-byte line serves 32 items); the stores are not waited
-// for.  The carry enters and leaves through small device tensors, never
-// the host.  int32 throughout, as the reference; x & 4095 is the floor-mod
-// 4096 of a two's-complement int32, which is what jnp's and torch's % give
-// for negative operands.
+// Design.  One thread a stream walks that stream's T items in device memory
+// with the carry in registers; S streams are one launch of ceil(S / 32)
+// blocks of 32 threads (a single stream is the S = 1 case of the same
+// launch: the sessions of models/session.py hand it one stream, the sharded
+// session of parallel/session.py every stream of its rank, so a block of a
+// rank costs two launches whatever S).  The streams share nothing, so the
+// threads never wait for each other.  The loads do not depend on the carry,
+// so they run ahead of the dependent chain (const __restrict__: the
+// read-only path, one 128-byte line serves 32 items of a stream); the stores
+// are not waited for.  The carry enters and leaves through small device
+// tensors, never the host.  int32 throughout, as the reference; x & 4095 is
+// the floor-mod 4096 of a two's-complement int32, which is what jnp's and
+// torch's % give for negative operands.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,15 +39,25 @@ namespace {
 
 constexpr int kLockAfter = 3;    // LOCK_AFTER of models/streaming.py
 constexpr int kUnlockAfter = 5;  // UNLOCK_AFTER
+constexpr int kThreads = 32;     // streams a block
 
-// state: [locked (0/1), expected, sync_count, miss_count]
+// Stream s = the thread's index; its state is state[4 s .. 4 s + 3] =
+// [locked (0/1), expected, sync_count, miss_count], its items [s T, s T + T).
 __global__ void trigger_lock_scan_kernel(const int* __restrict__ state_in,
                                          const int* __restrict__ cand,
-                                         const uint8_t* __restrict__ found, int T, int period,
-                                         int tol, int* __restrict__ state_out,
+                                         const uint8_t* __restrict__ found, int S, int T,
+                                         int period, int tol, int* __restrict__ state_out,
                                          int* __restrict__ trig, uint8_t* __restrict__ valid) {
-    bool locked = state_in[0] != 0;
-    int expected = state_in[1], sync_count = state_in[2], miss_count = state_in[3];
+    const int s = blockIdx.x * blockDim.x + threadIdx.x;
+    if (s >= S) return;
+    const size_t base = (size_t)s * T;
+    cand += base;
+    found += base;
+    trig += base;
+    valid += base;
+    bool locked = state_in[4 * s] != 0;
+    int expected = state_in[4 * s + 1], sync_count = state_in[4 * s + 2],
+        miss_count = state_in[4 * s + 3];
 #pragma unroll 4
     for (int i = 0; i < T; ++i) {
         const int c = cand[i];
@@ -61,23 +76,30 @@ __global__ void trigger_lock_scan_kernel(const int* __restrict__ state_in,
         if (miss_count >= kUnlockAfter) locked = false;
         expected = (int)((unsigned)t + (unsigned)period);
     }
-    state_out[0] = locked ? 1 : 0;
-    state_out[1] = expected;
-    state_out[2] = sync_count;
-    state_out[3] = miss_count;
+    state_out[4 * s] = locked ? 1 : 0;
+    state_out[4 * s + 1] = expected;
+    state_out[4 * s + 2] = sync_count;
+    state_out[4 * s + 3] = miss_count;
 }
 
 // rule 0 (the session's): an undecoded slot changes nothing; the first
 //   received frame (expected < 0) counts no gap.
 // rule 1 (metrics.lost_frames): a bad header is one lost frame and moves
 //   the expectation on by one.
-// totals: [sum of lost, count of ok]
+// Stream s = the thread's index: expected[s], items [s T, s T + T),
+// totals[2 s .. 2 s + 1] = [sum of lost, count of ok].
 __global__ void frame_accounting_kernel(const int* __restrict__ expected_in,
                                         const int* __restrict__ frame_no,
-                                        const uint8_t* __restrict__ ok, int T, int rule,
+                                        const uint8_t* __restrict__ ok, int S, int T, int rule,
                                         int* __restrict__ expected_out, int* __restrict__ lost,
                                         int* __restrict__ totals) {
-    int expected = expected_in[0], sum_lost = 0, n_ok = 0;
+    const int s = blockIdx.x * blockDim.x + threadIdx.x;
+    if (s >= S) return;
+    const size_t base = (size_t)s * T;
+    frame_no += base;
+    ok += base;
+    lost += base;
+    int expected = expected_in[s], sum_lost = 0, n_ok = 0;
 #pragma unroll 4
     for (int i = 0; i < T; ++i) {
         const int no = frame_no[i];
@@ -95,27 +117,31 @@ __global__ void frame_accounting_kernel(const int* __restrict__ expected_in,
         sum_lost += l;
         n_ok += okf ? 1 : 0;
     }
-    expected_out[0] = expected;
-    totals[0] = sum_lost;
-    totals[1] = n_ok;
+    expected_out[s] = expected;
+    totals[2 * s] = sum_lost;
+    totals[2 * s + 1] = n_ok;
 }
+
+int blocks_for(int S) { return (S + kThreads - 1) / kThreads; }
 
 }  // namespace
 
 extern "C" int trigger_lock_scan_launch(const void* state_in, const void* cand, const void* found,
-                                        int T, int period, int tol, void* state_out, void* trig,
-                                        void* valid, void* stream) {
-    trigger_lock_scan_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
-        (const int*)state_in, (const int*)cand, (const uint8_t*)found, T, period, tol,
+                                        int S, int T, int period, int tol, void* state_out,
+                                        void* trig, void* valid, void* stream) {
+    if (S < 1 || T < 0) return (int)cudaErrorInvalidValue;
+    trigger_lock_scan_kernel<<<blocks_for(S), kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)state_in, (const int*)cand, (const uint8_t*)found, S, T, period, tol,
         (int*)state_out, (int*)trig, (uint8_t*)valid);
     return (int)cudaGetLastError();
 }
 
 extern "C" int frame_accounting_launch(const void* expected_in, const void* frame_no,
-                                       const void* ok, int T, int rule, void* expected_out,
+                                       const void* ok, int S, int T, int rule, void* expected_out,
                                        void* lost, void* totals, void* stream) {
-    frame_accounting_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
-        (const int*)expected_in, (const int*)frame_no, (const uint8_t*)ok, T, rule,
+    if (S < 1 || T < 0) return (int)cudaErrorInvalidValue;
+    frame_accounting_kernel<<<blocks_for(S), kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)expected_in, (const int*)frame_no, (const uint8_t*)ok, S, T, rule,
         (int*)expected_out, (int*)lost, (int*)totals);
     return (int)cudaGetLastError();
 }

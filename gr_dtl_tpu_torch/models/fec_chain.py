@@ -27,9 +27,10 @@ path uses ``max_ncws`` static slices per bps and a select instead, a
 TPU gather-avoidance giving the same values for constellations 1..4.)
 
 :func:`tb_reassemble` (streaming reassembly keyed by the header's TB
-number and offset) is the reference's ``lax.scan``, exact: on a GPU two
-CUDA kernels (``csrc/tb_ring.cu``), on the CPU a Python loop over frames
-with tensor state.
+number and offset) is the reference's ``lax.scan``, exact, for one ring
+or a batch of S (a sharded session's streams): on a GPU two CUDA kernels
+(``csrc/tb_ring.cu``) whatever S, on the CPU a Python loop over frames
+with tensor state, ring by ring.
 """
 
 from __future__ import annotations
@@ -457,11 +458,14 @@ class TbRing(NamedTuple):
     fec_id: torch.Tensor  # int32 1-based LDPC code id
 
 
-def init_tb_state(fec: FecParams, device) -> TbRing:
-    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+def init_tb_state(fec: FecParams, device, batch: tuple = ()) -> TbRing:
+    """An empty ring on ``device``; with ``batch`` = (S,), S of them."""
+    batch = tuple(batch)
+    i32 = lambda v: torch.full(batch, v, dtype=torch.int32, device=device)
     return TbRing(tb_no=i32(-1),
-                  llrs=torch.zeros((fec.W, fec.max_frame_bits), dtype=torch.float32, device=device),
-                  present=torch.zeros(fec.W, dtype=torch.bool, device=device),
+                  llrs=torch.zeros(batch + (fec.W, fec.max_frame_bits), dtype=torch.float32,
+                                   device=device),
+                  present=torch.zeros(batch + (fec.W,), dtype=torch.bool, device=device),
                   cnst=i32(1), plen=i32(0), fec_id=i32(1))
 
 
@@ -474,9 +478,10 @@ def tb_reassemble(state: TbRing, llrs: torch.Tensor, tb_no: torch.Tensor,
     into slot ``tb_offset // frame_bits`` of the buffer for its
     ``tb_no``; a frame announcing a NEW tb_no emits the previous buffer
     (slots never received stay at LLR 0 = erasure).  Header-invalid
-    frames change nothing.  On a GPU the two CUDA kernels of
-    ``csrc/tb_ring.cu`` (``ops/tb_cuda``), two launches whatever F; on the
-    CPU a plain loop over the frames.
+    frames change nothing.  S rings at once take every argument with a
+    leading [S] (the state's scalars [S]).  On a GPU the two CUDA kernels
+    of ``csrc/tb_ring.cu`` (``ops/tb_cuda``), two launches whatever F and S;
+    on the CPU a plain loop over the frames, ring by ring.
 
     Args:
       state: TbRing from the previous batch.
@@ -488,13 +493,20 @@ def tb_reassemble(state: TbRing, llrs: torch.Tensor, tb_no: torch.Tensor,
     this position).
     """
     if llrs.device.type != "cuda":
-        return _tb_reassemble_torch(state, llrs, tb_no, tb_offset, cnst_id, tb_payload, fec_id,
-                                    ok, fec)
+        if llrs.ndim == 2:
+            return _tb_reassemble_torch(state, llrs, tb_no, tb_offset, cnst_id, tb_payload,
+                                        fec_id, ok, fec)
+        per = [_tb_reassemble_torch(TbRing(*(a[s] for a in state)), llrs[s], tb_no[s],
+                                    tb_offset[s], cnst_id[s], tb_payload[s], fec_id[s], ok[s], fec)
+               for s in range(llrs.shape[0])]
+        new = TbRing(*(torch.stack(list(col)) for col in zip(*(p[0] for p in per))))
+        return new, {k: torch.stack([p[1][k] for p in per]) for k in per[0][1]}
     # a CUDA tensor takes the kernels or raises
     frame_bits_of_cnst = fec.cfg.frame_capacity_symbols * cn.BITS_PER_SYMBOL[:5]
     new, emitted = tb_cuda.tb_reassemble_cuda(
-        tuple(state), llrs, *(a.int() for a in (tb_no, tb_offset, cnst_id, tb_payload, fec_id)),
-        ok, frame_bits_of_cnst)
+        tuple(state), llrs.contiguous(),
+        *(a.int().contiguous() for a in (tb_no, tb_offset, cnst_id, tb_payload, fec_id)),
+        ok.contiguous(), frame_bits_of_cnst)
     return TbRing(*new), emitted
 
 

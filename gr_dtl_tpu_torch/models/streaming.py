@@ -11,8 +11,10 @@ of gr_dtl_tpu/models/streaming.py).
   trigger candidates are tracked by a lock state machine: ``LOCK_AFTER``
   consecutive period-consistent triggers to lock, ``UNLOCK_AFTER``
   consecutive misses to unlock, missing triggers synthesized from the
-  period while locked.  A CPU tensor takes the plain PyTorch loop; a CUDA
-  tensor takes the CUDA kernel (``ops/scans_cuda``) or raises.
+  period while locked.  One stream, or S streams at once (``[S, T]``
+  candidates, state leaves ``[S]``).  A CPU tensor takes the plain PyTorch
+  loop, stream by stream; a CUDA tensor takes the CUDA kernel
+  (``ops/scans_cuda``, one launch for all S) or raises.
 """
 
 from __future__ import annotations
@@ -132,29 +134,36 @@ def pack_pdus_budget(queue: list[bytes], jumbo_rest: bytes, cap: int,
 
 
 class TriggerLockState(NamedTuple):
-    locked: torch.Tensor  # 0-d bool
-    expected: torch.Tensor  # 0-d int32 expected trigger position (stream units)
-    sync_count: torch.Tensor  # 0-d int32 consecutive consistent triggers
-    miss_count: torch.Tensor  # 0-d int32 consecutive misses while locked
+    """One stream's leaves are 0-d; a batch of S streams' are [S]."""
+
+    locked: torch.Tensor  # bool
+    expected: torch.Tensor  # int32 expected trigger position (stream units)
+    sync_count: torch.Tensor  # int32 consecutive consistent triggers
+    miss_count: torch.Tensor  # int32 consecutive misses while locked
 
 
-def initial_lock_state(device) -> TriggerLockState:
-    """Unlocked, nothing expected, on ``device``."""
-    z = torch.zeros(3, dtype=torch.int32, device=device)
-    return TriggerLockState(torch.zeros((), dtype=torch.bool, device=device), z[0], z[1], z[2])
+def initial_lock_state(device, batch: tuple = ()) -> TriggerLockState:
+    """Unlocked, nothing expected, on ``device``; leaves of shape ``batch``."""
+    z = torch.zeros((3,) + tuple(batch), dtype=torch.int32, device=device)
+    return TriggerLockState(torch.zeros(batch, dtype=torch.bool, device=device), z[0], z[1], z[2])
 
 
 def lock_state_from_reference(state, device) -> TriggerLockState:
     """The reference's ``TriggerLockState`` (its four leaves as numpy
-    arrays or scalars, in field order) as the port's, on ``device``."""
+    arrays or scalars, in field order, 0-d or [S]) as the port's, on
+    ``device``."""
     locked, expected, sync_count, miss_count = (np.asarray(a) for a in state)
-    i32 = lambda a: torch.tensor(int(a), dtype=torch.int32, device=device)
-    return TriggerLockState(torch.tensor(bool(locked), device=device), i32(expected),
+    i32 = lambda a: torch.tensor(a.astype(np.int32), device=device)
+    return TriggerLockState(torch.tensor(locked.astype(bool), device=device), i32(expected),
                             i32(sync_count), i32(miss_count))
 
 
 def lock_state_to_numpy(state: TriggerLockState) -> tuple:
-    """(locked bool, expected, sync_count, miss_count int32) as numpy scalars."""
+    """(locked bool, expected, sync_count, miss_count int32) as numpy
+    scalars (one stream) or [S] arrays."""
+    leaves = [a.cpu().numpy() for a in state]
+    if leaves[0].ndim:
+        return (leaves[0].astype(bool),) + tuple(a.astype(np.int32) for a in leaves[1:])
     return (np.bool_(bool(state.locked)),) + tuple(np.int32(int(a)) for a in state[1:])
 
 
@@ -163,26 +172,34 @@ def trigger_lock_scan(state: TriggerLockState, candidates: torch.Tensor,
     """Track triggers across stream blocks with lock/unlock hysteresis.
 
     Args:
-      state:      carry from the previous call.
-      candidates: [T] int32 candidate trigger positions (absolute stream
-                  sample index), one per expected frame slot.
-      found:      [T] bool whether the detector saw a plausible metric
-                  peak for that slot.
+      state:      carry from the previous call (leaves 0-d, or [S]).
+      candidates: [T] (or [S, T]) int32 candidate trigger positions
+                  (absolute stream sample index), one per expected frame
+                  slot.
+      found:      [T] (or [S, T]) bool whether the detector saw a
+                  plausible metric peak for that slot.
       period:     nominal frame period in samples.
       tol:        +- samples considered "consistent".
-    Returns (state, (triggers [T] int32, valid [T] bool)): corrected
-    trigger positions (synthesized from the period when locked and the
-    candidate is missing or off), and whether each should be demodulated.
-    No host synchronisation on either device.
+    Returns (state, (triggers int32, valid bool), shaped as ``candidates``):
+    corrected trigger positions (synthesized from the period when locked
+    and the candidate is missing or off), and whether each should be
+    demodulated.  No host synchronisation on either device.
     """
     candidates = candidates.int()
     if candidates.device.type == "cpu":
-        return _trigger_lock_scan_torch(state, candidates, found, period, tol)
+        if candidates.ndim == 1:
+            return _trigger_lock_scan_torch(state, candidates, found, period, tol)
+        per = [_trigger_lock_scan_torch(TriggerLockState(*(a[s] for a in state)), candidates[s],
+                                        found[s], period, tol)
+               for s in range(candidates.shape[0])]
+        stack = lambda xs: torch.stack(list(xs))
+        return (TriggerLockState(*map(stack, zip(*(p[0] for p in per)))),
+                (stack(p[1][0] for p in per), stack(p[1][1] for p in per)))
     packed = torch.stack([state.locked.int(), state.expected.int(), state.sync_count.int(),
-                          state.miss_count.int()])
+                          state.miss_count.int()], dim=-1)
     out, trig, valid = scans_cuda.trigger_lock_scan_cuda(
         packed, candidates.contiguous(), found.contiguous(), period, tol)
-    return TriggerLockState(out[0] != 0, out[1], out[2], out[3]), (trig, valid)
+    return TriggerLockState(out[..., 0] != 0, out[..., 1], out[..., 2], out[..., 3]), (trig, valid)
 
 
 def _trigger_lock_scan_torch(state: TriggerLockState, candidates: torch.Tensor,

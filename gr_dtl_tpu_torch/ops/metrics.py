@@ -6,9 +6,10 @@
   constellation's least point distance.
 - :func:`frame_accounting`: the frame-number gap counter as a scan over
   the frames of a block with a carried expectation, under either of the
-  reference's two rules; the streaming sessions call it every block.  A
-  CPU tensor takes the plain PyTorch loop; a CUDA tensor takes the CUDA
-  kernel (``ops/scans_cuda``) or raises.
+  reference's two rules; the streaming sessions call it every block, the
+  sharded session for all its streams at once.  A CPU tensor takes the
+  plain PyTorch loop, stream by stream; a CUDA tensor takes the CUDA
+  kernel (``ops/scans_cuda``, one launch for every stream) or raises.
 - :func:`lost_frames`: the batch form, gaps of a whole received sequence.
 """
 
@@ -45,27 +46,33 @@ def frame_accounting(expected_no: torch.Tensor, frame_no: torch.Tensor, ok: torc
     """Lost frames from 12-bit frame-number gaps, with a carried expectation.
 
     Args:
-      expected_no: 0-d int32, the next expected frame number; -1 = no frame
-                   seen yet (rule "received" only).
-      frame_no:    [T] int32 frame numbers in arrival order.
-      ok:          [T] bool, the frame was decoded.
+      expected_no: 0-d (or [S]) int32, the next expected frame number;
+                   -1 = no frame seen yet (rule "received" only).
+      frame_no:    [T] (or [S, T]) int32 frame numbers in arrival order.
+      ok:          [T] (or [S, T]) bool, the frame was decoded.
       rule:        "received": gaps between RECEIVED frames only; an
                    undecoded slot (noise, idle air) changes nothing, so a
                    quiet stretch never wraps the 12-bit counter into
                    phantom losses, and the first received frame counts no
                    gap.  "header": a frame with a bad header is itself one
                    lost frame and advances the expectation by one.
-    Returns (expected_no' 0-d int32, lost [T] int32, totals [2] int32 =
-    [sum of lost, count of ok]).  No host synchronisation.
+    Returns (expected_no' 0-d (or [S]) int32, lost [T] (or [S, T]) int32,
+    totals [2] (or [S, 2]) int32 = [sum of lost, count of ok]).  No host
+    synchronisation.
     """
     if rule not in scans_cuda.RULES:
         raise ValueError(f"rule must be one of {sorted(scans_cuda.RULES)}, got {rule!r}")
     frame_no = frame_no.int()
     if frame_no.device.type == "cpu":
-        return _frame_accounting_torch(expected_no, frame_no, ok, rule)
+        if frame_no.ndim == 1:
+            return _frame_accounting_torch(expected_no, frame_no, ok, rule)
+        per = [_frame_accounting_torch(expected_no[s], frame_no[s], ok[s], rule)
+               for s in range(frame_no.shape[0])]
+        return tuple(torch.stack(list(col)) for col in zip(*per))
+    lead = tuple(frame_no.shape[:-1])
     exp, lost, totals = scans_cuda.frame_accounting_cuda(
-        expected_no.int().reshape(1), frame_no.contiguous(), ok.contiguous(), rule)
-    return exp.reshape(()), lost, totals
+        expected_no.int().reshape(-1), frame_no.contiguous(), ok.contiguous(), rule)
+    return exp.reshape(lead), lost, totals
 
 
 def _frame_accounting_torch(expected_no: torch.Tensor, frame_no: torch.Tensor,

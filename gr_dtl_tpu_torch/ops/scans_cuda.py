@@ -5,9 +5,10 @@ kernels of ``csrc/stream_scans.cu`` and their wrappers.
 ``gr_dtl_tpu/models/streaming.py::trigger_lock_scan`` and
 ``frame_accounting_cuda`` for the accounting scans of
 ``gr_dtl_tpu/models/session.py`` (the block step) and
-``gr_dtl_tpu/ops/metrics.py::lost_frames``.  Their plain PyTorch versions
-are ``models/streaming.py::_trigger_lock_scan_torch`` and
-``ops/metrics.py::_frame_accounting_torch``.  The library is built at
+``gr_dtl_tpu/ops/metrics.py::lost_frames``.  Each takes one stream or a
+batch of S streams (``[S, T]`` inputs, one thread a stream) in one launch.
+Their plain PyTorch versions are ``models/streaming.py::_trigger_lock_scan_torch``
+and ``ops/metrics.py::_frame_accounting_torch``, one stream at a time.  The library is built at
 first use (``ops/_cuda_build``); importing this module needs neither
 ``nvcc`` nor a GPU.  Each wrapper launches on PyTorch's current stream,
 never synchronises, and counts its launches in ``<wrapper>.LAUNCHES``.
@@ -44,18 +45,18 @@ def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     lib = _cuda_build.load(SOURCE, NVCC_FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.trigger_lock_scan_launch.argtypes = [p, p, p, i, i, i, p, p, p, p]
+    lib.trigger_lock_scan_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
     lib.trigger_lock_scan_launch.restype = i
-    lib.frame_accounting_launch.argtypes = [p, p, p, i, i, p, p, p, p]
+    lib.frame_accounting_launch.argtypes = [p, p, p, i, i, i, p, p, p, p]
     lib.frame_accounting_launch.restype = i
     return lib
 
 
-def scan_bytes(T: int) -> dict:
-    """Bytes each kernel must move for T items: its inputs read once, its
-    outputs and carry written once."""
-    return {"trigger_lock_scan": 16 + 5 * T + 16 + 5 * T,
-            "frame_accounting": 4 + 5 * T + 4 + 4 * T + 8}
+def scan_bytes(T: int, S: int = 1) -> dict:
+    """Bytes each kernel must move for S streams of T items: its inputs
+    read once, its outputs and carry written once."""
+    return {"trigger_lock_scan": S * (16 + 5 * T + 16 + 5 * T),
+            "frame_accounting": S * (4 + 5 * T + 4 + 4 * T + 8)}
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -66,27 +67,39 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
+def _streams(name: str, items: torch.Tensor) -> tuple[int, int]:
+    """(S, T) of [T] (one stream) or [S, T] items."""
+    if items.ndim == 1:
+        return 1, items.shape[0]
+    if items.ndim == 2 and items.shape[0] >= 1:
+        return tuple(items.shape)
+    raise ValueError(f"{name} takes [T] or [S, T] items, S >= 1, got {tuple(items.shape)}")
+
+
 def trigger_lock_scan_cuda(state: torch.Tensor, cand: torch.Tensor, found: torch.Tensor,
                            period: int, tol: int = 4):
-    """The lock state machine over T slots in one launch.
+    """The lock state machine over T slots of each of S streams in one launch.
 
     Args:
-      state: [4] int32 CUDA tensor: locked (0/1), expected, sync_count, miss_count.
-      cand:  [T] int32 candidate trigger positions.
-      found: [T] bool, the detector saw a plausible peak in that slot.
-    Returns (state' [4] int32, trig [T] int32, valid [T] bool).
+      state: [4] (one stream) or [S, 4] int32 CUDA tensor: locked (0/1),
+             expected, sync_count, miss_count.
+      cand:  [T] or [S, T] int32 candidate trigger positions.
+      found: [T] or [S, T] bool, the detector saw a plausible peak in that slot.
+    Returns (state' [4] / [S, 4] int32, trig [T] / [S, T] int32, valid
+    [T] / [S, T] bool).
     """
-    T = cand.shape[0] if cand.ndim == 1 else -1
-    _check("trigger_lock_scan_cuda", state, torch.int32, (4,))
-    _check("trigger_lock_scan_cuda", cand, torch.int32, (T,))
-    _check("trigger_lock_scan_cuda", found, torch.bool, (T,))
+    S, T = _streams("trigger_lock_scan_cuda", cand)
+    lead = tuple(cand.shape[:-1])
+    _check("trigger_lock_scan_cuda", state, torch.int32, lead + (4,))
+    _check("trigger_lock_scan_cuda", cand, torch.int32, lead + (T,))
+    _check("trigger_lock_scan_cuda", found, torch.bool, lead + (T,))
     dev = cand.device
-    state_out = torch.empty(4, dtype=torch.int32, device=dev)
-    trig = torch.empty(T, dtype=torch.int32, device=dev)
-    valid = torch.empty(T, dtype=torch.bool, device=dev)
+    state_out = torch.empty(lead + (4,), dtype=torch.int32, device=dev)
+    trig = torch.empty(lead + (T,), dtype=torch.int32, device=dev)
+    valid = torch.empty(lead + (T,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         rc = build().trigger_lock_scan_launch(
-            state.data_ptr(), cand.data_ptr(), found.data_ptr(), T, int(period), int(tol),
+            state.data_ptr(), cand.data_ptr(), found.data_ptr(), S, T, int(period), int(tol),
             state_out.data_ptr(), trig.data_ptr(), valid.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -97,28 +110,30 @@ def trigger_lock_scan_cuda(state: torch.Tensor, cand: torch.Tensor, found: torch
 
 def frame_accounting_cuda(expected_no: torch.Tensor, frame_no: torch.Tensor, ok: torch.Tensor,
                           rule: str = "received"):
-    """Lost-frame accounting over T frames in one launch.
+    """Lost-frame accounting over T frames of each of S streams in one launch.
 
     Args:
-      expected_no: [1] int32 CUDA tensor, the next expected 12-bit frame
-                   number (-1: none seen yet, rule "received" only).
-      frame_no:    [T] int32 received frame numbers.
-      ok:          [T] bool, the frame was decoded.
+      expected_no: [1] (one stream) or [S] int32 CUDA tensor, the next
+                   expected 12-bit frame number (-1: none seen yet, rule
+                   "received" only).
+      frame_no:    [T] or [S, T] int32 received frame numbers.
+      ok:          [T] or [S, T] bool, the frame was decoded.
       rule:        a key of :data:`RULES`.
-    Returns (expected_no' [1] int32, lost [T] int32, totals [2] int32 =
-    [sum of lost, count of ok]).
+    Returns (expected_no' [1] / [S] int32, lost [T] / [S, T] int32, totals
+    [2] / [S, 2] int32 = [sum of lost, count of ok]).
     """
-    T = frame_no.shape[0] if frame_no.ndim == 1 else -1
-    _check("frame_accounting_cuda", expected_no, torch.int32, (1,))
-    _check("frame_accounting_cuda", frame_no, torch.int32, (T,))
-    _check("frame_accounting_cuda", ok, torch.bool, (T,))
+    S, T = _streams("frame_accounting_cuda", frame_no)
+    lead = tuple(frame_no.shape[:-1])
+    _check("frame_accounting_cuda", expected_no, torch.int32, (S,))
+    _check("frame_accounting_cuda", frame_no, torch.int32, lead + (T,))
+    _check("frame_accounting_cuda", ok, torch.bool, lead + (T,))
     dev = frame_no.device
-    expected_out = torch.empty(1, dtype=torch.int32, device=dev)
-    lost = torch.empty(T, dtype=torch.int32, device=dev)
-    totals = torch.empty(2, dtype=torch.int32, device=dev)
+    expected_out = torch.empty(S, dtype=torch.int32, device=dev)
+    lost = torch.empty(lead + (T,), dtype=torch.int32, device=dev)
+    totals = torch.empty(lead + (2,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = build().frame_accounting_launch(
-            expected_no.data_ptr(), frame_no.data_ptr(), ok.data_ptr(), T, RULES[rule],
+            expected_no.data_ptr(), frame_no.data_ptr(), ok.data_ptr(), S, T, RULES[rule],
             expected_out.data_ptr(), lost.data_ptr(), totals.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -115,13 +115,15 @@ def _periodic_rows(x: torch.Tensor, base: torch.Tensor, period: int, n: int,
                    length: int, left_pad: int) -> torch.Tensor:
     """Rows ``x[base + k*period : +length]`` for k < n.  ``x`` is
     zero-padded ``left_pad`` on the left, so a negative ``base`` reads
-    zeros (it is not clipped), and ``period + length`` on the right."""
+    zeros (it is not clipped), and ``period + length`` on the right.  A
+    batch ``x`` [S, N] takes ``base`` [S] and gives [S, n, length]."""
     xp = F.pad(x, (left_pad, period + length))
-    return _rows(xp, _periodic_starts(x.shape[-1], base, period, n, length, left_pad), length)
+    starts = _periodic_starts(x.shape[-1], base, period, n, length, left_pad)
+    return (_rows if x.ndim == 1 else _rows_batch)(xp, starts, length)
 
 
 def extract_frames_batch(streams: torch.Tensor, trig: torch.Tensor, period: int,
-                         tol: int = 4) -> torch.Tensor:
+                         tol: int = 4, per_stream: bool = False) -> torch.Tensor:
     """:func:`extract_frames` over a batch of streams, with ONE uniformity
     vote for the whole batch: when every stream's triggers sit within
     ``tol`` of its own median anchor ``base_s + k*period``, every stream
@@ -132,6 +134,8 @@ def extract_frames_batch(streams: torch.Tensor, trig: torch.Tensor, period: int,
     Args:
       streams: [S, N] per-stream sample rows.
       trig:    [S, B] per-stream window starts.
+      per_stream: vote stream by stream instead (each stream as
+               :func:`extract_frames` takes it alone).
     Returns [S, B, period].
     """
     S, N = streams.shape
@@ -142,15 +146,22 @@ def extract_frames_batch(streams: torch.Tensor, trig: torch.Tensor, period: int,
     k = torch.arange(B, device=trig.device)
     rel = trig.long() - k * period
     base = _median_trunc(rel)  # [S]
-    uniform = torch.all(torch.abs(rel - base[:, None]) <= tol)
+    uniform = _vote(torch.abs(rel - base[:, None]) <= tol, per_stream)
     fast = torch.clamp(base, 0, N - B * period)[:, None] + k * period
     return _rows_batch(streams, torch.where(uniform, fast, slow), period)
 
 
+def _vote(fits: torch.Tensor, per_stream: bool) -> torch.Tensor:
+    """[S, B] fits of the affine model -> one decision for the batch, or
+    [S, 1] decisions stream by stream."""
+    return fits.all(dim=-1, keepdim=True) if per_stream else torch.all(fits)
+
+
 def fine_cfo_batch(P: torch.Tensor, trig: torch.Tensor, cp_len: int, period: int,
-                   tol: int = 4) -> torch.Tensor:
+                   tol: int = 4, per_stream: bool = False) -> torch.Tensor:
     """:func:`fine_cfo` (with ``period``) over a batch of streams, with ONE
-    uniformity vote for the whole batch, as :func:`extract_frames_batch`.
+    uniformity vote for the whole batch, as :func:`extract_frames_batch`
+    (``per_stream``: a vote a stream).
 
     Args:
       P:    [S, N'] per-stream correlation rows.
@@ -165,7 +176,7 @@ def fine_cfo_batch(P: torch.Tensor, trig: torch.Tensor, cp_len: int, period: int
     k = torch.arange(B, device=t.device)
     rel = t - k * period
     base = _median_trunc(rel)  # [S]
-    uniform = torch.all(torch.abs(rel - base[:, None]) <= tol)
+    uniform = _vote(torch.abs(rel - base[:, None]) <= tol, per_stream)
     fast = _periodic_starts(n, base - cp_len // 2, period, B, L, left_pad=cp_len)
     Pp = F.pad(P, (cp_len, period + L))
     wins = _rows_batch(Pp, torch.where(uniform, fast, slow + cp_len), L)
@@ -259,11 +270,12 @@ def frame_triggers(M: torch.Tensor, phase: torch.Tensor, frame_samples: int,
     For frame k, search M around phase + k*frame_samples and return the
     metric-weighted centroid of the plateau (samples above 80% of the
     local max), which sits mid-CP.  Positions outside the stream read
-    zeros.  Returns [n_frames] int32 window-start indices.
+    zeros.  Returns [n_frames] int32 window-start indices; a batch M
+    [S, N'] with phase [S] gives [S, n_frames].
     """
     L = 2 * search + 1
     base = phase.long() - search
-    start = base + torch.arange(n_frames, device=M.device) * frame_samples
+    start = base[..., None] + torch.arange(n_frames, device=M.device) * frame_samples
     vals = _periodic_rows(M, base, frame_samples, n_frames, L, left_pad=search)
     local_max = vals.max(dim=-1, keepdim=True).values
     w = torch.where(vals > 0.8 * local_max, vals, 0.0)

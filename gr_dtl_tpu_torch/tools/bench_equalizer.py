@@ -162,16 +162,21 @@ def on_device(arrays, cnst, dev):
 
 def profiler_ms(fn, reps: int):
     """Mean device duration (ms) of the equalizer kernel over reps calls of
-    fn(i), or None if the profiler saw none.  The first launches after the
-    profiler starts may be lost: the mean is over those it saw."""
+    fn(i), or None if the profiler saw none in three windows.  The first
+    launches after the profiler starts may be lost, late in a process with
+    many profiler sessions all of a short window: the mean is over those it
+    saw, and a window that saw none is taken again."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(i)
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if KERNEL_NAME in e.key and e.self_device_time_total > 0]
-    count = sum(e.count for e in found)
-    return sum(e.self_device_time_total for e in found) / count / 1e3 if count else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if KERNEL_NAME in e.key and e.self_device_time_total > 0]
+        count = sum(e.count for e in found)
+        if count:
+            return sum(e.self_device_time_total for e in found) / count / 1e3
+    return None
 
 
 def event_ms(fn, reps: int) -> float:

@@ -1,6 +1,9 @@
 """The port runs on a machine without JAX: every ``gr_dtl_tpu_torch`` module
 and ``chip_smoke`` import with ``jax`` and ``gr_dtl_tpu`` blocked, and the
-kernel module imports without ``nvcc`` on the PATH."""
+kernel module imports without ``nvcc`` on the PATH.  The sharded receivers'
+worker processes start from the port alone: their module, imported in a
+fresh interpreter, brings in neither, and a spawned grid runs with both
+blocked in its parent."""
 
 import os
 import subprocess
@@ -46,6 +49,13 @@ rx = session.StreamRx(chip_smoke.cfgmod.make_rx_config(None, frame_length=4), "c
 wire_compat.deactivate()
 assert rx.rxp.tab.table_mode and equalizer_cuda.equalize_frame_cuda.LAUNCHES == 0
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+# the sharded session on a one-rank grid, without a process group
+from gr_dtl_tpu_torch.parallel import mesh as meshmod, session as psession
+srx = psession.ShardedStreamRx(chip_smoke.cfgmod.make_rx_config(None, frame_length=4),
+                               meshmod.make_mesh(device="cpu"), n_streams=2, frames_per_block=2,
+                               device="cpu")
+srx.process(zeros((2, srx.block_samples), "complex64"))
+assert scans_cuda.trigger_lock_scan_cuda.LAUNCHES == 0 and sync_cuda.timing_metric_cuda.LAUNCHES == 0
 print("imported", len(names), "modules:", *names)
 """
 
@@ -57,15 +67,44 @@ def test_port_imports_without_jax_or_nvcc():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 36, proc.stdout  # every module of slices A, B, C and D, the testbed, wire compat
+    assert n >= 43, proc.stdout  # every module of slices A-E, the testbed, wire compat
     for name in ("utils.alist", "ops.ldpc", "models.fec_chain", "ops.constellation",
                  "models.receiver", "models.transmitter", "ops.sync_cuda", "ops._cuda_build",
                  "ops.scans_cuda", "ops.metrics", "models.adaptive", "models.streaming",
                  "models.session", "ops.channel", "ops.burst", "ops.tb_cuda", "models.simplex",
                  "models.full_duplex", "ops.equalizer", "ops.equalizer_cuda", "testbed.monitor",
                  "testbed.collect", "testbed.frame_store", "testbed.proto.monitor_pb2",
-                 "utils.wire_compat", "utils.logging"):
+                 "utils.wire_compat", "utils.logging", "parallel.mesh", "parallel.dist",
+                 "parallel._coll", "parallel.stream", "parallel.session", "parallel.launch",
+                 "entry"):
         assert f"gr_dtl_tpu_torch.{name}" in proc.stdout.split(), name
+
+
+_WORKER_PROBE = r"""
+import sys
+from gr_dtl_tpu_torch.parallel import launch
+from gr_dtl_tpu_torch import entry
+assert launch._worker.__module__ == "gr_dtl_tpu_torch.parallel.launch"
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gr_dtl_tpu"))
+assert not bad, bad
+if len(sys.argv) > 1:  # a spawned 2-rank grid, with JAX blocked here
+    for blocked in ("jax", "jaxlib", "gr_dtl_tpu"):
+        sys.modules[blocked] = None
+    entry.dryrun_multichip(2, "cpu")
+print("clean")
+"""
+
+
+def test_worker_processes_import_neither_jax_nor_the_reference():
+    """What a spawned worker imports (its module, in a fresh interpreter)
+    holds neither JAX nor the JAX package, and a 2-rank gloo grid started
+    from a parent that cannot import them runs the dry run."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for args in ([], ["spawn"]):
+        proc = subprocess.run([sys.executable, "-c", _WORKER_PROBE, *args], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert proc.stdout.split()[-1] == "clean"
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

@@ -123,3 +123,43 @@ def test_scan_kernels_refuse_what_they_do_not_take(gpu):
         scans_cuda.frame_accounting_cuda(z(1, torch.int32), z(8, torch.int32)[::2], z(4, torch.bool))
     with pytest.raises(KeyError):
         scans_cuda.frame_accounting_cuda(z(1, torch.int32), z(4, torch.int32), z(4, torch.bool), "other")
+
+
+@pytest.mark.parametrize("S", [1, 3, 64])
+@pytest.mark.parametrize("T", [1, 16, 257])
+def test_batched_scan_kernels_match_plain_stream_by_stream(gpu, S, T):
+    """S streams in one launch of each kernel ([S, T] items, state [S]),
+    three calls with the state carried: every stream's outputs and state
+    equal its own plain loop's."""
+    rng = np.random.RandomState(S * 1000 + T)
+    lock = streaming.initial_lock_state(gpu, (S,))
+    plain_locks = [streaming.initial_lock_state(gpu) for _ in range(S)]
+    exp = torch.full((S,), -1, dtype=torch.int32, device=gpu)
+    plain_exps = [torch.tensor(-1, dtype=torch.int32, device=gpu) for _ in range(S)]
+    for call in range(3):
+        ins = [lock_inputs(T, rng.randint(1 << 30)) for _ in range(S)]
+        c = torch.as_tensor(np.stack([i[0] for i in ins]), device=gpu)
+        f = torch.as_tensor(np.stack([i[1] for i in ins]), device=gpu)
+        nos = torch.as_tensor(rng.randint(0, 4096, (S, T)).astype(np.int32), device=gpu)
+        ok = torch.as_tensor(rng.rand(S, T) > 0.3, device=gpu)
+        before = (scans_cuda.trigger_lock_scan_cuda.LAUNCHES, scans_cuda.frame_accounting_cuda.LAUNCHES)
+        lock, (trig, valid) = streaming.trigger_lock_scan(lock, c, f, PERIOD)
+        exp, lost, totals = metrics.frame_accounting(exp, nos, ok)
+        assert (scans_cuda.trigger_lock_scan_cuda.LAUNCHES, scans_cuda.frame_accounting_cuda.LAUNCHES) \
+            == (before[0] + 1, before[1] + 1)
+        torch.cuda.synchronize()
+        for s in range(S):
+            plain_locks[s], (t0, v0) = streaming._trigger_lock_scan_torch(plain_locks[s], c[s], f[s], PERIOD)
+            assert torch.equal(trig[s], t0) and torch.equal(valid[s], v0)
+            assert streaming.lock_state_to_numpy(plain_locks[s]) == tuple(
+                a[s] for a in streaming.lock_state_to_numpy(lock))
+            plain_exps[s], l0, tot0 = metrics._frame_accounting_torch(plain_exps[s], nos[s], ok[s])
+            assert torch.equal(lost[s], l0) and torch.equal(totals[s], tot0)
+            assert int(exp[s]) == int(plain_exps[s])
+            plain_locks[s] = plain_locks[s]._replace(expected=plain_locks[s].expected - T * PERIOD)
+        lock = lock._replace(expected=lock.expected - T * PERIOD)
+
+
+def test_scan_bytes_scale_with_the_streams():
+    one, many = scans_cuda.scan_bytes(64), scans_cuda.scan_bytes(64, S=64)
+    assert all(many[k] == 64 * one[k] for k in one)

@@ -97,6 +97,32 @@ def test_tb_ring_kernels_match_plain_loop(gpu, W, F):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 64])
+@pytest.mark.parametrize("F", [1, 64])
+def test_batched_tb_ring_kernels_match_plain_ring_by_ring(gpu, S, F):
+    """S rings in the same two launches (W = 2), three chained calls: every
+    ring's emitted rows and new carry equal its own plain loop's."""
+    W = 2
+    fec = _fec(W, gpu)
+    fb_tab = fec.cfg.frame_capacity_symbols * np.arange(5)
+    state = fec_chain.init_tb_state(fec, gpu, (S,))
+    plain = [fec_chain.init_tb_state(fec, gpu) for _ in range(S)]
+    for call in range(3):
+        recs = [tb_headers(F, W, fb_tab, fec.max_frame_bits, 1000 * call + s, tb0=3 * call)
+                for s in range(S)]
+        args = [torch.as_tensor(np.stack(col), device=gpu) for col in zip(*recs)]
+        before = tb_cuda.tb_reassemble_cuda.LAUNCHES
+        state, emitted = fec_chain.tb_reassemble(state, *args, fec)
+        assert tb_cuda.tb_reassemble_cuda.LAUNCHES == before + 2
+        torch.cuda.synchronize()
+        for s in range(S):
+            want = fec_chain._tb_reassemble_torch(plain[s], *(a[s] for a in args), fec)
+            assert_tb_equal((fec_chain.TbRing(*(a[s] for a in state)),
+                             {k: v[s] for k, v in emitted.items()}), want)
+            plain[s] = want[0]
+
+
+@pytest.mark.cuda
 def test_tb_ring_carry_works_with_flush_snapshot_and_restore(gpu):
     """The new carry is a TbRing like any other: it can be decoded as
     flush_tb decodes it, read to numpy and put back."""
@@ -133,3 +159,4 @@ def test_tb_bytes_counts_every_input_and_output_once():
     F, W, max_f = 64, 2, 3840
     rows = 4 * max_f * ((F + W) + (F + 1) * W)
     assert tb_cuda.tb_bytes(F, W, max_f) == rows + (21 + 17) * F + 2 * (16 + W)
+    assert tb_cuda.tb_bytes(F, W, max_f, S=8) == 8 * tb_cuda.tb_bytes(F, W, max_f)
