@@ -80,9 +80,13 @@ samples):
 12. times: wall-clock and CUDA-event ms a block (median over the blocks
    after 2 warm-up blocks, the receivers in turns), Msamples/s, kernels a
    block and the device's idle share from one profiled block; the scan
-   kernels against their plain loops at T = 16, 256, 1024, and alone at
-   T = 1 (what a launch costs); the TB ring kernels (profiler) against the
-   plain loop at F = 64, 256, 1024, W = 2.
+   kernels (profiler) against their plain loops at T = 1 (the launch
+   floor), 16, 32, 256, 1024, and the TB ring kernels at F = 1, 16, 32, 64,
+   256, 1024, W = 2, each beside its bound, the earlier design's time
+   as PERF.md section 6 records it (printed, not measured here) and
+   torch.cummax over the same frames' int32
+   indices (the prefix-max at the core of the accounting and of the TB
+   walk, not the whole function: library_ms stays None).
 
 And slice D, at frame_length 20 and the default burst modem:
 
@@ -173,7 +177,9 @@ multi-rank grids are the CPU tests' work over gloo):
    the batched K4 and K5 against their plain loops on synthetic inputs
    (S = 1, 8, 64; T and F = 1 .. 1024, error 0); wall ms a block,
    Msamples/s, device-busy ms and idle share, and the batched kernels'
-   times beside S launches of the single-stream form.
+   times (S = 64, T = 32; S = 8, F = 64, W = 2) beside S launches of the
+   single-stream form, the earlier design's time as PERF.md records it
+   (printed, not measured here) and torch.cummax.
 
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
@@ -712,6 +718,7 @@ MEGA_F, MEGA_K = 16, 16  # the K-block receiver runs at this F
 CODED_F, DUPLEX_F = 64, 8  # frames a block of the coded stream; of TX -> RX and the duplex
 WARM_BLOCKS = 2
 SCAN_T = (16, 256, 1024)
+SCAN_TIME_T = (1, 16, 32, 256, 1024)  # T = 1: the launch floor; 32: the sharded path's T
 HBM_BYTES_PER_S = metric_bench.HBM_BYTES_PER_S
 FP32_OPS_PER_S = 67e12   # NVIDIA H100 SXM data sheet, outside the tensor cores
 
@@ -882,14 +889,62 @@ def scans_on_path(cfg, F: int, stream: np.ndarray, results, dev, what: str) -> i
     return worst
 
 
+# The sequential designs before the prefix-max scans, as PERF.md section 6
+# records them (NVIDIA H100 80GB HBM3 at 700 W, profiler device time, us): a
+# thread a stream walking its frames, one warp walking the TB records, and
+# their batched forms.  Printed beside this run's times, never in its kernels line.
+PERF_MD_EARLIER_US = {
+    ("trigger_lock_scan", 1, 1): 1.31, ("trigger_lock_scan", 1, 16): 1.90,
+    ("trigger_lock_scan", 1, 32): 2.77, ("trigger_lock_scan", 1, 256): 12.89,
+    ("trigger_lock_scan", 1, 1024): 48.91, ("trigger_lock_scan", 64, 32): 5.15,
+    ("frame_accounting", 1, 1): 1.17, ("frame_accounting", 1, 16): 1.57,
+    ("frame_accounting", 1, 32): 2.18, ("frame_accounting", 1, 256): 9.67,
+    ("frame_accounting", 1, 1024): 35.48, ("frame_accounting", 64, 32): 4.09,
+    ("tb_reassemble", 1, 64): 12.10, ("tb_reassemble", 1, 256): 40.32,
+    ("tb_reassemble", 1, 1024): 185.13, ("tb_reassemble", 8, 64): 15.94,
+}
+
+
+def earlier_note(name: str, S: int, n: int) -> str:
+    """The earlier design's time at this shape, as PERF.md records it."""
+    us = PERF_MD_EARLIER_US.get((name, S, n))
+    return "earlier design: none recorded at this shape" if us is None else \
+        f"earlier design {us:.2f} us as PERF.md records it, not this run"
+
+
+def library_ms(fn, reps: int = 50) -> float:
+    """Device ms a call of a PyTorch function: every CUDA kernel in the
+    profiler window, summed, over the calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    return total / reps / 1e3
+
+
+def cummax_ms(S: int, T: int, dev, ok=None) -> float:
+    """torch.cummax over [S, T] int32 indices (-1 where ``ok`` is False): the
+    library's prefix-max, the core of the accounting and of the TB walk, not
+    the whole function of either."""
+    idx = torch.arange(T, dtype=torch.int32, device=dev).repeat(S, 1)
+    if ok is not None:
+        idx = torch.where(ok.reshape(S, T), idx, -1)
+    return library_ms(lambda: torch.cummax(idx, dim=-1))
+
+
 def time_scans(dev, card) -> dict:
     """Phase 12, the scan kernels alone against their plain loops, in turns
     (plain, kernel, kernel, plain).  The kernels' wrappers allocate their
     outputs and launch through ctypes, so between events the host's enqueue
     is timed (named so); the kernel's own time is the profiler's device
-    duration."""
+    duration.  Beside them: the earlier design's time as PERF.md records
+    it, and torch.cummax on the same frames' indices."""
     out = {}
-    for T in (1, *SCAN_T):  # T = 1: what a launch costs before any dependent step
+    for T in SCAN_TIME_T:
         c, f = lock_inputs(T, T, dev)
         n, o = acct_inputs(T, T, 4000, dev)
         state = streaming.initial_lock_state(dev)
@@ -915,12 +970,16 @@ def time_scans(dev, card) -> dict:
             check(k_prof is not None, f"the profiler saw no {kname}")
             nbytes = scans_cuda.scan_bytes(T)[name]
             bound = max(nbytes / HBM_BYTES_PER_S, 12 * T / FP32_OPS_PER_S) * 1e3
+            cm = cummax_ms(1, T, dev, o if name == "frame_accounting" else f)
             out[(name, T)] = {"ms": k_prof, "enqueue_ms": min(k_ev), "plain_ms": min(p_ev),
-                              "bound_ms": bound, "bytes": nbytes}
+                              "bound_ms": bound, "bytes": nbytes, "cummax_ms": cm}
             print(f"[scan-timing] {name} T={T}: kernel {k_prof * 1e3:.2f} us device duration "
-                  f"(profiler), {min(k_ev) * 1e3:.2f} us a call between events (the host's enqueue: "
+                  f"(profiler; {earlier_note(name, 1, T)}), {min(k_ev) * 1e3:.2f} us a call between events (the host's enqueue: "
                   f"3 allocations and a ctypes launch); plain loop {min(p_ev):.3f} ms; {nbytes} "
-                  f"bytes, bound {bound * 1e6:.2f} ns (bytes); library call: none ({card})", flush=True)
+                  f"bytes, bound {bound * 1e6:.2f} ns (bytes); launch floor (T = 1) "
+                  f"{out[(name, 1)]['ms'] * 1e3:.2f} us; torch.cummax on the [1, {T}] int32 indices "
+                  f"{cm * 1e3:.2f} us, the prefix-max alone (library call: none computes the function) "
+                  f"({card})", flush=True)
     return out
 
 
@@ -1490,20 +1549,25 @@ def stream_phases(dev, card) -> tuple:
         t = scan_times[(name, T)]
         # bound_ms is the larger of bytes over the memory rate and operations
         # over the peak rate, and bytes is the larger; neither is what binds
-        # a sequential state machine: launch_floor_ms (the kernel at T = 1)
-        # plus T dependent steps of one thread does
+        # these kernels: launch_floor_ms (the kernel at T = 1) plus the loads
+        # of the stream's row and a few block- or warp-wide dependent steps
         entries.append({"name": name, "route": "cuda",
                         "source": "gr_dtl_tpu_torch/csrc/stream_scans.cu", "replaces": replaces,
                         "launches": launches[i + 1],
                         "max_abs_err": scan_err, "ms": t["ms"], "ms_by": "profiler",
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
                         "launch_floor_ms": scan_times[(name, 1)]["ms"],
-                        "binds": "launch latency plus T dependent steps", "library_ms": None,
-                        "at_T": T})
+                        "binds": "the launch, the row's loads and a few block-wide dependent steps",
+                        "library_ms": None,
+                        "library_note": "no PyTorch call computes the function; torch.cummax, its "
+                                        "prefix-max alone, is cummax_ms",
+                        "cummax_ms": t["cummax_ms"],
+                        "at_T": T, "ms_at_T": {n: scan_times[(name, n)]["ms"] for n in SCAN_TIME_T}})
     tb_times = time_tb_ring(dev, card)
     t = tb_times[CODED_F]  # the main path's shape: the coded stream's block
     # bound_ms is bytes over the memory rate (the larger of the two); what
-    # binds at this size is the two launches and the walk's F dependent steps
+    # binds at this size is the two launches, the walk's 2 + W block-wide
+    # scans, and the copy's bytes
     tb_entry = {"name": "tb_reassemble", "route": "cuda",
                 "source": "gr_dtl_tpu_torch/csrc/tb_ring.cu",
                 "replaces": "gr_dtl_tpu/models/fec_chain.py:233",
@@ -1511,8 +1575,14 @@ def stream_phases(dev, card) -> tuple:
                 "max_abs_err": max(tb_err_all, tb_err_path), "ms": t["ms"], "ms_by": "profiler",
                 "walk_ms": t["walk_ms"], "copy_ms": t["copy_ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": "bytes", "bytes": t["bytes"],
-                "binds": "two launch latencies plus F dependent steps of the walk's one warp",
-                "library_ms": None, "at_F": CODED_F, "at_W": TB_TIME_W}
+                "binds": "two launches, the walk's 2 + W block-wide scans and the copy's bytes",
+                "launch_floor_ms": tb_times[1]["ms"], "library_ms": None,
+                "library_note": "no PyTorch call computes the function; torch.cummax over the frames' "
+                                "indices, the walk's prefix-max alone, is cummax_ms",
+                "cummax_ms": t["cummax_ms"],
+                "at_F": CODED_F, "at_W": TB_TIME_W,
+                "ms_at_F": {n: tb_times[n]["ms"] for n in TB_TIME_F},
+                "bound_ms_at_F": {n: tb_times[n]["bound_ms"] for n in TB_TIME_F}}
     return launches[0], blocks, max_err, entries, tb_entry
 
 
@@ -1521,7 +1591,7 @@ def stream_phases(dev, card) -> tuple:
 # ---------------------------------------------------------------------------
 
 TB_F, TB_W = (1, 8, 64, 256, 1024), (1, 2, 4)
-TB_TIME_F, TB_TIME_W = (64, 256, 1024), 2
+TB_TIME_F, TB_TIME_W = (1, 16, 32, 64, 256, 1024), 2
 N_CHANNEL = 3_770_368    # the uncoded path's stream: 2048 frames of 1840 samples and 2048 of margin
 CHANNEL_TAPS = (1.0, 0.25 - 0.15j, 0.1j)
 CHANNEL_CFO = 0.2        # carrier spacings
@@ -1644,14 +1714,18 @@ def time_tb_ring(dev, card) -> dict:
         _w, plain_busy, plain_n = profiled(plain, sacrifice=True)
         nbytes = tb_cuda.tb_bytes(F, W, fec.max_frame_bits)
         bound = max(nbytes / HBM_BYTES_PER_S, 12 * F / FP32_OPS_PER_S) * 1e3
+        cm = cummax_ms(1, F, dev)
         out[F] = {"ms": walk + copy, "walk_ms": walk, "copy_ms": copy, "enqueue_ms": min(k_ev),
-                  "plain_ms": min(p_ev), "bound_ms": bound, "bytes": nbytes}
+                  "plain_ms": min(p_ev), "bound_ms": bound, "bytes": nbytes, "cummax_ms": cm}
         print(f"[tb-ring-timing] F={F}, W={W}: tb_ring_walk {walk * 1e3:.2f} us + tb_ring_copy "
-              f"{copy * 1e3:.2f} us = {(walk + copy) * 1e3:.2f} us device duration (profiler), "
+              f"{copy * 1e3:.2f} us = {(walk + copy) * 1e3:.2f} us device duration (profiler; "
+              f"{earlier_note('tb_reassemble', 1, F)}), "
               f"{min(k_ev) * 1e3:.2f} us a call between events (with the host's enqueue); plain loop "
               f"{min(p_ev):.3f} ms by events, {plain_n} device kernels, device busy {plain_busy:.3f} ms; "
-              f"{nbytes} bytes, bound {bound * 1e3:.3f} us (bytes); library call: none ({card})",
-              flush=True)
+              f"{nbytes} bytes, bound {bound * 1e3:.3f} us (bytes), {100 * bound / (walk + copy):.1f}% of "
+              f"it; launch floor (F = 1) {out[min(out)]['ms'] * 1e3:.2f} us; torch.cummax on the [1, {F}] "
+              f"int32 indices {cm * 1e3:.2f} us, the walk's prefix-max alone (library call: none computes "
+              f"the function) ({card})", flush=True)
     return out
 
 
@@ -2700,11 +2774,15 @@ def time_batched(dev, card) -> dict:
         loop_ev = min(cuda_ms(loop, 5) for _ in range(2))
         nbytes = scans_cuda.scan_bytes(T, S)[name]
         bound = max(nbytes / HBM_BYTES_PER_S, 12 * S * T / FP32_OPS_PER_S) * 1e3
+        cm = cummax_ms(S, T, dev, o if name == "frame_accounting" else f)
         out[name] = {"S": S, "T": T, "ms": ms, "ms_by": "profiler", "single_ms_x_S": ms_one * S,
-                     "single_x_S_events_ms": loop_ev, "bound_ms": bound, "bytes": nbytes}
-        print(f"[sharded-timing] {name} [S={S}, T={T}]: one batched launch {ms * 1e3:.2f} us device (profiler); "
-              f"{S} single-stream launches {ms_one * S * 1e3:.2f} us device summed, {loop_ev * 1e3:.1f} us between "
-              f"events with the host's enqueue; {nbytes} bytes, bound {bound * 1e6:.1f} ns ({card})", flush=True)
+                     "single_x_S_events_ms": loop_ev, "bound_ms": bound, "bytes": nbytes, "cummax_ms": cm}
+        print(f"[sharded-timing] {name} [S={S}, T={T}]: one batched launch {ms * 1e3:.2f} us device (profiler; "
+              f"{earlier_note(name, S, T)}: a thread a stream); {S} single-stream "
+              f"launches {ms_one * S * 1e3:.2f} us device summed, {loop_ev * 1e3:.1f} us between events with the "
+              f"host's enqueue; {nbytes} bytes, bound {bound * 1e6:.1f} ns; torch.cummax on the [{S}, {T}] int32 "
+              f"indices {cm * 1e3:.2f} us, the prefix-max alone (library call: none computes the function) "
+              f"({card})", flush=True)
     Sc, Fc, _ = SHARD_CODED
     W = 2
     fec = tb_fec(dev, W)
@@ -2721,12 +2799,16 @@ def time_batched(dev, card) -> dict:
     loop_ev = min(cuda_ms(loop, 5) for _ in range(2))
     nbytes = tb_cuda.tb_bytes(Fc, W, fec.max_frame_bits, Sc)
     bound = max(nbytes / HBM_BYTES_PER_S, 12 * Sc * Fc / FP32_OPS_PER_S) * 1e3
+    cm = cummax_ms(Sc, Fc, dev)
     out["tb_reassemble"] = {"S": Sc, "F": Fc, "W": W, "ms": walk + copy, "ms_by": "profiler", "walk_ms": walk,
                             "copy_ms": copy, "single_ms_x_S": (walk1 + copy1) * Sc,
-                            "single_x_S_events_ms": loop_ev, "bound_ms": bound, "bytes": nbytes}
+                            "single_x_S_events_ms": loop_ev, "bound_ms": bound, "bytes": nbytes,
+                            "cummax_ms": cm}
     print(f"[sharded-timing] tb_reassemble [S={Sc}, F={Fc}, W={W}]: walk {walk * 1e3:.2f} + copy {copy * 1e3:.2f} us "
-          f"device (profiler); {Sc} single rings {(walk1 + copy1) * Sc * 1e3:.2f} us device summed, "
-          f"{loop_ev * 1e3:.1f} us between events; {nbytes} bytes, bound {bound * 1e3:.2f} us ({card})", flush=True)
+          f"device (profiler; {earlier_note('tb_reassemble', Sc, Fc)}), {100 * bound / (walk + copy):.1f}% "
+          f"of the bound; {Sc} single rings {(walk1 + copy1) * Sc * 1e3:.2f} us device summed, {loop_ev * 1e3:.1f} us "
+          f"between events; {nbytes} bytes, bound {bound * 1e3:.2f} us; torch.cummax on the [{Sc}, {Fc}] int32 "
+          f"indices {cm * 1e3:.2f} us ({card})", flush=True)
     return out
 
 

@@ -2,15 +2,21 @@
 kernels of ``csrc/stream_scans.cu`` and their wrappers.
 
 ``trigger_lock_scan_cuda`` stands for the ``lax.scan`` of
-``gr_dtl_tpu/models/streaming.py::trigger_lock_scan`` and
+``gr_dtl_tpu/models/streaming.py::trigger_lock_scan`` (step at :163-178) and
 ``frame_accounting_cuda`` for the accounting scans of
-``gr_dtl_tpu/models/session.py`` (the block step) and
-``gr_dtl_tpu/ops/metrics.py::lost_frames``.  Each takes one stream or a
-batch of S streams (``[S, T]`` inputs, one thread a stream) in one launch.
-Their plain PyTorch versions are ``models/streaming.py::_trigger_lock_scan_torch``
-and ``ops/metrics.py::_frame_accounting_torch``, one stream at a time.  The library is built at
-first use (``ops/_cuda_build``); importing this module needs neither
-``nvcc`` nor a GPU.  Each wrapper launches on PyTorch's current stream,
+``gr_dtl_tpu/models/session.py`` (the block step, :214-223) and
+``gr_dtl_tpu/ops/metrics.py::lost_frames`` (:61-66).  Each takes one stream
+or a batch of S streams (``[S, T]`` inputs) in one launch.  Neither walks the
+frames one by one: the accounting is one block-wide prefix-max of the last
+decoded frame's index and number (a block a stream, sized to T), the lock
+scan a speculative chunked walk with exact repair (a warp a stream; the
+source's header says how).  What binds both is the launch and the loads of
+a stream's row, not T dependent steps.  Their plain PyTorch versions are
+``models/streaming.py::_trigger_lock_scan_torch`` and
+``ops/metrics.py::_frame_accounting_torch``, one stream at a time.  The
+library is built at first use (``ops/_cuda_build``); importing this module
+needs neither ``nvcc`` nor a GPU.  Each wrapper launches on PyTorch's
+current stream, allocates its outputs with ``torch.empty`` (no workspace),
 never synchronises, and counts its launches in ``<wrapper>.LAUNCHES``.
 """
 

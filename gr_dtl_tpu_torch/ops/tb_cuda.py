@@ -2,13 +2,18 @@
 ``csrc/tb_ring.cu`` and their wrapper.
 
 ``tb_reassemble_cuda`` stands for the ``lax.scan`` of
-``gr_dtl_tpu/models/fec_chain.py::tb_reassemble``; its plain PyTorch
-version is ``models/fec_chain.py::_tb_reassemble_torch``.  The library is
-built at first use (``ops/_cuda_build``); importing this module needs
-neither ``nvcc`` nor a GPU.  The wrapper takes one ring or S rings (the
-streams of a sharded session's rank) in the same two launches, launches on
-PyTorch's current stream, never synchronises, and counts its kernel
-launches (two a call) in ``tb_reassemble_cuda.LAUNCHES``.
+``gr_dtl_tpu/models/fec_chain.py::tb_reassemble`` (step at :211-231); its
+plain PyTorch version is ``models/fec_chain.py::_tb_reassemble_torch``.  The
+first kernel finds every slot's source row before every frame by block-wide
+prefix-maxes (of the ok, ``is_new`` and each slot's frame indices; a block
+a ring), the second copies the LLR rows: what binds the pair is the copy's
+bytes and two launches.  The library is built at first use
+(``ops/_cuda_build``); importing this module needs neither ``nvcc`` nor a
+GPU.  The wrapper takes one ring or S rings (the streams of a sharded
+session's rank) in the same two launches, launches on PyTorch's current
+stream, allocates its outputs and the source table with ``torch.empty``,
+never synchronises, and counts its kernel launches (two a call) in
+``tb_reassemble_cuda.LAUNCHES``.
 """
 
 from __future__ import annotations

@@ -122,6 +122,78 @@ def test_batched_tb_ring_kernels_match_plain_ring_by_ring(gpu, S, F):
             plain[s] = want[0]
 
 
+def _cpu_ring(state):
+    return fec_chain.TbRing(*(a.cpu() for a in state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 2, 4])
+@pytest.mark.parametrize("F", [1023, 1024, 1025, 4095, 4096, 4097])
+def test_tb_ring_kernels_match_plain_loop_over_several_tiles(gpu, W, F):
+    """Blocks of more frames than the walk's tile of 1024 (its prefix-maxes
+    carried from tile to tile) and on either side of a tile's edge, two
+    chained calls, against the plain loop on CPU copies (the same loop)."""
+    fec, fec_cpu = _fec(W, gpu), _fec(W, "cpu")
+    fb_tab = fec.cfg.frame_capacity_symbols * np.arange(5)
+    state, plain, tb0 = fec_chain.init_tb_state(fec, gpu), fec_chain.init_tb_state(fec_cpu, "cpu"), 0
+    for call in range(2):
+        recs = tb_headers(F, W, fb_tab, fec.max_frame_bits, 7 * F + W + call, tb0)
+        before = tb_cuda.tb_reassemble_cuda.LAUNCHES
+        state, em = fec_chain.tb_reassemble(state, *(torch.as_tensor(a, device=gpu) for a in recs), fec)
+        assert tb_cuda.tb_reassemble_cuda.LAUNCHES == before + 2
+        plain, em0 = fec_chain.tb_reassemble(plain, *(torch.as_tensor(a) for a in recs), fec_cpu)
+        torch.cuda.synchronize()
+        assert_tb_equal((_cpu_ring(state), {k: v.cpu() for k, v in em.items()}), (plain, em0))
+        tb0 = int(recs[1].max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,F", [(8, 64), (256, 64), (64, 32), (8, 1025)])
+def test_batched_tb_ring_kernels_at_many_rings(gpu, S, F):
+    """S = 8 / 64 / 256 rings (W = 2) in the same two launches, two chained
+    calls, against the plain loop ring by ring on CPU copies."""
+    W = 2
+    fec, fec_cpu = _fec(W, gpu), _fec(W, "cpu")
+    fb_tab = fec.cfg.frame_capacity_symbols * np.arange(5)
+    state = fec_chain.init_tb_state(fec, gpu, (S,))
+    plain = fec_chain.init_tb_state(fec_cpu, "cpu", (S,))
+    for call in range(2):
+        recs = [tb_headers(F, W, fb_tab, fec.max_frame_bits, 500 * call + s, tb0=3 * call)
+                for s in range(S)]
+        cols = [np.stack(col) for col in zip(*recs)]
+        before = tb_cuda.tb_reassemble_cuda.LAUNCHES
+        state, em = fec_chain.tb_reassemble(state, *(torch.as_tensor(a, device=gpu) for a in cols), fec)
+        assert tb_cuda.tb_reassemble_cuda.LAUNCHES == before + 2
+        plain, em0 = fec_chain.tb_reassemble(plain, *(torch.as_tensor(a) for a in cols), fec_cpu)
+        torch.cuda.synchronize()
+        assert_tb_equal((_cpu_ring(state), {k: v.cpu() for k, v in em.items()}), (plain, em0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 8])
+def test_tb_ring_kernels_on_a_side_stream(gpu, S):
+    """Both launches on PyTorch's current stream, a side stream here, while
+    the default stream is busy: the same result as on the CPU."""
+    W, F = 2, 1024 if S == 1 else 64
+    fec, fec_cpu = _fec(W, gpu), _fec(W, "cpu")
+    fb_tab = fec.cfg.frame_capacity_symbols * np.arange(5)
+    recs = [tb_headers(F, W, fb_tab, fec.max_frame_bits, 40 + s) for s in range(S)]
+    cols = [np.stack(col) for col in zip(*recs)]
+    args = [torch.as_tensor(a, device=gpu) for a in cols]
+    state = fec_chain.init_tb_state(fec, gpu, (S,))
+    busy = torch.randn(2048, 2048, device=gpu)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(gpu)
+    for _ in range(4):
+        busy = busy @ busy / 2048.0
+    with torch.cuda.stream(side):
+        got = fec_chain.tb_reassemble(state, *args, fec)
+    side.synchronize()
+    want = fec_chain.tb_reassemble(fec_chain.init_tb_state(fec_cpu, "cpu", (S,)),
+                                   *(torch.as_tensor(a) for a in cols), fec_cpu)
+    assert_tb_equal((_cpu_ring(got[0]), {k: v.cpu() for k, v in got[1].items()}), want)
+
+
 @pytest.mark.cuda
 def test_tb_ring_carry_works_with_flush_snapshot_and_restore(gpu):
     """The new carry is a TbRing like any other: it can be decoded as
