@@ -181,6 +181,32 @@ multi-rank grids are the CPU tests' work over gloo):
    single-stream form, the earlier design's time as PERF.md records it
    (printed, not measured here) and torch.cummax.
 
+And slice F, the app layer: the tools of gr_dtl_tpu_torch/tools called
+through their main(argv) in this process on the card, every launch count
+set to 0 just before a tool and read just after (launches a step, block or
+round checked), each mode's JSON, wall ms and counts printed:
+
+25. app layer: run_modem loopback at B = 2048 (examples/config.json,
+   frame_length 20, 25 dB; every frame passes CRC; 1 metric, 1 accounting
+   and 4 equalizer launches) and coded at B = 1024 (examples/config_fec.json,
+   every frame decodes), ber on the first's TX / RX stores (0 bit errors);
+   stream-tx writing 16 blocks of F = 1024 (1,884,160 samples a block, every
+   frame full) to a capture with a block of silence after it, stream reading
+   it back at depth 1 and 2 with --store-rx (every frame decoded once, in
+   order, with the sent bytes, lost_frame_rate 0, the two stores equal; 1
+   metric, 1 + 1 scan and 4 equalizer launches a block); replay of its first
+   2048 frames (the stream's first records); coded stream-tx and stream with
+   --tb-frames 2 at F = 64 (every transport block passes CRC, 2 TB ring
+   launches a block); stream-sharded --selftest at 64 streams, F = 32 and
+   --source on a 64-stream capture (a one-rank NCCL group); full-duplex and
+   simplex for 32 rounds; tun_bridge.ModemPipe on 64 IPv4 packets (back
+   unchanged); and a stream --source listen: / stream-tx --sink tcp: pair of
+   python -m processes started from a copy of the package without _build/
+   (the RX builds its kernels after it accepted the TX; every payload frame
+   the TX reports stored with the bytes sent).  Beside the tools' wall ms,
+   the sessions alone on the same blocks (StreamRx, StreamRxPipelined(2),
+   ShardedStreamRx) and the loopback's and replay's device work alone.
+
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
 failure exits non-zero before it.
@@ -188,6 +214,7 @@ failure exits non-zero before it.
 
 import contextlib
 import importlib.util
+import io
 import json
 import shutil
 import sys
@@ -202,7 +229,7 @@ from gr_dtl_tpu_torch.models import adaptive, fec_chain, full_duplex, receiver, 
 from gr_dtl_tpu_torch.models import streaming, transmitter
 from gr_dtl_tpu_torch.ops import _cuda_build, burst, channel, constellation as cn, ldpc, metrics
 from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda, scans_cuda, sync, sync_cuda, tb_cuda
-from gr_dtl_tpu_torch.testbed import monitor
+from gr_dtl_tpu_torch.testbed import monitor, phy_converge
 from gr_dtl_tpu_torch.tools import bench_equalizer as eq_bench
 from gr_dtl_tpu_torch.tools import bench_sync_metric as metric_bench
 from gr_dtl_tpu_torch.utils import alist, config as cfgmod, wire_compat
@@ -316,11 +343,12 @@ def main() -> int:
     # ---- 2. build ----
     t0 = time.perf_counter()
     # one nvcc each, side by side
-    _cuda_build.build_all(sync_cuda.build, scans_cuda.build, tb_cuda.build, equalizer_cuda.build)
+    _cuda_build.build_all(sync_cuda.build, scans_cuda.build, tb_cuda.build, equalizer_cuda.build,
+                          phy_converge.build)
     print(f"[build] csrc/sync_metric.cu -> {sync_cuda.library_path().name}, csrc/stream_scans.cu "
           f"-> {scans_cuda.library_path().name}, csrc/tb_ring.cu -> {tb_cuda.library_path().name}, "
-          f"csrc/equalizer.cu -> {equalizer_cuda.library_path().name} "
-          f"in {time.perf_counter() - t0:.2f} s")
+          f"csrc/equalizer.cu -> {equalizer_cuda.library_path().name}, native/phy_converge.cpp (g++) -> "
+          f"{phy_converge.library_path().name} in {time.perf_counter() - t0:.2f} s")
     for lib in (sync_cuda.library_path(), scans_cuda.library_path(), tb_cuda.library_path(),
                 equalizer_cuda.library_path()):
         log = lib.with_suffix(".log")
@@ -477,6 +505,14 @@ def main() -> int:
     tb_kernel["max_abs_err"] = max(tb_kernel["max_abs_err"], shard["max_abs_err"])
     tb_kernel["batched"] = dict(shard["times"]["tb_reassemble"], launches=tot["tb_reassemble"],
                                 launches_per_block=tot["tb_reassemble"] / tot["tb_blocks"])
+    # ---- 25. slice F: the app layer ----
+    app = app_phase(dev, card)
+    launches += app["k1"][0]
+    stream_blocks += app["k1"][1]
+    for entry, key in zip(scan_kernels, ("lock", "acct")):
+        entry["launches"] += app[key][0]
+        entry["launches_per_step"] = entry["launches"] / (scan_blocks + app[key][1])
+    tb_kernel["launches"] += app["tb"][0]
     eq_entry = time_equalizer(dev, card)
     print(card)
     print(json.dumps({"kernels": [{
@@ -3004,6 +3040,343 @@ def _sharded_runs(dev, card, mesh, ShardedStreamRx, entry, t_phase) -> dict:
     print(f"[sharded] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
     return {"totals": totals, "max_abs_err": err, "times": times, "wall_ms": med,
             "msamples_per_s": n_samp / med / 1e3, "busy_ms": busy}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the app layer (slice F): the tools' main(argv), in this process
+# ---------------------------------------------------------------------------
+
+APP_B, APP_B_FEC = 2048, 1024  # the loopbacks' batches (the bench shapes)
+APP_F, APP_BLOCKS = 1024, 16   # the stream modes: frames a block, blocks stream-tx writes
+APP_CODED = (64, 8)            # the coded W = 2 stream: frames a block, blocks
+APP_SHARD = (64, 32, 4)        # stream-sharded --source: streams, frames a block, blocks
+APP_ROUNDS = 32                # the links
+APP_PACKETS = 64               # through tun_bridge.ModemPipe
+APP_PIPE = (256, 8, 1000)      # the two-process link: frames a block, blocks, PDUs of 40 bytes
+APP_KERNELS = ("k1", "lock", "acct", "tb", "eq")
+
+
+def app_counts() -> dict:
+    return {"k1": sync_cuda.timing_metric_cuda.LAUNCHES,
+            "lock": scans_cuda.trigger_lock_scan_cuda.LAUNCHES,
+            "acct": scans_cuda.frame_accounting_cuda.LAUNCHES,
+            "tb": tb_cuda.tb_reassemble_cuda.LAUNCHES,
+            "eq": equalizer_cuda.equalize_frame_cuda.LAUNCHES}
+
+
+def sync_device(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class AppLedger:
+    """The app phase's counted runs: a tool's ``main(argv)`` with every
+    launch count set to 0 just before it and read just after, held to the
+    launches a receive step (or block, or round) of that mode gives each
+    kernel, times the steps the run took."""
+
+    def __init__(self, dev, card: str):
+        self.dev, self.card = dev, card
+        self.totals = {k: [0, 0] for k in APP_KERNELS[:4]}  # launches, steps in which they are due
+
+    def run(self, what: str, tool, argv: list, steps: int, per_step: dict):
+        reset_counts()
+        buf = io.StringIO()
+        sync_device(self.dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            tool.main([str(a) for a in argv])
+        sync_device(self.dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = app_counts()
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        want = {k: per_step.get(k, 0) * steps for k in APP_KERNELS}
+        print(f"[app] {what}: {ms:.1f} ms wall ({self.card}), launches {counts} in {steps} steps; "
+              f"{json.dumps(res)}", flush=True)
+        check(counts == want, f"app layer, {what}: launches {counts}, expected {want}")
+        if per_step.get("eq"):
+            EQ.counted(steps, f"app layer, {what}", per_step["eq"])
+        for k in APP_KERNELS[:4]:
+            if per_step.get(k):
+                self.totals[k][0] += counts[k]
+                self.totals[k][1] += steps
+        return res, ms
+
+
+def session_ms(rx, blocks, dev) -> float:
+    """Wall ms a block of a StreamRx (or StreamRxPipelined) over in-memory
+    numpy blocks, the readback of every block included."""
+    sync_device(dev)
+    t0 = time.perf_counter()
+    for b in blocks:
+        rx.process(b)
+    if hasattr(rx, "drain"):
+        rx.drain()
+    sync_device(dev)
+    return (time.perf_counter() - t0) * 1e3 / len(blocks)
+
+
+def app_phase(dev, card) -> dict:
+    """Phase 25.  Returns, for the kernels line, each scan and TB ring
+    kernel's launches over the phase's counted runs and the steps they
+    span."""
+    t_phase = time.perf_counter()
+    d = Path(tempfile.mkdtemp(prefix="app_layer_"))
+    try:
+        app = AppLedger(dev, card)
+        _app_runs(app, d, dev, card)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"[app] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return app.totals
+
+
+def _app_runs(app: AppLedger, d: Path, dev, card) -> None:
+    from gr_dtl_tpu_torch.testbed.frame_store import read_frames
+    from gr_dtl_tpu_torch.tools import ber, replay, run_modem, tun_bridge
+
+    on = ["--device", str(dev), "--json"]
+    rcfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
+    tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
+    P = rcfg.frame_samples
+    per_rx = {"k1": 1, "acct": 1, "eq": EQ_PER_STEP}  # a batch receive step and its loss count
+    per_block = {"k1": 1, "lock": 1, "acct": 1, "eq": EQ_PER_STEP}  # a StreamRx block
+
+    # -- loopbacks, then ber on the uncoded one's stores --
+    res, ms = app.run(f"loopback B={APP_B}", run_modem, [
+        "loopback", "--config", "examples/config.json", "--frame-length", FRAME_LENGTH, "--frames",
+        APP_B, "--snr-db", 25, "--store-tx", d / "lb_tx.dat", "--store-rx", d / "lb_rx.dat", *on],
+        1, per_rx)
+    check(res["crc_ok_rate"] == 1.0 and res["header_ok_rate"] == 1.0 and res["lost_frame_rate"] == 0.0,
+          f"uncoded loopback: {res}")
+    txp, rxp = transmitter.build_tx(tcfg, dev), receiver.build_rx(rcfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+
+    def loopback_core():
+        n, plen = APP_B, tcfg.frame_bytes(2) - 4
+        i32 = lambda v: torch.full((n,), v, dtype=torch.int32, device=dev)
+        pad = torch.randint(0, 256, (n, tcfg.max_frame_bytes()), generator=gen, device=dev, dtype=torch.uint8)
+        pay = torch.where(torch.arange(pad.shape[1], device=dev) < plen, pad, 0).to(torch.uint8)
+        out = transmitter.tx_frames(txp, pay, i32(plen), i32(2), i32(0),
+                                    torch.arange(n, dtype=torch.int32, device=dev), pad)
+        s = channel.channel_model(out.samples.reshape(-1), noise_voltage=0.05, generator=gen)
+        rx = rx_step(rxp, torch.cat([torch.zeros(517, dtype=torch.complex64, device=dev), s,
+                                     torch.zeros(400, dtype=torch.complex64, device=dev)]), n)
+        metrics.lost_frames(rx.frame_no, rx.header_ok)
+        sync_device(dev)
+
+    core = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        loopback_core()
+        core.append((time.perf_counter() - t0) * 1e3)
+    print(f"[app] loopback B={APP_B}: the tool {ms:.1f} ms wall; TX + channel + detect_and_extract + rx_frames "
+          f"+ loss count alone on the same shapes {median(core[1:]):.2f} ms (median of 3 after one warm-up) "
+          f"({card})", flush=True)
+    res, _ = app.run(f"coded loopback B={APP_B_FEC}", run_modem, [
+        "loopback", "--config", FEC_CONFIG, "--frame-length", FRAME_LENGTH, "--frames", APP_B_FEC,
+        "--snr-db", 25, *on], 1, per_rx)
+    check(res["crc_ok_rate"] == 1.0, f"coded loopback at 25 dB: {res}")
+    res, _ = app.run("ber on the loopback's stores", ber, [d / "lb_tx.dat", d / "lb_rx.dat", "--json"], 0, {})
+    check(res["frames_sent"] == APP_B and res["frames_matched"] == APP_B and res["ber_overall"] == 0.0
+          and res["fer"] == 0.0, f"ber at 25 dB: {res}")
+
+    # -- stream-tx to a capture, then stream at depth 1 and 2 --
+    cap = d / "cap.c64"
+    pdus = 2 * APP_F * APP_BLOCKS  # two 40-byte PDUs fill a BPSK frame of frame_length 20
+    res, tx_ms = app.run(f"stream-tx F={APP_F}", run_modem, [
+        "stream-tx", "--sink", f"file:{cap}", "--frame-length", FRAME_LENGTH, "--frames-per-block",
+        APP_F, "--pdus", pdus, "--max-blocks", APP_BLOCKS, *on], APP_BLOCKS, {})
+    n_frames = APP_F * APP_BLOCKS
+    check(res["blocks"] == APP_BLOCKS and res["payload_frames"] == n_frames, f"stream-tx: {res}")
+    print(f"[app] stream-tx: {tx_ms / APP_BLOCKS:.2f} ms a block of {APP_F * P} samples, "
+          f"{res['msamples_per_s']:.2f} Msamples/s by the tool's clock ({card})", flush=True)
+    with open(cap, "ab") as f:  # the air after the last frame: one block of silence
+        np.zeros(APP_F * P, np.complex64).tofile(f)
+    rng = np.random.RandomState(0)
+    sent = b"".join(rng.randint(0, 256, 40).astype(np.uint8).tobytes() for _ in range(pdus))
+    blocks = np.fromfile(cap, np.complex64).reshape(-1, APP_F * P)
+    stores = []
+    for depth in (1, 2):
+        store = d / f"stream{depth}.dat"
+        res, ms = app.run(f"stream F={APP_F} depth {depth}", run_modem, [
+            "stream", "--source", f"file:{cap}", "--frame-length", FRAME_LENGTH, "--frames-per-block", APP_F,
+            "--pipeline-depth", depth, "--store-rx", store, *on], APP_BLOCKS + 1, per_block)
+        check(res["blocks"] == APP_BLOCKS + 1 and res["frames_header_ok"] == n_frames
+              and res["frames_crc_ok"] == n_frames and res["lost_frame_rate"] == 0.0, f"stream depth {depth}: {res}")
+        recs = list(read_frames(str(store)))
+        check([no for no, _ in recs] == list(range(n_frames)), f"stream depth {depth}: frame numbers in the store")
+        check(b"".join(data for _, data in recs) == sent, f"stream depth {depth}: stored bytes differ from the PDUs")
+        stores.append(store.read_bytes())
+        rx = (session.StreamRx(rcfg, dev, APP_F) if depth == 1 else
+              session.StreamRxPipelined(rcfg, dev, APP_F, depth=depth))
+        alone = session_ms(rx, blocks, dev)
+        print(f"[app] stream depth {depth}: the daemon {ms / (APP_BLOCKS + 1):.2f} ms a block "
+              f"({res['msamples_per_s']:.2f} Msamples/s by its clock, file read and frame store included), "
+              f"the session alone on the same blocks in memory {alone:.2f} ms a block "
+              f"({APP_F * P / alone / 1e3:.2f} Msamples/s) ({card})", flush=True)
+    check(stores[0] == stores[1], "stream: the depth-2 frame store differs from depth 1's")
+    del blocks
+
+    # -- replay of the capture: its first frames, as the stream stored them --
+    res, ms = app.run(f"replay B={APP_B}", replay, [
+        cap, "--frame-length", FRAME_LENGTH, "--frames", APP_B, "--store-rx", d / "replay.dat", *on], 1, per_rx)
+    check(res["crc_ok_rate"] == 1.0 and res["frames"] == APP_B, f"replay: {res}")
+    rp = (d / "replay.dat").read_bytes()
+    check(stores[0][: len(rp)] == rp, "replay: its store is not the stream store's first records")
+    x = torch.as_tensor(np.fromfile(cap, np.complex64), device=dev)
+    core = []
+    for _ in range(4):
+        sync_device(dev)
+        t0 = time.perf_counter()
+        rx_step(rxp, x, APP_B)
+        sync_device(dev)
+        core.append((time.perf_counter() - t0) * 1e3)
+    print(f"[app] replay: the tool {ms:.1f} ms wall ({x.numel()} samples read and uploaded); detect_and_extract + "
+          f"rx_frames alone on the capture on the device {median(core[1:]):.2f} ms ({card})", flush=True)
+    del x
+
+    # -- the coded W = 2 stream --
+    Fc, nbc = APP_CODED
+    ccap = d / "coded.c64"
+    res, _ = app.run(f"coded stream-tx F={Fc}", run_modem, [
+        "stream-tx", "--config", FEC_CONFIG, "--tb-frames", 2, "--sink", f"file:{ccap}", "--frame-length",
+        FRAME_LENGTH, "--frames-per-block", Fc, "--pdus", 4 * Fc * nbc, "--max-blocks", nbc, *on], nbc, {})
+    check(res["payload_frames"] == Fc * nbc, f"coded stream-tx: {res}")
+    ccfg = cfgmod.make_rx_config(str(FEC_CONFIG), frame_length=FRAME_LENGTH)
+    with open(ccap, "ab") as f:
+        np.zeros(Fc * ccfg.frame_samples, np.complex64).tofile(f)
+    res, _ = app.run(f"coded stream F={Fc} W=2", run_modem, [
+        "stream", "--config", FEC_CONFIG, "--tb-frames", 2, "--source", f"file:{ccap}", "--frame-length",
+        FRAME_LENGTH, "--frames-per-block", Fc, *on], nbc + 1, dict(per_block, tb=2))
+    check(res["tb_emitted"] == Fc * nbc // 2 and res["tb_crc_ok"] == res["tb_emitted"]
+          and res["lost_frame_rate"] == 0.0, f"coded stream: every transport block must pass its CRC: {res}")
+
+    # -- stream-sharded: the self-test at the README's 64 streams, then a capture --
+    S, Fs, nbs = APP_SHARD
+    res, ms = app.run(f"stream-sharded --selftest S={S} F={Fs}", run_modem, [
+        "stream-sharded", "--selftest", "--streams", S, "--frames-per-block", Fs, "--frame-length",
+        FRAME_LENGTH, *on], 3, per_block)
+    check(res["selftest_pass"] is True and res["mesh"] == {"stream": 1, "time": 1} and res["lost_frames"] == 0
+          and res["frames_crc_ok"] == S * 2 * Fs, f"stream-sharded selftest: {res}")
+    x, _ = shard_streams(tcfg, S, (nbs - 1) * Fs - 1, nbs, Fs * P, dev, gen, SEED + 25)
+    with open(d / "shard.c64", "wb") as f:
+        for b in range(nbs):
+            x[:, b * Fs * P: (b + 1) * Fs * P].tofile(f)
+    res, ms = app.run(f"stream-sharded --source S={S} F={Fs}", run_modem, [
+        "stream-sharded", "--source", f"file:{d / 'shard.c64'}", "--streams", S, "--frames-per-block", Fs,
+        "--frame-length", FRAME_LENGTH, *on], nbs, per_block)
+    check(res["frames_crc_ok"] == S * ((nbs - 1) * Fs - 1) and res["lost_frames"] == 0, f"stream-sharded: {res}")
+    from gr_dtl_tpu_torch.parallel import mesh as meshmod
+    from gr_dtl_tpu_torch.parallel.session import ShardedStreamRx
+
+    srx = ShardedStreamRx(rcfg, meshmod.make_mesh(1, 1, device=dev), S, Fs, device=dev)
+    sync_device(dev)
+    t0 = time.perf_counter()
+    for b in range(nbs):
+        srx.process(x[:, b * Fs * P: (b + 1) * Fs * P])
+    sync_device(dev)
+    alone = (time.perf_counter() - t0) * 1e3 / nbs
+    print(f"[app] stream-sharded: the daemon {ms / nbs:.2f} ms a block of {S} x {Fs * P} samples (file read and "
+          f"every stream's frames gathered to the host included), the session alone {alone:.2f} ms a block "
+          f"({S * Fs * P / alone / 1e3:.2f} Msamples/s) ({card})", flush=True)
+    del x
+
+    # -- the links --
+    # a round is two receive steps, A's and B's
+    res, ms = app.run(f"full-duplex {APP_ROUNDS} rounds", run_modem, [
+        "full-duplex", "--rounds", APP_ROUNDS, "--frame-length", FRAME_LENGTH, *on],
+        2 * APP_ROUNDS, {"eq": EQ_PER_STEP})
+    check(res["a_crc_rate"] >= 0.9 and res["b_crc_rate"] >= 0.9, f"full-duplex at 30 / 25 dB: {res}")
+    print(f"[app] full-duplex: {ms / APP_ROUNDS:.2f} ms a round by the tool ({card})", flush=True)
+    res, ms = app.run(f"simplex {APP_ROUNDS} rounds", run_modem, [
+        "simplex", "--rounds", APP_ROUNDS, "--frame-length", FRAME_LENGTH, *on], APP_ROUNDS, {"eq": EQ_PER_STEP})
+    check(res["crc_rate"] >= 0.9 and res["burst_ok_rate"] >= 0.9, f"simplex at 30 / 25 dB: {res}")
+    print(f"[app] simplex: {ms / APP_ROUNDS:.2f} ms a round by the tool ({card})", flush=True)
+
+    # -- the tun pipe, without a tun device --
+    rng = np.random.RandomState(SEED + 25)
+    packets = [app_ipv4(rng.bytes(int(n)), i) for i, n in enumerate(rng.randint(8, 400, APP_PACKETS))]
+    pipe = tun_bridge.ModemPipe(device=dev)
+    pipe.process(packets[:2])  # builds the convergence layer's library
+    reset_counts()
+    sync_device(dev)
+    t0 = time.perf_counter()
+    echoed = pipe.process(packets)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = app_counts()
+    print(f"[app] tun_bridge.ModemPipe: {len(echoed)} of {APP_PACKETS} IPv4 packets back in {ms:.1f} ms, "
+          f"launches {counts} ({card})", flush=True)
+    check(echoed == packets, "ModemPipe: the packets did not come back unchanged")
+    check(counts == {"k1": 0, "lock": 0, "acct": 0, "tb": 0, "eq": EQ_PER_STEP}, f"ModemPipe launches {counts}")
+    EQ.counted(1, "app layer, ModemPipe")
+
+    app_two_processes(d, dev, card)
+
+
+def app_ipv4(payload: bytes, ident: int) -> bytes:
+    """An IPv4/UDP-shaped packet with a valid header checksum."""
+    import struct
+
+    hdr = bytearray(struct.pack("!BBHHHBBH4s4s", 0x45, 0, 20 + len(payload), ident, 0, 64, 17, 0,
+                                bytes([10, 99, 0, 1]), bytes([10, 99, 0, 2])))
+    s = sum((hdr[i] << 8) | hdr[i + 1] for i in range(0, 20, 2))
+    s = (s & 0xFFFF) + (s >> 16)
+    s = (s & 0xFFFF) + (s >> 16)
+    struct.pack_into("!H", hdr, 10, (~s) & 0xFFFF)
+    return bytes(hdr) + payload
+
+
+def app_two_processes(d: Path, dev, card) -> None:
+    """``stream --source listen:`` and ``stream-tx --sink tcp:`` as two
+    ``python -m`` processes on the device, from a copy of the package with
+    no ``_build/``: the RX builds its kernels at its first block, after it
+    accepted the TX.  Every payload frame the TX reports reaches the RX's
+    frame store with the bytes sent."""
+    import os
+    import subprocess
+
+    from gr_dtl_tpu_torch.parallel import launch
+    from gr_dtl_tpu_torch.testbed.frame_store import read_frames
+
+    F, nb, pdus = APP_PIPE
+    root = d / "cold"
+    shutil.copytree(ROOT / "gr_dtl_tpu_torch", root / "gr_dtl_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    port = launch.free_port()
+    cmd = [sys.executable, "-m", "gr_dtl_tpu_torch.tools.run_modem"]
+    common = ["--frame-length", str(FRAME_LENGTH), "--frames-per-block", str(F), "--device", str(dev), "--json"]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    t0 = time.perf_counter()
+    procs = {"rx": subprocess.Popen(cmd + ["stream", "--source", f"listen:{port}", "--store-rx",
+                                           str(d / "pair.dat")] + common,
+                                    cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+             "tx": subprocess.Popen(cmd + ["stream-tx", "--sink", f"tcp:127.0.0.1:{port}", "--pdus", str(pdus),
+                                           "--max-blocks", str(nb)] + common,
+                                    cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    out = {}
+    try:
+        for k, p in procs.items():
+            stdout, stderr = p.communicate(timeout=300)
+            check(p.returncode == 0, f"two processes: the {k} process exited {p.returncode}: {stderr[-3000:]}")
+            out[k] = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    built = sorted(p.name for p in (root / "gr_dtl_tpu_torch" / "_build").glob("*.so"))
+    print(f"[app] two processes over TCP from a cold start in {wall:.1f} s: rx {json.dumps(out['rx'])}; "
+          f"tx {json.dumps(out['tx'])}; the RX built {built} ({card})", flush=True)
+    rng = np.random.RandomState(0)
+    sent = b"".join(rng.randint(0, 256, 40).astype(np.uint8).tobytes() for _ in range(pdus))
+    got = [data for _, data in read_frames(str(d / "pair.dat")) if data]
+    check(out["tx"]["blocks"] == out["rx"]["blocks"] == nb and out["tx"]["payload_frames"] == len(got)
+          and b"".join(got) == sent and out["rx"]["lost_frame_rate"] == 0.0,
+          "two processes: the RX did not decode every frame the TX reported")
+    check(torch.device(dev).type != "cuda" or len(built) == 3,
+          f"two processes: the cold RX built {built}, not the metric, scan and equalizer libraries")
 
 
 def meshmod_cpu():

@@ -56,6 +56,12 @@ srx = psession.ShardedStreamRx(chip_smoke.cfgmod.make_rx_config(None, frame_leng
                                device="cpu")
 srx.process(zeros((2, srx.block_samples), "complex64"))
 assert scans_cuda.trigger_lock_scan_cuda.LAUNCHES == 0 and sync_cuda.timing_metric_cuda.LAUNCHES == 0
+# the app layer: a tool's main runs its mode on the CPU with both blocked
+import contextlib, io
+from gr_dtl_tpu_torch.tools import run_modem
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    run_modem.main(["loopback", "--frames", "2", "--frame-length", "4", "--json", "--cpu"])
+assert '"crc_ok_rate": 1.0' in out.getvalue(), out.getvalue()
 print("imported", len(names), "modules:", *names)
 """
 
@@ -67,7 +73,7 @@ def test_port_imports_without_jax_or_nvcc():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 43, proc.stdout  # every module of slices A-E, the testbed, wire compat
+    assert n >= 53, proc.stdout  # every module of slices A-F, the testbed, wire compat
     for name in ("utils.alist", "ops.ldpc", "models.fec_chain", "ops.constellation",
                  "models.receiver", "models.transmitter", "ops.sync_cuda", "ops._cuda_build",
                  "ops.scans_cuda", "ops.metrics", "models.adaptive", "models.streaming",
@@ -76,7 +82,9 @@ def test_port_imports_without_jax_or_nvcc():
                  "testbed.collect", "testbed.frame_store", "testbed.proto.monitor_pb2",
                  "utils.wire_compat", "utils.logging", "parallel.mesh", "parallel.dist",
                  "parallel._coll", "parallel.stream", "parallel.session", "parallel.launch",
-                 "entry"):
+                 "entry", "testbed.sample_io", "testbed.phy_converge", "tools._cli",
+                 "tools.run_modem", "tools.replay", "tools.ber", "tools.ber_curve",
+                 "tools.tun_bridge", "tools.stats", "tools.monitor_collector"):
         assert f"gr_dtl_tpu_torch.{name}" in proc.stdout.split(), name
 
 
