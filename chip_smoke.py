@@ -12,8 +12,8 @@ as tools/bench_fec.py draws them.  Phases:
 1. device: the card's name and power limit, torch/CUDA versions, and
    whether nvcc and triton are present;
 2. build: compiles csrc/sync_metric.cu, csrc/stream_scans.cu,
-   csrc/tb_ring.cu and csrc/equalizer.cu for sm_90a from this checkout, one
-   nvcc each, side by side;
+   csrc/tb_ring.cu, csrc/equalizer.cu and csrc/feedback_scan.cu for sm_90a
+   from this checkout, one nvcc each, side by side;
 3. kernel vs plain: the CUDA Schmidl-Cox kernel against its plain
    PyTorch version on the card, at the uncoded path's N, at two ragged
    lengths, on a [4, N] batch and at the edges of its tiling: one output
@@ -207,6 +207,32 @@ round checked), each mode's JSON, wall ms and counts printed:
    the sessions alone on the same blocks (StreamRx, StreamRxPipelined(2),
    ShardedStreamRx) and the loopback's and replay's device work alone.
 
+And slice G, the live-I/O tools, with K7 (csrc/feedback_scan.cu), the MCS
+decision over a block's frames as one launch.  K7 is checked where the
+paths call it: in phase 11's StreamDuplex and phase 17's StreamSimplex runs
+(``FeedbackCheck`` swaps ``adaptive.feedback_scan_masked`` for a function
+that counts one K7 launch a call and, after the run, holds every call to
+the plain loop on the same tensors) and in every link node below (each
+node a ``python -m`` process started through ``checked_node``):
+
+26. live I/O: K7 against its plain loop on synthetic inputs (T = 1, 8, 16,
+   37, 256, 1024; batch () and [64]; random, all-False, per-frame and null
+   masks; SNRs on the thresholds, on threshold + hysteresis and one ulp
+   either side, NaN and +-inf; two ladders), ids and state equal; K7's
+   times (profiler) at those T beside its bound and the plain loop's time,
+   the floor of its walk (a launch and T steps of its chain, from the
+   probes of tools/bench_feedback_scan),
+   and the plain loop's device kernels on one F = 8 and one F = 1024 block;
+   sample_link --loopback-test and --duplex-test with both nodes as
+   processes on the card, first at the JAX package's slow tests' settings,
+   then at F = 1024, frame_length 20, 30 dB (>= 8 blocks): CRC-clean,
+   converged, 16QAM (>= 8PSK both ways in the duplex), every sample received,
+   wall ms a block for each node; soak_link over 1e8 samples at F = 1024
+   through 18 dB AWGN, a wandering CFO and +20 ppm SFO (its own criteria,
+   its files under chiprun_out/); multihost --launch and --session, one
+   rank on the card, at 64 streams x 16 frames x 20 steps: every frame
+   decoded, byte exact, nothing lost, seconds a step and the rusage shares.
+
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
 failure exits non-zero before it.
@@ -216,6 +242,7 @@ import contextlib
 import importlib.util
 import io
 import json
+import os
 import shutil
 import sys
 import tempfile
@@ -228,9 +255,11 @@ import torch
 from gr_dtl_tpu_torch.models import adaptive, fec_chain, full_duplex, receiver, session, simplex
 from gr_dtl_tpu_torch.models import streaming, transmitter
 from gr_dtl_tpu_torch.ops import _cuda_build, burst, channel, constellation as cn, ldpc, metrics
-from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda, scans_cuda, sync, sync_cuda, tb_cuda
+from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda, feedback_cuda, scans_cuda, sync, sync_cuda
+from gr_dtl_tpu_torch.ops import tb_cuda
 from gr_dtl_tpu_torch.testbed import monitor, phy_converge
 from gr_dtl_tpu_torch.tools import bench_equalizer as eq_bench
+from gr_dtl_tpu_torch.tools import bench_feedback_scan as k7_bench
 from gr_dtl_tpu_torch.tools import bench_sync_metric as metric_bench
 from gr_dtl_tpu_torch.utils import alist, config as cfgmod, wire_compat
 
@@ -344,13 +373,14 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc each, side by side
     _cuda_build.build_all(sync_cuda.build, scans_cuda.build, tb_cuda.build, equalizer_cuda.build,
-                          phy_converge.build)
+                          feedback_cuda.build, k7_bench.build_bench, phy_converge.build)
     print(f"[build] csrc/sync_metric.cu -> {sync_cuda.library_path().name}, csrc/stream_scans.cu "
           f"-> {scans_cuda.library_path().name}, csrc/tb_ring.cu -> {tb_cuda.library_path().name}, "
-          f"csrc/equalizer.cu -> {equalizer_cuda.library_path().name}, native/phy_converge.cpp (g++) -> "
+          f"csrc/equalizer.cu -> {equalizer_cuda.library_path().name}, csrc/feedback_scan.cu -> "
+          f"{feedback_cuda.library_path().name}, native/phy_converge.cpp (g++) -> "
           f"{phy_converge.library_path().name} in {time.perf_counter() - t0:.2f} s")
     for lib in (sync_cuda.library_path(), scans_cuda.library_path(), tb_cuda.library_path(),
-                equalizer_cuda.library_path()):
+                equalizer_cuda.library_path(), feedback_cuda.library_path()):
         log = lib.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
             if line.strip():
@@ -513,6 +543,8 @@ def main() -> int:
         entry["launches"] += app[key][0]
         entry["launches_per_step"] = entry["launches"] / (scan_blocks + app[key][1])
     tb_kernel["launches"] += app["tb"][0]
+    # ---- 26. slice G: the live-I/O tools and K7 ----
+    k7_entry = live_io_phase(dev, card)
     eq_entry = time_equalizer(dev, card)
     print(card)
     print(json.dumps({"kernels": [{
@@ -525,7 +557,8 @@ def main() -> int:
         "launches_per_step": (launches + launches_coded + stream_launches) / (2 + stream_blocks),
         "max_abs_err": max(max_err, max_err_coded, max_err_stream),
         "ms": timed["kernel_ms"], "ms_by": timed["kernel_ms_by"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}] + scan_kernels + [tb_kernel, eq_entry, wire_entry]}))
+        "bound_by": "bytes", "library_ms": None}] + scan_kernels + [tb_kernel, eq_entry, wire_entry,
+                                                                    k7_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -1506,11 +1539,13 @@ def tx_rx_and_duplex(dev, gen, card) -> tuple:
     for serialize in (False, True):
         dpx = session.StreamDuplex(txcfg, rcfg, txcfg, rcfg, make_chan(30.0, 11), make_chan(5.0, 12),
                                    dev, frames_per_block=F, serialize_readback=serialize)
-        reset_counts()
-        t0 = time.perf_counter()
-        res = [dpx.step() for _ in range(12)]
-        torch.cuda.synchronize()
-        runs[serialize] = (dpx, res, (time.perf_counter() - t0) * 1e3 / 12)
+        with FeedbackCheck(f"StreamDuplex F={F}, serialize_readback={serialize}") as fc:
+            reset_counts()
+            t0 = time.perf_counter()
+            res = [dpx.step() for _ in range(12)]
+            torch.cuda.synchronize()
+            runs[serialize] = (dpx, res, (time.perf_counter() - t0) * 1e3 / 12)
+        K7.add(fc.what, fc.calls, fc.launches, fc.frames, fc.err)
         check(read_counts() == (24, 24, 24), f"duplex: kernel launches {read_counts()} in 12 steps of "
               "two receivers, expected 2 of each a step")
         EQ.counted(24, "StreamDuplex, two receivers a step")
@@ -2127,14 +2162,16 @@ def links_phase(dev, card) -> tuple:
 
     spx = session.StreamSimplex(txcfg, rxcfg, chan_fwd, chan_rev, dev, frames_per_block=F, seed=5)
     spx.tx.send(b"\x55" * 64)
-    reset_counts()
-    t0 = time.perf_counter()
-    history = []
-    for _ in range(n_steps):
-        r = spx.step()
-        check(r is not None, "StreamSimplex stopped")
-        history.append((r["want"], r["applied"], spx.tx.constellation))
-    ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    with FeedbackCheck(f"StreamSimplex F={F}") as fc:
+        reset_counts()
+        t0 = time.perf_counter()
+        history = []
+        for _ in range(n_steps):
+            r = spx.step()
+            check(r is not None, "StreamSimplex stopped")
+            history.append((r["want"], r["applied"], spx.tx.constellation))
+        ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    K7.add(fc.what, fc.calls, fc.launches, fc.frames, fc.err)
     counts = read_counts()
     check(counts == (n_steps,) * 3, f"StreamSimplex: kernel launches {counts} in {n_steps} steps")
     EQ.counted(n_steps, "StreamSimplex")
@@ -3377,6 +3414,402 @@ def app_two_processes(d: Path, dev, card) -> None:
           "two processes: the RX did not decode every frame the TX reported")
     check(torch.device(dev).type != "cuda" or len(built) == 3,
           f"two processes: the cold RX built {built}, not the metric, scan and equalizer libraries")
+
+
+# ---------------------------------------------------------------------------
+# phase 26: slice G, the live-I/O tools (sample_link, soak_link, multihost)
+# and K7, the masked MCS feedback scan as one CUDA launch
+# ---------------------------------------------------------------------------
+
+K7_T = (1, 8, 16, 37, 256, 1024)  # frames a call: the links' blocks, a part chunk and a long run
+K7_BATCH = 64                    # columns of the batched cases
+K7_LADDERS = {"default": None,   # the default ladder, and one whose threshold + hysteresis round
+              "fractional": [[0.0, ["bpsk", "no_fec"]], [7.3, ["qpsk", "no_fec"]],
+                             [15.7, ["psk8", "no_fec"]], [31.3, ["qam16", "no_fec"]],
+                             [31.9, ["qam16", "no_fec"]]]}
+K7_OPS_PER_FRAME = 15            # integer compares and selects a frame of a column
+LINK_SMALL = ["--pdus", "24", "--frames-per-block", "8", "--frame-length", "10", "--snr-db", "30"]
+DUPLEX_SMALL = ["--pdus", "24", "--pdu-bytes", "30", "--frames-per-block", "4", "--frame-length", "10",
+                "--snr-db", "25", "--seed", "3"]
+LINK_F, LINK_PDUS = 1024, 8 * 1024 * 11   # full width: 40-byte PDUs for ~8 blocks of 16QAM frames
+SOAK_SAMPLES = 1e8                # the soak's budget: the tool's pass bar (soak_link.MIN_SAMPLES)
+SOAK_ARGS = ["--frames-per-block", "1024", "--frame-length", "20", "--pipeline-depth", "2",
+             "--stats-every", "4"]
+MULTIHOST = {"streams": 64, "frames_per_block": 16, "n_time": 1, "steps": 20, "frame_length": 4,
+             "warmup": 1}  # BASELINE config 5's scale (MULTIHOST_r05.json) on one card: a 1 x 1 grid
+
+
+class FeedbackLedger:
+    """K7's launches over the counted runs of the paths (one a call of
+    ``adaptive.feedback_scan_masked``, checked at every call) and the
+    largest difference of its comparisons with the plain loop, the
+    synthetic cases' (``err`` alone) included."""
+
+    def __init__(self):
+        self.launches = self.calls = self.frames = self.max_err = 0
+        self.paths = []
+
+    def add(self, what: str, calls: int, launches: int, frames: int, err: int) -> None:
+        check(launches == calls, f"{what}: {launches} K7 launches in {calls} calls, expected one a call")
+        self.launches += launches
+        self.calls += calls
+        self.frames += frames
+        self.paths.append(f"{what}: {calls}")
+        self.compared(err)
+
+    def compared(self, err: int) -> None:
+        self.max_err = max(self.max_err, err)
+
+
+K7 = FeedbackLedger()
+
+
+def k7_against_plain(state, snrs, mask, tables, got_state, got) -> int:
+    """The plain loop on the same inputs, copied to the CPU (on the card it
+    costs ~35 launches a frame; its decisions are the same integers there);
+    returns the largest id or state difference (0 when equal)."""
+    cpu = lambda t: None if t is None else t.cpu()
+    want_state, want = adaptive._feedback_scan_masked_torch(
+        adaptive.FeedbackState(*map(cpu, state)), cpu(snrs), cpu(mask),
+        dict(tables, snr_th=cpu(tables["snr_th"])))
+    return int_err([(got.cpu(), want)] + [(a.cpu(), b) for a, b in zip(got_state, want_state)])
+
+
+class FeedbackCheck:
+    """While active, every ``adaptive.feedback_scan_masked`` call of a path
+    must launch K7 exactly once; its inputs and outputs are kept (the paths
+    never change a tensor in place) and, at exit, held to the plain loop on
+    the same inputs: ids and final state equal.  Deferring the plain loop
+    keeps the path's own timing.  ``required``: the path must make a call."""
+
+    def __init__(self, what: str, required: bool = True):
+        self.what, self.required = what, required
+        self.kept, self.launches, self.err = [], 0, 0
+
+    def __enter__(self):
+        self._orig = adaptive.feedback_scan_masked
+
+        def both(state, snrs_db, mask, tables):
+            n0 = feedback_cuda.feedback_scan_masked_cuda.LAUNCHES
+            got_state, got = self._orig(state, snrs_db, mask, tables)
+            n = feedback_cuda.feedback_scan_masked_cuda.LAUNCHES - n0
+            check(n == 1, f"{self.what}: a feedback_scan_masked call made {n} K7 launches")
+            self.launches += n
+            self.kept.append((state, snrs_db, mask, tables, got_state, got))
+            return got_state, got
+
+        adaptive.feedback_scan_masked = both
+        return self
+
+    def __exit__(self, *exc):
+        adaptive.feedback_scan_masked = self._orig
+        if exc[0] is None:
+            check(not self.required or self.kept, f"{self.what}: the path made no feedback_scan_masked call")
+            self.err = err = max([k7_against_plain(*k) for k in self.kept], default=0)
+            check(err == 0, f"{self.what}: K7 against the plain loop, largest difference {err}")
+            self.frames = sum(k[1].shape[0] for k in self.kept)
+            print(f"[k7] on the path's own tensors, {self.what}: {len(self.kept)} calls, {self.launches} K7 "
+                  f"launches, {self.frames} frames: ids and state equal to the plain loop", flush=True)
+
+    @property
+    def calls(self) -> int:
+        return len(self.kept)
+
+
+def checked_node(argv: list, ledger_dir: str) -> int:
+    """A ``sample_link`` node under :class:`FeedbackCheck`: phase 26's link
+    test modes start their nodes through this (:func:`k7_node_cmd`), so that
+    K7 is held to the plain loop on each node's own tensors.  The node's
+    ledger goes to ``<ledger_dir>/node_<pid>.json``."""
+    from gr_dtl_tpu_torch.tools import sample_link
+
+    role = next(a for a in argv if a in ("--tx", "--rx", "--duplex-a", "--duplex-b"))
+    with FeedbackCheck(f"sample_link node {role}", required=role != "--tx") as fc:
+        sample_link.main(argv)
+    Path(ledger_dir, f"node_{os.getpid()}.json").write_text(json.dumps(
+        {"role": role, "calls": fc.calls, "launches": fc.launches, "frames": fc.frames, "err": fc.err}))
+    return 0
+
+
+def k7_node_cmd(ledger_dir: Path) -> tuple:
+    """The command a checked link node starts with (it is given the node's flags)."""
+    return (sys.executable, "-c", "import sys, chip_smoke; "
+            f"sys.exit(chip_smoke.checked_node(sys.argv[1:], {str(ledger_dir)!r}))")
+
+
+def k7_tables(ladder: str, dev) -> dict:
+    kw = {} if K7_LADDERS[ladder] is None else {"mcs": K7_LADDERS[ladder]}
+    return adaptive.tables_to(adaptive.build_mcs_tables(cfgmod.make_rx_config(None, **kw)), dev)
+
+
+def k7_inputs(T: int, batch: tuple, tables: dict, seed: int, mask_kind: str, dev) -> tuple:
+    """A carried-in state and T frames of each column: runs of 1-9 equal
+    SNRs (long enough to cross decision_th), each a threshold or threshold +
+    hysteresis (their float32 sum) or one ulp either side, NaN, +-inf, or a
+    point of the ladder's range; a random, all-False, per-frame ([T]) or
+    null mask."""
+    rng = np.random.RandomState(seed)
+    th = tables["snr_th"].cpu().numpy()[1:]
+    up = th + np.float32(tables["hysteresis"])
+    edges = [f(v) for v in np.concatenate([th, up])
+             for f in (lambda v: np.nextafter(v, np.float32(-np.inf)), lambda v: v,
+                       lambda v: np.nextafter(v, np.float32(np.inf)))]
+    edges = np.array(edges + [np.nan, np.inf, -np.inf], np.float32)
+    B = int(np.prod(batch, dtype=int))
+    cols = []
+    for _ in range(B):
+        col = []
+        while len(col) < T:
+            v = edges[rng.randint(len(edges))] if rng.rand() < 0.6 else np.float32(rng.uniform(-5, 35))
+            col += [v] * rng.randint(1, 10)
+        cols.append(col[:T])
+    snr = np.ascontiguousarray(np.array(cols, np.float32).T).reshape((T,) + batch)
+    mask = {"null": None, "all_false": np.zeros((T,) + batch, bool), "per_frame": rng.rand(T) > 0.3,
+            "random": rng.rand(T, *batch) > 0.3}[mask_kind]
+    n = tables["n_mcs"]
+    state = adaptive.FeedbackState(*(torch.as_tensor(rng.randint(0, hi, batch).astype(np.int32), device=dev)
+                                     for hi in (n, n, 5)))
+    return (state, torch.as_tensor(snr, device=dev),
+            None if mask is None else torch.as_tensor(mask, device=dev))
+
+
+def k7_vs_plain(dev) -> None:
+    """K7 against its plain loop on synthetic inputs: T = 1 .. 1024, batch
+    () and [64], both ladders, random / all-False / per-frame / null masks;
+    one launch a call, ids and state equal."""
+    n_cases = 0
+    for ladder in K7_LADDERS:
+        tables = k7_tables(ladder, dev)
+        for T in K7_T:
+            for batch in ((), (K7_BATCH,)):
+                for kind in ("random", "all_false", "null") + (("per_frame",) if batch else ()):
+                    seed = T + 7 * len(batch) + 13 * len(kind) + (100 if ladder == "fractional" else 0)
+                    state, snr, mask = k7_inputs(T, batch, tables, seed, kind, dev)
+                    n0 = feedback_cuda.feedback_scan_masked_cuda.LAUNCHES
+                    got_state, got = adaptive.feedback_scan_masked(state, snr, mask, tables)
+                    torch.cuda.synchronize()
+                    check(feedback_cuda.feedback_scan_masked_cuda.LAUNCHES == n0 + 1,
+                          f"K7 T={T} batch={batch}: not one launch")
+                    e = k7_against_plain(state, snr, mask, tables, got_state, got)
+                    K7.compared(e)
+                    check(e == 0, f"K7 against the plain loop, {ladder} T={T} batch={batch} mask {kind}: "
+                          f"largest difference {e}")
+                    n_cases += 1
+    print(f"[k7] kernel vs plain loop on {n_cases} synthetic cases (T = {K7_T}, batch () and [{K7_BATCH}], "
+          f"both ladders, random / all-False / per-frame / null masks, SNRs on the thresholds and "
+          f"threshold + hysteresis and one ulp either side, NaN, +-inf): ids and state equal, one launch "
+          f"a call", flush=True)
+
+
+def time_k7(dev, card) -> dict:
+    """K7's device time (profiler) at T = 1 .. 1024, batch () and [64],
+    beside its bytes bound, the plain loop's time (events) and its device
+    kernels and copies a call at F = 8 and 1024 (profiler)."""
+    tables = k7_tables("default", dev)
+    times = {}
+    for batch in ((), (K7_BATCH,)):
+        for T in K7_T:
+            state, snr, mask = k7_inputs(T, batch, tables, 5, "random", dev)
+            fn = lambda: feedback_cuda.feedback_scan_masked_cuda(
+                state.last, state.cand, state.counter, snr, mask, tables["snr_th"], tables["n_mcs"],
+                tables["hysteresis"], tables["decision_th"])
+            fn()
+            ms = kernel_profiler_ms(fn, "feedback_scan_kernel", 50)
+            B = int(np.prod(batch, dtype=int))
+            nbytes = feedback_cuda.feedback_bytes(T, B, tables["n_mcs"])
+            bound = max(nbytes / HBM_BYTES_PER_S, K7_OPS_PER_FRAME * T * B / FP32_OPS_PER_S) * 1e3
+            plain = lambda: adaptive._feedback_scan_masked_torch(state, snr, mask, tables)
+            plain()
+            plain_ms = cuda_ms(plain, 1 if T * max(B, 1) >= 1024 else 5)
+            times[(T, B)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bytes": nbytes}
+            print(f"[k7-timing] T={T} batch={list(batch)}: kernel {ms * 1e3:.2f} us (profiler), plain loop "
+                  f"{plain_ms:.3f} ms (events), bound {bound * 1e6:.2f} ns for {nbytes} bytes (bytes) ({card})",
+                  flush=True)
+    t1, t16, t1024 = (times[(T, 1)]["ms"] for T in (1, 16, 1024))
+    floor = times["floor"] = k7_bench.step_floor(dev)
+    print(f"[k7-timing] the walk: {t1 * 1e3:.2f} us at T = 1 (a launch and one step), "
+          f"{(t1024 - t16) / 1008 * 1e6:.1f} ns a dependent step from T = 16 to 1024; its floor: a launch "
+          f"{floor['launch_us']:.2f} us (empty kernel) and a step's chain {floor['chain_ns']:.2f} ns "
+          f"(shared-memory load {floor['chase_ns']:.2f} ns, selects {floor['selects_ns']:.2f} ns; SM clock "
+          f"{floor['sm_ghz']:.3f} GHz), so {k7_bench.walk_bound_ms(1024, floor) * 1e3:.2f} us at T = 1024 "
+          f"({card})", flush=True)
+    for T in (8, 1024):  # the plain loop's launches on one block, beside K7's one
+        state, snr, mask = k7_inputs(T, (), tables, 6, "random", dev)
+        _w, busy, n = profiled(lambda: adaptive._feedback_scan_masked_torch(state, snr, mask, tables),
+                               sacrifice=T <= 8)
+        times[("plain_launches", T)] = n
+        print(f"[k7] the plain loop on one F = {T} block: {n} device kernels and copies ({n / T:.1f} a "
+              f"frame), device busy {busy:.3f} ms; K7: 1 launch", flush=True)
+    return times
+
+
+def link_run(kind: str, flags: list, dev, d: Path) -> tuple:
+    """A ``sample_link`` test mode, its nodes started through
+    :func:`k7_node_cmd` with their ledgers in ``d``: (report, wall s, the
+    nodes' K7 ledgers)."""
+    from gr_dtl_tpu_torch.tools import sample_link
+
+    d.mkdir()
+    args = sample_link.build_parser().parse_args([*flags, "--device", str(dev)])
+    fn = sample_link.loopback_test if kind == "loopback" else sample_link.duplex_test
+    t0 = time.perf_counter()
+    res = fn(args, node_cmd=k7_node_cmd(d))
+    wall = time.perf_counter() - t0
+    return res, wall, [json.loads(f.read_text()) for f in sorted(d.glob("node_*.json"))]
+
+
+def link_phase(dev, card) -> None:
+    """sample_link --loopback-test and --duplex-test on the card, at the
+    JAX package's slow tests' settings (the two at once: their nodes' start
+    is most of their time) and then at full width (F = 1024, frame_length
+    20, one at a time); K7 checked in every node."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    d = Path(tempfile.mkdtemp(prefix="k7_nodes_"))
+    full = ["--frames-per-block", str(LINK_F), "--frame-length", str(FRAME_LENGTH), "--pdus", str(LINK_PDUS)]
+    runs = [("loopback", ["--loopback-test", *LINK_SMALL]), ("duplex", ["--duplex-test", *DUPLEX_SMALL]),
+            ("loopback", ["--loopback-test", *full, "--snr-db", "30"]),
+            # 30 dB: at 25 dB both packages lose 1-2% of 16QAM frames of frame_length
+            # 20 (the slow test's 25 dB is at frame_length 10)
+            ("duplex", ["--duplex-test", *full, "--snr-db", "30"])]
+    try:
+        # the test modes print their reports: one redirect around the threads (a redirect is
+        # process-wide, so two threads' own would restore each other's buffer)
+        with contextlib.redirect_stdout(io.StringIO()):
+            with ThreadPoolExecutor(2) as pool:
+                small = [pool.submit(link_run, kind, flags, dev, d / str(i))
+                         for i, (kind, flags) in enumerate(runs[:2])]
+                done = [f.result() for f in small]
+            done += [link_run(kind, flags, dev, d / str(i + 2)) for i, (kind, flags) in enumerate(runs[2:])]
+        for (kind, flags), (res, wall, nodes) in zip(runs, done):
+            F = int(flags[flags.index("--frames-per-block") + 1])
+            if kind == "loopback":
+                tx, rx = res["tx"], res["rx"]
+                check(res["crc_clean"] and res["adaptation_converged"] and tx["final_cnst"] == QAM16
+                      and rx["samples_received"] == tx["samples_sent"],
+                      f"sample_link loopback F={F}: {json.dumps(res)}")
+                check(F < LINK_F or tx["blocks"] >= 8, f"sample_link loopback F={F}: {tx['blocks']} blocks")
+                per_node = {"tx": tx, "rx": rx}
+            else:
+                check(res["crc_clean_ab"] and res["crc_clean_ba"] and res["adaptation_converged_ab"]
+                      and res["adaptation_converged_ba"]
+                      and all(res[n]["final_tx_cnst"] >= 3 and res[n]["want_hist"] == sorted(res[n]["want_hist"])
+                              for n in "ab"), f"sample_link duplex F={F}: {json.dumps(res)}")
+                per_node = {"a": res["a"], "b": res["b"]}
+            check(all(torch.device(n["device"]).type == dev.type for n in per_node.values()),
+                  f"sample_link {kind} F={F}: a node did not run on {dev}")
+            calls = sum(n["calls"] for n in nodes)
+            K7.add(f"sample_link {kind} F={F}", calls, sum(n["launches"] for n in nodes),
+                   sum(n["frames"] for n in nodes), max(n["err"] for n in nodes))
+            check(len(nodes) == 2 and calls > 0, f"sample_link {kind} F={F}: node ledgers {nodes}")
+            print(f"[link] sample_link --{kind}-test F={F}: " + "; ".join(
+                f"{k} {v['blocks']} blocks, {v['wall_ms_per_block']} ms a block wall, {v['work_ms_per_block']} "
+                f"of its own work" for k, v in per_node.items())
+                + f"; {wall:.1f} s in all; K7 {calls} calls ({[n['calls'] for n in nodes]} by node), one launch "
+                f"each, equal to the plain loop; {json.dumps({k: v for k, v in res.items() if k not in per_node})} "
+                f"({card})", flush=True)
+            if kind == "loopback":
+                print(f"[link]   tx {json.dumps(res['tx'])}; rx {json.dumps(res['rx'])}", flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def soak_phase(dev, card) -> dict:
+    """soak_link on the card: 1e8 samples through the impairment relay at
+    F = 1024, its own criteria; files under chiprun_out/."""
+    from gr_dtl_tpu_torch.tools import soak_link
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    jsonl, out = out_dir / "soak_slice_g.jsonl", out_dir / "soak_slice_g.json"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        try:
+            soak_link.main(["--device", str(dev), "--samples", str(SOAK_SAMPLES), *SOAK_ARGS,
+                            "--jsonl", str(jsonl), "--out", str(out)])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    wall = time.perf_counter() - t0
+    check(code == 0 and out.exists(), f"soak_link exited {code}")
+    summary = json.loads(out.read_text())
+    check(summary["pass"] and summary["records"] >= 8 and summary["samples"] >= soak_link.MIN_SAMPLES,
+          f"soak_link: {json.dumps(summary)}")
+    print(f"[soak] soak_link {SOAK_SAMPLES:g} samples, {' '.join(SOAK_ARGS)}, the tool's impairments (18 dB, "
+          f"CFO 0.35 subcarriers over 2e7 samples, +20 ppm): {wall:.1f} s in all ({card}); {json.dumps(summary)}",
+          flush=True)
+    return summary
+
+
+def multihost_phase(dev, card) -> None:
+    """multihost --launch and --session, one rank on the one card (a 1 x 1
+    grid), at BASELINE config 5's scale through the GR_DTL_MH_* knobs."""
+    from gr_dtl_tpu_torch.tools import multihost
+
+    saved = {k: os.environ.get(f"GR_DTL_MH_{k.upper()}") for k in MULTIHOST}
+    os.environ.update({f"GR_DTL_MH_{k.upper()}": str(v) for k, v in MULTIHOST.items()})
+    try:
+        runs = {}
+        for mode in ("--launch", "--session"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                multihost.main([mode, "--procs", "1", "--devices-per-proc", "1", "--device", str(dev)])
+            runs[mode] = (json.loads(buf.getvalue()), time.perf_counter() - t0)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(f"GR_DTL_MH_{k.upper()}", None)
+            else:
+                os.environ[f"GR_DTL_MH_{k.upper()}"] = v
+    (res, wall), (ses, wall_s) = runs["--launch"], runs["--session"]
+    w = res["workers"][0]
+    S, F = MULTIHOST["streams"], MULTIHOST["frames_per_block"]
+    check(res["crc_ok_all"] and w["frames_per_step"] == S * F and torch.device(w["device"]).type == dev.type,
+          f"multihost --launch: {json.dumps(res)}")
+    sw = ses["workers"][0]
+    check(ses["byte_exact_all"] and sw["chained_blocks"] == 3 and sw["lost_frames"] == 0
+          and sw["frames_decoded"] == S * 2 * F, f"multihost --session: {json.dumps(ses)}")
+    base, half = res["single_process_baseline"], res["half_workload_baseline"]
+    print(f"[multihost] --launch --procs 1 on {w['device']} (a 1 x 1 grid, S={S}, F={F}, "
+          f"frame_length {MULTIHOST['frame_length']}, {MULTIHOST['steps']} steps): every frame passed CRC; "
+          f"{w['sec_per_step'] * 1e3:.3f} ms a step ({w['frames_per_step']} frames, {w['samples_per_step']} "
+          f"samples), CPU {w['cpu_sec_per_step'] * 1e3:.3f} ms a step, utilization {w['cpu_utilization']:.3f}; "
+          f"strong base {base['sec_per_step'] * 1e3:.3f} ms (utilization {base['cpu_utilization']:.3f}), "
+          f"half-workload base {half['sec_per_step'] * 1e3:.3f} ms; efficiencies "
+          f"{res['efficiency_vs_single_process']} / {res['efficiency_weak_scaling']}; {wall:.1f} s in all "
+          f"({card})", flush=True)
+    print(f"[multihost] --session --procs 1: {sw['frames_decoded']} frames of {S} streams over 3 chained "
+          f"blocks, byte exact, lost {sw['lost_frames']}; {wall_s:.1f} s in all ({card})", flush=True)
+
+
+def live_io_phase(dev, card) -> dict:
+    """Phase 26.  Returns K7's entry of the kernels line."""
+    t_phase = time.perf_counter()
+    k7_vs_plain(dev)
+    times = time_k7(dev, card)
+    link_phase(dev, card)
+    soak_phase(dev, card)
+    multihost_phase(dev, card)
+    check(K7.launches > 0, "no path launched K7")
+    print(f"[k7] counted on the paths: {K7.launches} launches in {K7.calls} calls, {K7.frames} frames "
+          f"({'; '.join(K7.paths)})", flush=True)
+    print(f"[live-io] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    main_t, floor = times[(LINK_F, 1)], times["floor"]
+    return {"name": "feedback_scan_masked", "route": "cuda", "source": "gr_dtl_tpu_torch/csrc/feedback_scan.cu",
+            "replaces": "gr_dtl_tpu/models/adaptive.py:102 (lax.scan of feedback_step), "
+                        "gr_dtl_tpu/models/session.py:673 (the masked scan)",
+            "launches": K7.launches, "launches_per_step": K7.launches / max(1, K7.calls),
+            "max_abs_err": K7.max_err,
+            "ms": main_t["ms"], "ms_by": "profiler", "plain_ms": main_t["plain_ms"],
+            "bound_ms": main_t["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "binds": "the walk: a launch and T dependent steps",
+            "walk_bound_ms": k7_bench.walk_bound_ms(LINK_F, floor), "launch_floor_ms": floor["launch_us"] / 1e3,
+            "step_floor_ns": floor["chain_ns"], "step_ns": (main_t["ms"] - times[(16, 1)]["ms"]) / (LINK_F - 16) * 1e6,
+            "at": {"T": LINK_F, "batch": []},
+            "times_us": {f"T={T},B={B}": round(v["ms"] * 1e3, 3) for (T, B), v in
+                         ((k, v) for k, v in times.items() if isinstance(k[0], int))},
+            "plain_launches": {str(T): times[("plain_launches", T)] for T in (8, 1024)}}
 
 
 def meshmod_cpu():

@@ -10,10 +10,12 @@ confirmation counter (port of gr_dtl_tpu/models/adaptive.py).
   ``decision_th`` times in a row (counter reset on every change),
 - defaults: hysteresis 1 dB, decision_th 5.
 
-The decision is sequential across frames: :func:`feedback_scan` is a loop
-over the frame sequence with tensor state (no host synchronisation), and
-the state's batch shape takes the place of the reference's ``vmap`` over
-streams.
+The decision is sequential across frames: :func:`feedback_scan` walks the
+frame sequence with tensor state (no host synchronisation), and the state's
+batch shape takes the place of the reference's ``vmap`` over streams.  A CPU
+tensor takes the plain PyTorch loop (``_feedback_scan_masked_torch``); a
+CUDA tensor takes the CUDA kernel (``ops/feedback_cuda``, K7: one launch a
+call) or raises.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from gr_dtl_tpu_torch.ops import feedback_cuda
 
 __all__ = ["FeedbackState", "build_mcs_tables", "tables_from_reference", "tables_to",
            "initial_state", "feedback_state_from_reference", "feedback_state_to_numpy",
@@ -129,9 +133,25 @@ def feedback_scan_masked(state: FeedbackState, snrs_db: torch.Tensor,
     """:func:`feedback_scan` where a frame with ``mask`` False (not
     decoded) leaves the decision state as it was and reports the active
     MCS id ``state.last``.  ``mask``: [T] (or [T, ...batch]) bool, or None
-    for every frame.  The streaming sessions' fixed-length scan."""
+    for every frame.  The streaming sessions' fixed-length scan.
+
+    On a CUDA tensor this is one launch of K7 (``state`` int32, ``snrs_db``
+    float32, ``mask`` bool); on a CPU tensor the plain loop."""
     if not isinstance(tables["snr_th"], torch.Tensor):
         tables = tables_to(tables, snrs_db.device)  # once, not once a frame
+    if snrs_db.device.type == "cpu":
+        return _feedback_scan_masked_torch(state, snrs_db, mask, tables)
+    out, mcs = feedback_cuda.feedback_scan_masked_cuda(
+        state.last, state.cand, state.counter, snrs_db.contiguous(),
+        None if mask is None else mask.contiguous(), tables["snr_th"], tables["n_mcs"],
+        tables["hysteresis"], tables["decision_th"])
+    return FeedbackState(out[0], out[1], out[2]), mcs
+
+
+def _feedback_scan_masked_torch(state: FeedbackState, snrs_db: torch.Tensor,
+                                mask: torch.Tensor | None, tables):
+    """Plain PyTorch :func:`feedback_scan_masked` (any device): a loop over
+    the frames with tensor state, ~35 kernel launches a frame."""
     mcs = []
     for i in range(snrs_db.shape[0]):
         ns, m = feedback_step(state, snrs_db[i], tables)

@@ -5,6 +5,7 @@ worker processes start from the port alone: their module, imported in a
 fresh interpreter, brings in neither, and a spawned grid runs with both
 blocked in its parent."""
 
+import json
 import os
 import subprocess
 import sys
@@ -62,6 +63,13 @@ from gr_dtl_tpu_torch.tools import run_modem
 with contextlib.redirect_stdout(io.StringIO()) as out:
     run_modem.main(["loopback", "--frames", "2", "--frame-length", "4", "--json", "--cpu"])
 assert '"crc_ok_rate": 1.0' in out.getvalue(), out.getvalue()
+# the MCS decision over a block on the CPU takes its plain loop (no K7 launch)
+from gr_dtl_tpu_torch.models import adaptive
+from gr_dtl_tpu_torch.ops import feedback_cuda
+cfg = chip_smoke.cfgmod.make_rx_config(None, frame_length=4)
+_, mcs = adaptive.feedback_scan(adaptive.initial_state(0, (2,), "cpu"), torch.full((8, 2), 30.0),
+                                adaptive.build_mcs_tables(cfg))
+assert mcs.shape == (8, 2) and feedback_cuda.feedback_scan_masked_cuda.LAUNCHES == 0
 print("imported", len(names), "modules:", *names)
 """
 
@@ -73,7 +81,7 @@ def test_port_imports_without_jax_or_nvcc():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 53, proc.stdout  # every module of slices A-F, the testbed, wire compat
+    assert n >= 57, proc.stdout  # every module of slices A-G, the testbed, wire compat
     for name in ("utils.alist", "ops.ldpc", "models.fec_chain", "ops.constellation",
                  "models.receiver", "models.transmitter", "ops.sync_cuda", "ops._cuda_build",
                  "ops.scans_cuda", "ops.metrics", "models.adaptive", "models.streaming",
@@ -84,7 +92,8 @@ def test_port_imports_without_jax_or_nvcc():
                  "parallel._coll", "parallel.stream", "parallel.session", "parallel.launch",
                  "entry", "testbed.sample_io", "testbed.phy_converge", "tools._cli",
                  "tools.run_modem", "tools.replay", "tools.ber", "tools.ber_curve",
-                 "tools.tun_bridge", "tools.stats", "tools.monitor_collector"):
+                 "tools.tun_bridge", "tools.stats", "tools.monitor_collector",
+                 "ops.feedback_cuda", "tools.sample_link", "tools.soak_link", "tools.multihost"):
         assert f"gr_dtl_tpu_torch.{name}" in proc.stdout.split(), name
 
 
@@ -126,3 +135,42 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+# a sitecustomize that makes every import of JAX or the JAX package fail, in
+# a process and in every process it starts (they inherit PYTHONPATH)
+_BLOCKER = """import sys
+for blocked in ("jax", "jaxlib", "gr_dtl_tpu"):
+    sys.modules[blocked] = None
+"""
+
+
+def test_link_tools_run_as_processes_without_jax(tmp_path):
+    """The three live-I/O tools run their test modes as ``python -m``
+    processes, which start node, daemon and rank processes of their own,
+    with every import of ``jax`` or ``gr_dtl_tpu`` failing in all of them."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCKER)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(site), str(ROOT)]))
+    env.pop("JAX_COORDINATOR", None)
+    runs = {
+        "sample_link": ["--loopback-test", "--pdus", "4", "--frames-per-block", "2",
+                        "--frame-length", "4", "--cpu"],
+        "soak_link": ["--cpu", "--samples", "1e5", "--frames-per-block", "8", "--stats-every", "2",
+                      "--jsonl", str(tmp_path / "s.jsonl"), "--out", str(tmp_path / "s.json")],
+        "multihost": ["--session", "--procs", "1", "--devices-per-proc", "2", "--streams", "2",
+                      "--frames-per-block", "4", "--n-time", "2", "--frame-length", "4", "--cpu"],
+    }
+    procs = {name: subprocess.Popen([sys.executable, "-m", f"gr_dtl_tpu_torch.tools.{name}", *argv],
+                                    cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, argv in runs.items()}
+    outs = {name: p.communicate(timeout=300)[0] for name, p in procs.items()}
+    for name, p in procs.items():  # the short soak misses only the tool's 1e8-sample bar
+        assert p.returncode == (1 if name == "soak_link" else 0), f"{name}:\n{outs[name][-4000:]}"
+    assert '"crc_clean": true' in outs["sample_link"]
+    soak = json.loads((tmp_path / "s.json").read_text())
+    assert soak["pass"] is False and 1e5 <= soak["samples"] < 1e8
+    assert soak["crc_rate_of_decoded"] >= 0.98 and soak["lost_frame_rate"] <= 0.02
+    assert '"byte_exact_all": true' in outs["multihost"]
