@@ -233,6 +233,30 @@ node a ``python -m`` process started through ``checked_node``):
    rank on the card, at 64 streams x 16 frames x 20 steps: every frame
    decoded, byte exact, nothing lost, seconds a step and the rusage shares.
 
+And slice H, the measuring tools and the LDPC leftovers (no new kernel):
+
+27. the LDPC leftovers: ``ldpc.decode``, ``decode_mm_twopass`` (default
+   bucket and 64) and ``decode_mm(bf16=True)`` on CUDA tensors against the
+   same functions on the CPU, 2048 codewords of the n=300 code in three
+   regimes (clean: equal; knee and waterfall: ok equal, hard equal where
+   both are ok, iteration counts parted on at most 1% of rows), twopass
+   against decode_mm on the card (same ok and message bits); then the
+   seven tools' ``main`` in process on the card at full width, each run
+   with every launch count set to 0 just before it and checked after
+   (``AppLedger``: one metric launch a receive step, four equalizer, the two
+   scans a stream block; none on the BP benches): bench_fec 1024 (CRC
+   rate 1.0 at 25 dB, BP and bf16 ok rates 1.0), profile_fec_breakdown
+   1024 (coded and uncoded CRC rates 1.0, as the JAX tool's on the CPU),
+   bench_twopass and bench_bf16_ab at 2048 codewords (equal ok rates, 1.0
+   clean), bench_bank_switch at 1024 codewords and 1..32 codes (every ok
+   rate 1.0; the crossover printed), bench_stream F = 16 / 64 / 256 / 1024
+   with readback, --mega 16x16 and --ingest, its duplex rows under
+   ``FeedbackCheck`` (K7 held to its plain loop; every frame sent arrives
+   with its header), and --device-stream at F = 1024 (every row finds
+   frames and is CRC-clean), profile_rx at B = 2048 and coded B = 1024
+   (the trace parses and holds ``sc_metric_kernel`` and
+   ``equalizer_kernel``).  Their launches join the kernels line's counts.
+
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
 failure exits non-zero before it.
@@ -258,6 +282,7 @@ from gr_dtl_tpu_torch.ops import _cuda_build, burst, channel, constellation as c
 from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda, feedback_cuda, scans_cuda, sync, sync_cuda
 from gr_dtl_tpu_torch.ops import tb_cuda
 from gr_dtl_tpu_torch.testbed import monitor, phy_converge
+from gr_dtl_tpu_torch.tools import _timing
 from gr_dtl_tpu_torch.tools import bench_equalizer as eq_bench
 from gr_dtl_tpu_torch.tools import bench_feedback_scan as k7_bench
 from gr_dtl_tpu_torch.tools import bench_sync_metric as metric_bench
@@ -294,14 +319,9 @@ smi = metric_bench.smi
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call of fn over reps back-to-back calls, by CUDA events."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean ms per call of fn over reps back-to-back calls, by CUDA events
+    (the measuring tools' timer, ``tools/_timing.window_ms``)."""
+    return _timing.window_ms(fn, reps, "cuda")
 
 
 def make_traffic(tcfg, n: int, dev, gen: torch.Generator):
@@ -545,6 +565,14 @@ def main() -> int:
     tb_kernel["launches"] += app["tb"][0]
     # ---- 26. slice G: the live-I/O tools and K7 ----
     k7_entry = live_io_phase(dev, card)
+    # ---- 27. slice H: the measuring tools and the LDPC leftovers ----
+    h = slice_h_phase(dev, card)
+    launches += h["k1"][0]
+    stream_blocks += h["k1"][1]
+    for entry, key in zip(scan_kernels, ("lock", "acct")):
+        entry["launches"] += h[key][0]
+        entry["launches_per_step"] = entry["launches"] / (scan_blocks + app[key][1] + h[key][1])
+    k7_entry.update(launches=K7.launches, launches_per_step=K7.launches / K7.calls, max_abs_err=K7.max_err)
     eq_entry = time_equalizer(dev, card)
     print(card)
     print(json.dumps({"kernels": [{
@@ -3106,37 +3134,48 @@ def sync_device(dev) -> None:
         torch.cuda.synchronize()
 
 
+def counted_run(dev, tool, argv: list) -> tuple:
+    """A tool's ``main(argv)`` in this process, its standard output kept,
+    with every launch count set to 0 just before it: (its result, the dict
+    ``main`` returns or else the JSON of its last line; wall ms; counts)."""
+    reset_counts()
+    buf = io.StringIO()
+    sync_device(dev)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = tool.main([str(a) for a in argv])
+    sync_device(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    res = ret if isinstance(ret, dict) else json.loads(buf.getvalue().strip().splitlines()[-1])
+    return res, ms, app_counts()
+
+
 class AppLedger:
-    """The app phase's counted runs: a tool's ``main(argv)`` with every
-    launch count set to 0 just before it and read just after, held to the
-    launches a receive step (or block, or round) of that mode gives each
-    kernel, times the steps the run took."""
+    """Counted runs of the app and tool phases: a tool's ``main(argv)``
+    with every launch count set to 0 just before it and read just after,
+    held to the launches a receive step (or block, or round) of that mode
+    gives each kernel, times the steps the run took.  ``steps`` may be a
+    function of the tool's result; the equalizer's launches are booked as
+    receive steps of four."""
 
-    def __init__(self, dev, card: str):
-        self.dev, self.card = dev, card
-        self.totals = {k: [0, 0] for k in APP_KERNELS[:4]}  # launches, steps in which they are due
+    def __init__(self, dev, card: str, tag: str):
+        self.dev, self.card, self.tag = dev, card, tag
+        # launches, launches due (one a step for the metric and the scans)
+        self.totals = {k: [0, 0] for k in APP_KERNELS[:4]}
 
-    def run(self, what: str, tool, argv: list, steps: int, per_step: dict):
-        reset_counts()
-        buf = io.StringIO()
-        sync_device(self.dev)
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            tool.main([str(a) for a in argv])
-        sync_device(self.dev)
-        ms = (time.perf_counter() - t0) * 1e3
-        counts = app_counts()
-        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    def run(self, what: str, tool, argv: list, steps, per_step: dict):
+        res, ms, counts = counted_run(self.dev, tool, argv)
+        steps = steps(res) if callable(steps) else steps
         want = {k: per_step.get(k, 0) * steps for k in APP_KERNELS}
-        print(f"[app] {what}: {ms:.1f} ms wall ({self.card}), launches {counts} in {steps} steps; "
+        print(f"[{self.tag}] {what}: {ms:.1f} ms wall ({self.card}), launches {counts} in {steps} steps; "
               f"{json.dumps(res)}", flush=True)
-        check(counts == want, f"app layer, {what}: launches {counts}, expected {want}")
-        if per_step.get("eq"):
-            EQ.counted(steps, f"app layer, {what}", per_step["eq"])
+        check(counts == want, f"[{self.tag}] {what}: launches {counts}, expected {want}")
+        if want["eq"]:
+            EQ.counted(want["eq"] // EQ_PER_STEP, f"[{self.tag}] {what}")
         for k in APP_KERNELS[:4]:
-            if per_step.get(k):
+            if want[k]:
                 self.totals[k][0] += counts[k]
-                self.totals[k][1] += steps
+                self.totals[k][1] += want[k]
         return res, ms
 
 
@@ -3160,7 +3199,7 @@ def app_phase(dev, card) -> dict:
     t_phase = time.perf_counter()
     d = Path(tempfile.mkdtemp(prefix="app_layer_"))
     try:
-        app = AppLedger(dev, card)
+        app = AppLedger(dev, card, "app")
         _app_runs(app, d, dev, card)
     finally:
         shutil.rmtree(d, ignore_errors=True)
@@ -3810,6 +3849,165 @@ def live_io_phase(dev, card) -> dict:
             "times_us": {f"T={T},B={B}": round(v["ms"] * 1e3, 3) for (T, B), v in
                          ((k, v) for k, v in times.items() if isinstance(k[0], int))},
             "plain_launches": {str(T): times[("plain_launches", T)] for T in (8, 1024)}}
+
+
+# ---------------------------------------------------------------------------
+# phase 27: slice H, the measuring tools and the LDPC leftovers
+# ---------------------------------------------------------------------------
+
+H_CW = 2048  # codewords of the n=300 code in the LDPC leftovers' checks
+H_REGIMES = {"clean": (4.0, 0.5), "knee": (1.6, 1.0), "waterfall": (1.3, 1.0)}  # LLR amplitude, sigma
+H_ITERS_PARTED = 0.01  # share of rows whose iteration counts may part, card against CPU, off the clean regime
+H_BANK_SIZES = "1,2,4,8,16,32"
+H_B, H_B_FEC, H_BANK_CW = 2048, 1024, 1024  # the tools' batches: uncoded, coded, bank codewords
+H_STREAM = ("16,64,256,1024", 1024, "16x16", 12)  # bench_stream: sizes, --device-stream size, --mega, --blocks
+
+
+def ldpc_leftovers(dev) -> None:
+    """``decode``, ``decode_mm_twopass`` (default bucket and 64) and
+    ``decode_mm`` with bf16 on CUDA tensors against the same functions on
+    the CPU, at 2048 codewords of the n=300 code in three regimes of seeded
+    numpy LLRs.  Clean: every output equal.  Knee and waterfall: ``ok``
+    equal on every row, ``hard`` on every row both sides mark ok, and the
+    iteration counts parted on at most 1% of the rows (tanh, log, exp and
+    atanh on the card differ from the CPU's by ulps).  Then twopass against
+    decode_mm on the card: the same ``ok`` and message bits wherever ok."""
+    d = ldpc.build_ldpc(alist.load_alist(str(ROOT / "examples" / "n_0300_k_0152.alist")))
+    codes = {"cpu": ldpc.ldpc_from_reference(d, "cpu"), "card": ldpc.ldpc_from_reference(d, dev)}
+    rng = np.random.RandomState(SEED + 27)
+    cw = ldpc.encode(torch.as_tensor(rng.randint(0, 2, (H_CW, d["K"])).astype(np.float32)),
+                     codes["cpu"]).numpy().astype(np.float32)
+    variants = {"decode": lambda x, c: ldpc.decode(x, c),
+                "decode_mm_twopass": lambda x, c: ldpc.decode_mm_twopass(x, c),
+                "decode_mm_twopass bucket=64": lambda x, c: ldpc.decode_mm_twopass(x, c, bucket=64),
+                "decode_mm bf16": lambda x, c: ldpc.decode_mm(x, c, 15, bf16=True)}
+    for regime, (amp, sigma) in H_REGIMES.items():
+        llr = ((1.0 - 2.0 * cw) * amp + rng.randn(*cw.shape) * sigma).astype(np.float32)
+        x = {"cpu": torch.as_tensor(llr), "card": torch.as_tensor(llr, device=dev)}
+        for name, fn in variants.items():
+            t0 = time.perf_counter()
+            hard, iters, ok = (t.cpu().numpy() for t in fn(x["card"], codes["card"]))
+            ms = (time.perf_counter() - t0) * 1e3
+            hard0, iters0, ok0 = (t.numpy() for t in fn(x["cpu"], codes["cpu"]))
+            both = ok & ok0
+            n_hard = int((hard != hard0).any(1).sum())
+            n_iters = int((iters != iters0).sum())
+            print(f"[slice-h] {name}, {regime} ({amp}, {sigma}), {H_CW} codewords: card vs CPU: ok rate "
+                  f"{ok.mean():.4f} (CPU {ok0.mean():.4f}), ok parted on {int((ok != ok0).sum())} rows, hard on "
+                  f"{n_hard} rows ({int((hard != hard0).any(1)[both].sum())} of them ok on both), iterations on "
+                  f"{n_iters}; card call {ms:.1f} ms wall", flush=True)
+            what = f"{name} at the {regime} regime, card vs CPU"
+            if regime == "clean":
+                check(n_hard == n_iters == 0 and (ok == ok0).all() and ok.all(), f"{what}: not equal")
+                continue
+            check((ok == ok0).all(), f"{what}: ok parted")
+            check((hard[both] == hard0[both]).all(), f"{what}: hard bits of rows ok on both parted")
+            check(n_iters <= H_ITERS_PARTED * H_CW, f"{what}: iteration counts parted on {n_iters} rows")
+        hard_mm, _, ok_mm = ldpc.decode_mm(x["card"], codes["card"])
+        for bucket in (None, 64):
+            hard_tp, _, ok_tp = ldpc.decode_mm_twopass(x["card"], codes["card"], bucket=bucket)
+            check(torch.equal(ok_mm, ok_tp) and torch.equal(hard_mm[ok_mm][:, d["M"]:], hard_tp[ok_tp][:, d["M"]:]),
+                  f"twopass (bucket {bucket}) against decode_mm on the card at the {regime} regime")
+
+
+def stream_block_steps(res: dict) -> int:
+    """Block steps a bench_stream run took, its warm-ups included."""
+    from gr_dtl_tpu_torch.tools import bench_stream as bs
+    n = 0
+    for r in res["stream_rx"] + res["stream_ingest"]:
+        if r["mode"] == "ingest-cost":
+            continue
+        warm = bs.MEGA_WARMUP if r["mode"].startswith("mega") else bs.WARMUP
+        n += (warm + r["reps"] * r.get("timed_blocks", r.get("timed_dispatches"))) * r.get("blocks_per_dispatch", 1)
+    return n + sum(2 * (bs.DUPLEX_WARMUP + r["steps"]) for r in res["stream_duplex"])
+
+
+def slice_h_phase(dev, card) -> dict:
+    """Phase 27.  Returns, for the kernels line, the metric's and the scans'
+    launches over the phase's counted runs and the steps they span."""
+    from gr_dtl_tpu_torch.tools import (bench_bank_switch, bench_bf16_ab, bench_fec, bench_stream,
+                                        bench_twopass, profile_fec_breakdown, profile_rx)
+
+    t_phase = time.perf_counter()
+    ldpc_leftovers(dev)
+    print(f"[slice-h] LDPC leftovers card vs CPU: {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    runs = AppLedger(dev, card, "slice-h")
+    on = ["--device", str(dev)]
+    per_rx = {"k1": 1, "eq": EQ_PER_STEP}  # a receive step
+    per_block = {"k1": 1, "lock": 1, "acct": 1, "eq": EQ_PER_STEP}  # a stream block
+
+    steps = 1 + 3 * 8  # a measurement: a warm-up step and three windows of eight
+    res, _ = runs.run(f"bench_fec {H_B_FEC}", bench_fec, [H_B_FEC, "--reps", 3, "--iters", 8, *on],
+                      len(bench_fec.SNRS_DB) * steps, per_rx)
+    check(res["coded_snr_sweep"][0]["crc_rate"] == 1.0 and res["extra"]["bp_ok_rate"] == 1.0
+          and res["bf16_ab"]["bp_ok_rate_bf16"] == 1.0, f"bench_fec: {res}")
+    sweep = ", ".join(f"{p['snr_db']:g} dB {p['step_ms']:.2f} ms (CRC {p['crc_rate']:.4f}, BP iterations "
+                      f"{p['avg_bp_iters']:.2f})" for p in res["coded_snr_sweep"])
+    print(f"[slice-h] bench_fec: coded step B={H_B_FEC} at {sweep}; raw BP 2048 codewords {res['extra']['bp_step_ms']:.3f} ms "
+          f"= {res['ldpc_info_mbps']:.1f} Mbit/s, bf16 {res['bf16_ab']['bp_step_ms_bf16']:.3f} ms ({card})", flush=True)
+
+    res, _ = runs.run(f"profile_fec_breakdown --frames {H_B_FEC}", profile_fec_breakdown,
+                      ["--frames", H_B_FEC, "--reps", 3, "--iters", 8, *on],
+                      steps, {"k1": 4, "eq": 3 * EQ_PER_STEP})  # detect, then three receive steps
+    # the JAX tool at these settings on the CPU: 1.0 and 1.0
+    check(res["coded_crc_rate"] == 1.0 and res["uncoded_crc_rate"] == 1.0, f"profile_fec_breakdown: {res}")
+
+    for name, tool, variants in (("bench_twopass", bench_twopass, ("mm", "twopass")),
+                                 ("bench_bf16_ab", bench_bf16_ab, ("f32", "bf16"))):
+        res, _ = runs.run(f"{name} --cw {H_CW} --reps 5", tool, ["--cw", H_CW, "--reps", 5, *on], 0, {})
+        for regime, r in res["regimes"].items():
+            a, b = (r[v] for v in variants)
+            print(f"[slice-h] {name} {regime}: {variants[0]} {a['median_ms']:.3f} ms (ok {a['ok_rate']:.4f}, "
+                  f"iterations {a['avg_iters']:.2f}), {variants[1]} {b['median_ms']:.3f} ms (ok {b['ok_rate']:.4f}, "
+                  f"iterations {b['avg_iters']:.2f}); windows {a['ms']} / {b['ms']} ({card})", flush=True)
+            check(a["ok_rate"] == b["ok_rate"], f"{name} {regime}: ok rates {a['ok_rate']} and {b['ok_rate']}")
+        check(res["regimes"]["clean"][variants[0]]["ok_rate"] == 1.0, f"{name}: clean regime not all ok")
+
+    res, _ = runs.run(f"bench_bank_switch --codewords {H_BANK_CW} --sizes {H_BANK_SIZES}", bench_bank_switch,
+                      ["--codewords", H_BANK_CW, "--sizes", H_BANK_SIZES, *on], 0, {})
+    for r in res["rows"]:
+        check(r["mm_ok_rate"] == r["gather_ok_rate"] == 1.0, f"bench_bank_switch: {r}")
+    print(f"[slice-h] bank decoders at {H_BANK_CW} codewords: " + ", ".join(
+        f"{r['n_codes']} codes mm {r['mm_ms']:.2f} / gather {r['gather_ms']:.2f} ms" for r in res["rows"])
+          + f"; crossover {res['measured_crossover_n_codes']} codes (fec_chain.BANK_MM_MAX_CODES = "
+          f"{fec_chain.BANK_MM_MAX_CODES}) ({card})", flush=True)
+
+    sizes, f_dev, mega, blocks = H_STREAM
+    with FeedbackCheck("bench_stream duplex") as fc:
+        res, _ = runs.run(f"bench_stream --sizes {sizes} --blocks {blocks} --readback --mega {mega} --ingest",
+                          bench_stream, ["--sizes", sizes, "--blocks", blocks, "--readback", "--mega", mega,
+                                         "--ingest", *on], stream_block_steps, per_block)
+    K7.add("bench_stream duplex", fc.calls, fc.launches, fc.frames, fc.err)
+    stream_rows, duplex_rows = res["stream_rx"] + res["stream_ingest"], res["stream_duplex"]
+    res, _ = runs.run(f"bench_stream --device-stream --sizes {f_dev}", bench_stream,
+                      ["--device-stream", "--sizes", f_dev, "--blocks", blocks, "--duplex-steps", 0, *on],
+                      stream_block_steps, per_block)
+    check(len(duplex_rows) == 2 and all(r["frames_header_ok"] == r["frames_sent"] > 0 for r in duplex_rows),
+          f"bench_stream duplex: every frame sent must arrive with its header intact: {duplex_rows}")
+    for r in stream_rows + res["stream_rx"]:
+        if r["mode"] != "ingest-cost":
+            check(r["crc_ok"] == r["valid_frames"] > 0, f"bench_stream row not CRC-clean, or no frame found: {r}")
+        if "msamples_per_s" in r:
+            print(f"[slice-h] bench_stream {r['mode']} F={r.get('frames_per_block')}"
+                  f"{' depth ' + str(r['pipeline_depth']) if 'pipeline_depth' in r else ''}: "
+                  f"{r['msamples_per_s']:.3f} Msamples/s, {r.get('dispatch_ms', float('nan')):.2f} ms a dispatch "
+                  f"({card})", flush=True)
+
+    tdir = tempfile.mkdtemp(prefix="profile_rx_")
+    try:
+        for args in (["--frames", H_B], ["--fec", "--frames", H_B_FEC]):
+            res, _ = runs.run(f"profile_rx {' '.join(map(str, args))}", profile_rx, [*args, "--out", tdir, *on],
+                              4, per_rx)
+            names = profile_rx.trace_kernels(res["trace"])  # parses the trace file
+            for k in ("sc_metric_kernel", "equalizer_kernel"):
+                check(any(k in n for n in names), f"profile_rx {args}: no {k} in the trace ({sorted(names)[:20]})")
+            check(res["crc_ok_rate"] == 1.0, f"profile_rx {args}: {res['crc_ok_rate']}")
+            print(f"[slice-h] profile_rx {args}: {res['kernel_events']} kernel events of {len(names)} kernels in "
+                  f"{os.path.getsize(res['trace']) / 1e6:.1f} MB of trace", flush=True)
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    print(f"[slice-h] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return runs.totals
 
 
 def meshmod_cpu():

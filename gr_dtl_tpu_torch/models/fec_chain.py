@@ -36,6 +36,7 @@ with tensor state, ring by ring.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -52,8 +53,10 @@ __all__ = ["CRC_LEN_BITS", "BANK_MM_MAX_CODES", "FecFrameOut", "FecParams", "mak
 
 CRC_LEN_BITS = 32
 # banks up to this many codes take the matmul-form bank decoder's
-# contract (decode_bank_mm), larger banks the gather form (decode_bank)
-BANK_MM_MAX_CODES = 32
+# contract (decode_bank_mm), larger banks the gather form (decode_bank);
+# GR_DTL_TPU_BANK_MM_MAX, read at import, overrides it.  Its H100
+# crossover is tools/bench_bank_switch's to measure (PERF.md).
+BANK_MM_MAX_CODES = int(os.environ.get("GR_DTL_TPU_BANK_MM_MAX", "32"))
 
 
 class FecFrameOut(NamedTuple):

@@ -17,9 +17,15 @@ Device part:
   here every such product is a gather over padded Tanner-graph index
   tables plus a sum over the (3- or 7-wide) degree axis: the same sums
   in another order, without the ~99.7% of matmul FLOPs that multiply
-  zeros.  Sign and syndrome counts stay exact integers;
-- :func:`decode_bank`: the reference's gather form with per-codeword
-  code selection (tanh-product check update), for large banks.
+  zeros.  Sign and syndrome counts stay exact integers.
+  ``GR_DTL_TPU_BP_BF16=1`` (read at every call; ``decode_mm``'s ``bf16``
+  keyword overrides it) rounds to bfloat16 exactly the operands the reference
+  feeds its incidence matmuls in bfloat16, and sums in float32;
+- :func:`decode_mm_twopass`: the straggler schedule, a short full-batch
+  pass, then converged-last buckets decoded afresh with the full budget;
+- :func:`decode` / :func:`decode_bank`: the reference's gather form
+  (tanh-product check update on ``[B, M, R]`` messages), for one code or
+  with per-codeword code selection (large banks).  Both run one loop.
 
 Early exit: the reference scans a fixed 15 iterations and skips the
 message update once every codeword's syndrome passed (messages are
@@ -29,14 +35,12 @@ the same either way, and ``early_exit=False`` runs every iteration.
 
 Codeword layout ``[check bits | systematic bits]``; LLR > 0 <=> bit 0;
 shortened bits are pinned at ``+SHORTENED_LLR``.
-
-Not ported (on no path): the single-code gather form ``decode``,
-``decode_mm_twopass`` and the ``GR_DTL_TPU_BP_BF16`` switch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -44,7 +48,7 @@ import torch.nn.functional as F
 
 __all__ = ["SHORTENED_LLR", "build_ldpc", "build_ldpc_bank", "BpGraph", "LdpcCode",
            "LdpcBank", "ldpc_from_reference", "bank_from_reference", "encode", "encode_bank",
-           "decode_mm", "decode_bank_mm", "decode_bank"]
+           "decode", "decode_mm", "decode_mm_twopass", "decode_bank_mm", "decode_bank"]
 
 SHORTENED_LLR = 15.0
 
@@ -136,6 +140,17 @@ def build_ldpc(H: np.ndarray) -> dict:
     }
 
 
+def _reverse_map(var_edges: np.ndarray, M: int, R: int) -> np.ndarray:
+    """[M, R, 2]: for each (check, slot) edge its (variable, variable slot)."""
+    rev = np.zeros((M, R, 2), np.int64)
+    for v in range(var_edges.shape[0]):
+        for s in range(var_edges.shape[1]):
+            m, r = var_edges[v, s]
+            if m >= 0:
+                rev[m, r] = (v, s)
+    return rev
+
+
 def build_ldpc_bank(Hs: list) -> dict:
     """Several codes in padded tables, as numpy: the reference's dict.
 
@@ -168,13 +183,9 @@ def build_ldpc_bank(Hs: list) -> dict:
         ca = code["chk_adj"]
         chk_adj[ci, :M, : ca.shape[1]] = np.where(ca >= 0, remap(ca), -1)
         ve = code["var_edges"]
-        for v in range(code["N"]):
-            pv = int(remap(np.int64(v)))
-            var_edges[ci, pv, : ve.shape[1]] = ve[v]
-            for s in range(ve.shape[1]):
-                r, slot = ve[v, s]
-                if r >= 0:
-                    rev[ci, r, slot] = (pv, s)
+        var_edges[ci, remap(np.arange(code["N"])), : ve.shape[1]] = ve
+        rc = _reverse_map(ve, M, Rmax)
+        rev[ci, :M] = np.stack([remap(rc[..., 0]), rc[..., 1]], -1)
         A[ci, :M, :K] = code["A"]
         n_tab[ci], k_tab[ci], m_tab[ci] = code["N"], code["K"], code["M"]
 
@@ -258,6 +269,10 @@ class LdpcCode:
     K: int
     A: torch.Tensor  # [M, K] float32 parity generator
     graph: BpGraph
+    # gather-form tables (decode), as a one-code bank holds them
+    chk_adj: torch.Tensor  # [M, R] int64, -1 = pad
+    var_edges: torch.Tensor  # [N, D, 2] int64, -1 = pad
+    rev: torch.Tensor  # [M, R, 2] int64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,9 +298,12 @@ class LdpcBank:
 
 def ldpc_from_reference(d, device) -> LdpcCode:
     """:class:`LdpcCode` on ``device`` from a ``build_ldpc`` dict (numpy leaves)."""
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    chk_adj, var_edges = np.asarray(d["chk_adj"]), np.asarray(d["var_edges"])
     return LdpcCode(M=int(d["M"]), N=int(d["N"]), K=int(d["K"]),
                     A=torch.as_tensor(np.asarray(d["A"], np.float32), device=device),
-                    graph=_graph(d["Ht"], device))
+                    graph=_graph(d["Ht"], device), chk_adj=t(chk_adj), var_edges=t(var_edges),
+                    rev=t(_reverse_map(var_edges, *chk_adj.shape)))
 
 
 def bank_from_reference(d, device) -> LdpcBank:
@@ -330,6 +348,16 @@ def encode_bank(msg_bits: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank) 
 # BP decoders
 # ---------------------------------------------------------------------------
 
+def _bf16_switch(bf16: bool | None) -> bool:
+    """The ``GR_DTL_TPU_BP_BF16`` switch, read now, unless ``bf16`` says."""
+    return os.environ.get("GR_DTL_TPU_BP_BF16", "0") == "1" if bf16 is None else bool(bf16)
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> nearest bfloat16 (ties to even) -> float32."""
+    return x.to(torch.bfloat16).float()
+
+
 def _gather(x: torch.Tensor, idx: torch.Tensor, fill: float) -> torch.Tensor:
     """x [B, L] -> [B, *idx.shape]; an index of L reads ``fill``."""
     xp = F.pad(x, (0, 1), value=fill)
@@ -343,21 +371,25 @@ def _syndrome_ok(total: torch.Tensor, g: BpGraph) -> torch.Tensor:
     return (_gather(hard, g.chk_vars, 0).sum(-1) % 2 == 0).all(-1)
 
 
-def _var_totals(llr: torch.Tensor, c2v: torch.Tensor, g: BpGraph) -> torch.Tensor:
+def _var_totals(llr: torch.Tensor, c2v: torch.Tensor, g: BpGraph, bf16: bool) -> torch.Tensor:
     """Channel LLR plus every incoming check message, per variable."""
-    return llr + _gather(c2v, g.var_edges, 0.0).sum(-1)
+    return llr + _gather(_round_bf16(c2v) if bf16 else c2v, g.var_edges, 0.0).sum(-1)
 
 
-def _check_update(c2v, total, done, g: BpGraph):
+def _check_update(c2v, total, done, g: BpGraph, bf16: bool):
     """One log/sign-domain check-node update (the reference's ``msg_update``
-    in ``decode_mm``); converged codewords keep their messages."""
-    v2c = total[:, g.edge_var] - c2v  # leave-one-out at variables
+    in ``decode_mm``); converged codewords keep their messages.  With
+    ``bf16`` the operands of the reference's bfloat16 matmuls (``total``,
+    ``mag``, ``sum_mag``) are rounded to bfloat16 before they are summed;
+    the subtrahends stay float32, as there."""
+    rnd = _round_bf16 if bf16 else (lambda x: x)
+    v2c = rnd(total)[:, g.edge_var] - c2v  # leave-one-out at variables
     t = torch.tanh(torch.clamp(v2c, -20.0, 20.0) / 2.0)
     mag = torch.log(torch.clamp(t.abs(), min=1e-12))
     neg = (t < 0).float()
-    sum_mag = _gather(mag, g.chk_edges, 0.0).sum(-1)  # [B, M]
+    sum_mag = _gather(rnd(mag), g.chk_edges, 0.0).sum(-1)  # [B, M]
     sum_neg = _gather(neg, g.chk_edges, 0.0).sum(-1)
-    loo_mag = sum_mag[:, g.edge_chk] - mag  # leave-one-out at checks
+    loo_mag = rnd(sum_mag)[:, g.edge_chk] - mag  # leave-one-out at checks
     loo_neg = sum_neg[:, g.edge_chk] - neg
     sign = 1.0 - 2.0 * torch.remainder(loo_neg, 2.0)
     loo = torch.clamp(sign * torch.exp(loo_mag), -0.999999, 0.999999)
@@ -365,7 +397,7 @@ def _check_update(c2v, total, done, g: BpGraph):
 
 
 def _bp(llr: torch.Tensor, g: BpGraph, max_iters: int = 15,
-        done: torch.Tensor | None = None, early_exit: bool = True):
+        done: torch.Tensor | None = None, early_exit: bool = True, bf16: bool = False):
     """Sum-product BP over one graph -> (hard [B, N] int32, iters_used [B]
     int32, ok [B] bool, final total LLRs [B, N]).  ``done`` marks rows to
     treat as converged from the start (their messages stay 0)."""
@@ -375,39 +407,83 @@ def _bp(llr: torch.Tensor, g: BpGraph, max_iters: int = 15,
     if done is None:
         done = torch.zeros(B, dtype=torch.bool, device=llr.device)
     for _ in range(max_iters):
-        total = _var_totals(llr, c2v, g)
+        total = _var_totals(llr, c2v, g, bf16)
         done = done | _syndrome_ok(total, g)
         # batch-wide exit: once every syndrome passed the update is frozen
         # everywhere, so skip it from this iteration on (one host sync)
         if early_exit and bool(done.all()):
             break
-        c2v = _check_update(c2v, total, done, g)
+        c2v = _check_update(c2v, total, done, g, bf16)
         iters = iters + (~done).int()
-    total = _var_totals(llr, c2v, g)
+    total = _var_totals(llr, c2v, g, bf16)
     return (total < 0).int(), iters, done | _syndrome_ok(total, g), total
 
 
-def decode_mm(llr: torch.Tensor, code: LdpcCode, max_iters: int = 15):
+def decode_mm(llr: torch.Tensor, code: LdpcCode, max_iters: int = 15, bf16: bool | None = None):
     """Batched sum-product BP, the reference's ``decode_mm`` contract.
 
     Args:
       llr: [B, N] float32 in transmitted order, LLR > 0 <=> bit 0.
+      bf16: round the summed operands to bfloat16 (the reference's
+        bfloat16 matmul inputs); None reads ``GR_DTL_TPU_BP_BF16``.
     Returns (hard [B, N] int32, iters_used [B] int32, ok [B] bool);
     ``iters_used`` counts the message updates a codeword took part in
     (max_iters if its syndrome never passed).
     """
-    return _bp(llr.float(), code.graph, max_iters)[:3]
+    return _bp(llr.float(), code.graph, max_iters, bf16=_bf16_switch(bf16))[:3]
+
+
+def decode_mm_twopass(llr: torch.Tensor, code: LdpcCode, max_iters: int = 15, first: int = 3,
+                      bucket: int | None = None):
+    """Straggler-scheduled BP (the reference's ``decode_mm_twopass``).
+
+    1. :func:`decode_mm` with ``first`` iterations over the whole batch;
+    2. rows ordered converged-last (a stable sort on pass 1's ``ok``),
+       padded with all-zero LLR rows (the all-zeros codeword, converged at
+       entry) to whole ``bucket``-row groups, ``bucket`` by default
+       ``max(128, B // 8)``;
+    3. each group decoded afresh with ``max_iters``, so only groups that
+       hold stragglers run message updates, on ``bucket`` rows.
+
+    A row that passed in pass 1 keeps pass 1's results; any other reports
+    pass 1's iterations plus pass 2's, and pass 2's hard bits and ``ok``.
+    A row's BP does not depend on the other rows of its batch, so the
+    grouping changes no result.  Same ``(hard, iters_used, ok)`` contract
+    as :func:`decode_mm`.
+    """
+    llr = llr.float()
+    B, N = llr.shape
+    bf16 = _bf16_switch(None)
+    if bucket is None:
+        bucket = max(128, B // 8)
+    nb = -(-B // bucket)
+    pad = nb * bucket - B
+    hard1, it1, done1 = decode_mm(llr, code, first, bf16)
+    order = torch.argsort(done1.int(), stable=True)
+    if pad:
+        llr = torch.cat([llr, llr.new_zeros((pad, N))])
+        order = torch.cat([order, torch.arange(B, B + pad, device=order.device)])
+    llr_s = llr[order]
+    groups = [decode_mm(llr_s[i * bucket:(i + 1) * bucket], code, max_iters, bf16)
+              for i in range(nb)]
+    inv = torch.argsort(order)[:B]
+    hard2, it2, ok2 = (torch.cat(col)[inv] for col in zip(*groups))
+    hard = torch.where(done1[:, None], hard1, hard2)
+    iters = torch.where(done1, it1, it1 + it2)
+    return hard, iters, done1 | ok2
 
 
 def decode_bank_mm(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
                    max_iters: int = 15):
     """BP over a small code bank: every code's decode runs over the whole
     batch with that code's graph, and each codeword keeps its own code's
-    result (the reference's ``decode_bank_mm`` contract).  Rows of other
-    codes start converged, so they never hold back the batch-wide exit;
-    a row's result does not depend on the other rows, so this changes
-    nothing the caller sees."""
+    result (the reference's ``decode_bank_mm`` contract, which decodes
+    with ``decode_mm`` and so honours ``GR_DTL_TPU_BP_BF16`` too).  Rows of
+    other codes start converged, so they never hold back the batch-wide
+    exit; a row's result does not depend on the other rows, so this
+    changes nothing the caller sees."""
     llr = llr.float()
+    bf16 = _bf16_switch(None)
     sel = torch.clamp(code_idx, 1, bank.n_codes) - 1
     B, N = llr.shape
     hard = torch.zeros((B, N), dtype=torch.int32, device=llr.device)
@@ -415,38 +491,28 @@ def decode_bank_mm(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
     ok = torch.zeros(B, dtype=torch.bool, device=llr.device)
     for ci, g in enumerate(bank.graphs):
         mine = sel == ci
-        h, it, o, _ = _bp(llr, g, max_iters, done=~mine)
+        h, it, o, _ = _bp(llr, g, max_iters, done=~mine, bf16=bf16)
         hard = torch.where(mine[:, None], h, hard)
         iters = torch.where(mine, it, iters)
         ok = torch.where(mine, o, ok)
     return hard, iters, ok
 
 
-def decode_bank(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
-                max_iters: int = 15):
-    """Batched sum-product BP with per-codeword code selection, the
-    reference's gather form (tanh-product check update on ``[B, M, R]``
-    messages).
-
-    Args:
-      llr: [B, Nmax] float32 in the padded layout (unused slots pinned to
-           +SHORTENED_LLR); LLR > 0 <=> bit 0.
-      code_idx: [B] 1-based code ids.
-    Returns (hard [B, Nmax] int32, iters_used [B] int32, ok [B] bool).
-    """
+def _bp_gather(llr: torch.Tensor, chk_adj: torch.Tensor, var_edges: torch.Tensor,
+               rev: torch.Tensor, max_iters: int):
+    """The reference's gather-form BP (tanh-product check update on
+    ``[B, M, R]`` messages).  The tables are one code's (``chk_adj``
+    [M, R], ``var_edges`` [N, D, 2], ``rev`` [M, R, 2]) or one per
+    codeword (a leading [B] axis): the indexing broadcasts either."""
     llr = llr.float()
     B = llr.shape[0]
     dev = llr.device
-    idx = code_idx.long()
-    chk_adj = bank.chk_adj[idx]  # [B, M, R]
     chk_mask = chk_adj >= 0
-    ve = bank.var_edges[idx]  # [B, N, D, 2]
-    var_mask = ve[..., 0] >= 0
-    rev = bank.rev[idx]  # [B, M, R, 2]
-    M, R = chk_adj.shape[1:]
+    var_mask = var_edges[..., 0] >= 0
+    M, R = chk_adj.shape[-2:]
     safe_adj = torch.clamp(chk_adj, min=0)
-    ve_chk = torch.clamp(ve[..., 0], min=0)
-    ve_slot = torch.clamp(ve[..., 1], min=0)
+    ve_chk = torch.clamp(var_edges[..., 0], min=0)
+    ve_slot = torch.clamp(var_edges[..., 1], min=0)
     rev_var, rev_slot = rev[..., 0], rev[..., 1]
     b_ix = torch.arange(B, device=dev)[:, None, None]
 
@@ -454,6 +520,7 @@ def decode_bank(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
         t = torch.tanh(torch.clamp(v2c, -20.0, 20.0) / 2.0)
         t = torch.where(chk_mask, t, 1.0)
         prod = t.prod(dim=-1, keepdim=True)
+        # leave-one-out product; guard tiny values for the division
         t_safe = torch.where(t.abs() < 1e-12, torch.sign(t) * 1e-12 + 1e-30, t)
         loo = torch.clamp(prod / t_safe, -0.999999, 0.999999)
         return 2.0 * torch.atanh(loo)
@@ -480,3 +547,29 @@ def decode_bank(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
         iters = iters + (~done).int()
     _, total = totals(c2v)
     return (total < 0).int(), iters, done | syndrome_ok(total)
+
+
+def decode(llr: torch.Tensor, code: LdpcCode, max_iters: int = 15):
+    """Batched sum-product BP of one code in the reference's gather form.
+
+    Args:
+      llr: [B, N] float32 in transmitted order, LLR > 0 <=> bit 0.
+    Returns (hard [B, N] int32, iters_used [B] int32, ok [B] bool), as
+    :func:`decode_mm`.
+    """
+    return _bp_gather(llr, code.chk_adj, code.var_edges, code.rev, max_iters)
+
+
+def decode_bank(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
+                max_iters: int = 15):
+    """Batched sum-product BP with per-codeword code selection, the
+    reference's gather form.
+
+    Args:
+      llr: [B, Nmax] float32 in the padded layout (unused slots pinned to
+           +SHORTENED_LLR); LLR > 0 <=> bit 0.
+      code_idx: [B] 1-based code ids.
+    Returns (hard [B, Nmax] int32, iters_used [B] int32, ok [B] bool).
+    """
+    idx = code_idx.long()
+    return _bp_gather(llr, bank.chk_adj[idx], bank.var_edges[idx], bank.rev[idx], max_iters)

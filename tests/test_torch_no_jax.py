@@ -1,6 +1,7 @@
 """The port runs on a machine without JAX: every ``gr_dtl_tpu_torch`` module
 and ``chip_smoke`` import with ``jax`` and ``gr_dtl_tpu`` blocked, and the
-kernel module imports without ``nvcc`` on the PATH.  The sharded receivers'
+kernel module imports without ``nvcc`` on the PATH; an LDPC bench and the
+stream bench run that way on the CPU.  The sharded receivers'
 worker processes start from the port alone: their module, imported in a
 fresh interpreter, brings in neither, and a spawned grid runs with both
 blocked in its parent."""
@@ -70,6 +71,14 @@ cfg = chip_smoke.cfgmod.make_rx_config(None, frame_length=4)
 _, mcs = adaptive.feedback_scan(adaptive.initial_state(0, (2,), "cpu"), torch.full((8, 2), 30.0),
                                 adaptive.build_mcs_tables(cfg))
 assert mcs.shape == (8, 2) and feedback_cuda.feedback_scan_masked_cuda.LAUNCHES == 0
+# the measuring tools: an LDPC bench and the stream bench at a tiny size
+from gr_dtl_tpu_torch.tools import bench_stream, bench_twopass
+with contextlib.redirect_stdout(io.StringIO()):
+    res = bench_twopass.main(["--cw", "16", "--reps", "1", "--iters", "1", "--cpu"])
+    st = bench_stream.main(["--sizes", "2", "--blocks", "1", "--reps", "1", "--frame-length", "4",
+                            "--duplex-steps", "0", "--cpu"])
+assert res["regimes"]["clean"]["twopass"]["ok_rate"] == 1.0
+assert all(r["crc_ok"] == r["valid_frames"] > 0 for r in st["stream_rx"])
 print("imported", len(names), "modules:", *names)
 """
 
@@ -81,7 +90,7 @@ def test_port_imports_without_jax_or_nvcc():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 57, proc.stdout  # every module of slices A-G, the testbed, wire compat
+    assert n >= 66, proc.stdout  # every module of slices A-H, the testbed, wire compat
     for name in ("utils.alist", "ops.ldpc", "models.fec_chain", "ops.constellation",
                  "models.receiver", "models.transmitter", "ops.sync_cuda", "ops._cuda_build",
                  "ops.scans_cuda", "ops.metrics", "models.adaptive", "models.streaming",
@@ -93,7 +102,10 @@ def test_port_imports_without_jax_or_nvcc():
                  "entry", "testbed.sample_io", "testbed.phy_converge", "tools._cli",
                  "tools.run_modem", "tools.replay", "tools.ber", "tools.ber_curve",
                  "tools.tun_bridge", "tools.stats", "tools.monitor_collector",
-                 "ops.feedback_cuda", "tools.sample_link", "tools.soak_link", "tools.multihost"):
+                 "ops.feedback_cuda", "tools.sample_link", "tools.soak_link", "tools.multihost",
+                 "tools._timing", "tools._ldpc_bench", "tools.bench_fec", "tools.bench_twopass",
+                 "tools.bench_bf16_ab", "tools.bench_bank_switch", "tools.profile_fec_breakdown",
+                 "tools.profile_rx", "tools.bench_stream"):
         assert f"gr_dtl_tpu_torch.{name}" in proc.stdout.split(), name
 
 
