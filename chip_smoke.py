@@ -257,6 +257,22 @@ And slice H, the measuring tools and the LDPC leftovers (no new kernel):
    (the trace parses and holds ``sc_metric_kernel`` and
    ``equalizer_kernel``).  Their launches join the kernels line's counts.
 
+And slice I, the bench (``gr_dtl_tpu_torch/bench.py``, the counterpart of
+the JAX package's ``bench.py``; no new kernel):
+
+28. the bench: ``bench.main`` in process on the card at B = 2048 and B =
+   32, a warm-up step and 5 windows of 12 chained steps each, every launch
+   count set to 0 just before and checked after (one metric and four
+   equalizer launches a step; they join the kernels line's counts): its JSON
+   line printed behind ``[bench]``, crc_ok_rate 1.0, a finite positive
+   value, ``vs_baseline`` null, ``device`` the card's name and power limit;
+   its median at B = 2048 printed beside phase 5's (not compared: the host
+   swings between states of a process); a B = 16 chain of 3 steps on the
+   card against the same stream on the CPU (acc and every int of every step
+   equal); one B = 2048 step traced: its CUDA runtime calls hold no
+   synchronising call and no pageable copy to the host, and its device
+   kernels, copies, busy ms and idle share are printed.
+
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
 failure exits non-zero before it.
@@ -276,6 +292,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gr_dtl_tpu_torch import bench
 from gr_dtl_tpu_torch.models import adaptive, fec_chain, full_duplex, receiver, session, simplex
 from gr_dtl_tpu_torch.models import streaming, transmitter
 from gr_dtl_tpu_torch.ops import _cuda_build, burst, channel, constellation as cn, ldpc, metrics
@@ -315,7 +332,7 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-smi = metric_bench.smi
+smi = _timing.smi
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -326,27 +343,14 @@ def cuda_ms(fn, reps: int) -> float:
 
 def make_traffic(tcfg, n: int, dev, gen: torch.Generator):
     """n frames of mixed constellations 1..4 filled to capacity, drawn as
-    bench.py draws them, and the padded, noisy stream carrying them."""
-    rng = np.random.RandomState(SEED)
-    maxb = tcfg.max_frame_bytes()
-    cnst = rng.randint(1, 5, size=n).astype(np.int32)
-    payload = np.zeros((n, maxb), np.uint8)
-    plen = np.zeros(n, np.int32)
-    for i in range(n):
-        plen[i] = tcfg.frame_bytes(int(cn.BITS_PER_SYMBOL[cnst[i]])) - 4
-        payload[i, : plen[i]] = rng.randint(0, 256, plen[i])
+    bench.py draws them, and the padded, noisy stream carrying them (the
+    port's bench builds its stream so: ``bench.traffic``, ``bench.make_stream``)."""
+    cnst, plen, payload = bench.traffic(tcfg, n)
     sent = {"payload": torch.as_tensor(payload, device=dev),
             "payload_len": torch.as_tensor(plen, device=dev),
             "cnst_id": torch.as_tensor(cnst, device=dev),
             "frame_no": torch.arange(n, device=dev, dtype=torch.int32) % 4096}
-    pad = torch.randint(0, 256, (n, maxb), generator=gen, device=dev, dtype=torch.uint8)
-    txp = transmitter.build_tx(tcfg, dev)
-    out = transmitter.tx_frames(txp, sent["payload"], sent["payload_len"], sent["cnst_id"],
-                                torch.zeros(n, dtype=torch.int32, device=dev),
-                                sent["frame_no"], pad)
-    s = torch.cat([out.samples.reshape(-1),
-                   torch.zeros(STREAM_TAIL, dtype=torch.complex64, device=dev)])
-    return channel.awgn(s, NOISE_V, generator=gen), sent
+    return bench.make_stream(transmitter.build_tx(tcfg, dev), cnst, plen, payload, gen), sent
 
 
 def kernel_vs_plain(cases: dict, p_scale: float = 1.0) -> float:
@@ -572,6 +576,10 @@ def main() -> int:
     for entry, key in zip(scan_kernels, ("lock", "acct")):
         entry["launches"] += h[key][0]
         entry["launches_per_step"] = entry["launches"] / (scan_blocks + app[key][1] + h[key][1])
+    # ---- 28. slice I: the bench ----
+    bn = bench_phase(dev, card, med)
+    launches += bn["k1"][0]
+    stream_blocks += bn["k1"][1]
     k7_entry.update(launches=K7.launches, launches_per_step=K7.launches / K7.calls, max_abs_err=K7.max_err)
     eq_entry = time_equalizer(dev, card)
     print(card)
@@ -4007,6 +4015,104 @@ def slice_h_phase(dev, card) -> dict:
     finally:
         shutil.rmtree(tdir, ignore_errors=True)
     print(f"[slice-h] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return runs.totals
+
+
+# ---------------------------------------------------------------------------
+# phase 28: slice I, the bench (gr_dtl_tpu_torch/bench.py)
+# ---------------------------------------------------------------------------
+
+BENCH_B = (2048, 32)          # the main path's batch and a small one
+BENCH_RUN = (5, 12)           # the bench's windows and chained steps a window
+BENCH_CHAIN = (16, 3)         # card against CPU: frames a step, chained steps
+BENCH_INTS = ("payload", "payload_len", "crc_ok", "header_ok", "frame_no", "cnst_id", "carr_offset")
+
+
+def traced_step(fn, name: str) -> tuple:
+    """One fn() traced by the profiler, after one sacrificed call: the CUDA
+    runtime calls the host makes inside it and the device's kernels and
+    copies that start inside it, by name, and their busy ms."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        with record_function(name):
+            fn()
+        torch.cuda.synchronize()  # outside the span: the step's own calls only
+    events = prof.events()
+    span = host_span(events, name)
+    api, device, busy = {}, {}, 0.0
+    for e in events:
+        if str(e.device_type).endswith("CUDA"):
+            if e.name != name and e.time_range.start >= span.start:
+                device[e.name] = device.get(e.name, 0) + 1
+                busy += e.time_range.elapsed_us() / 1e3
+        elif (e.name.startswith("cuda") and span.start <= e.time_range.start and e.time_range.end <= span.end
+              and not e.name.startswith(("cudaGet", "cudaDeviceGet", "cudaOccupancy", "cudaFuncGet"))):
+            api[e.name] = api.get(e.name, 0) + 1
+    return api, device, busy
+
+
+def bench_phase(dev, card, phase5_ms: float) -> dict:
+    """Phase 28.  Returns, for the kernels line, the metric's launches over
+    the bench's counted runs and the steps they span."""
+    t_phase = time.perf_counter()
+    runs = AppLedger(dev, card, "bench")
+    reps, iters = BENCH_RUN
+    median_ms = {}
+    for b in BENCH_B:
+        # a warm-up step, then reps windows of iters: one metric and four equalizer launches a step
+        res, _ = runs.run(f"python -m gr_dtl_tpu_torch.bench {b}", bench,
+                          [b, "--reps", reps, "--iters", iters, "--device", str(dev)],
+                          1 + reps * iters, {"k1": 1, "eq": EQ_PER_STEP})
+        x = res["extra"]
+        median_ms[b] = x["step_ms"]
+        check(x["crc_ok_rate"] == 1.0, f"bench {b}: crc_ok_rate {x['crc_ok_rate']}")
+        check(np.isfinite(res["value"]) and res["value"] > 0, f"bench {b}: value {res['value']}")
+        check(res["vs_baseline"] is None and x["device"] == card and len(x["step_ms_windows"]) == reps,
+              f"bench {b}: {res}")
+        beside = (f"; phase 5's median at this B {phase5_ms:.3f} ms (7 windows of 3 steps, another "
+                  "process state: printed, not compared)" if b == B else "")
+        print(f"[bench] B={b}: {res['value']:.3f} Msamples/s, step median {x['step_ms']:.3f} ms, windows "
+              f"{x['step_ms_windows']}{beside} ({card})", flush=True)
+
+    # the chain on the card against the same stream on the CPU
+    n, n_steps = BENCH_CHAIN
+    cfg = cfgmod.make_rx_config(None, frame_length=bench.FRAME_LENGTH)
+    tcfg = cfgmod.make_tx_config(None, frame_length=bench.FRAME_LENGTH)
+    stream = bench.make_stream(transmitter.build_tx(tcfg, dev), *bench.traffic(tcfg, n),
+                               torch.Generator(device=dev).manual_seed(SEED))
+    rxp, rxp_cpu = receiver.build_rx(cfg, dev), receiver.build_rx(cfg, "cpu")
+    acc, acc_cpu = torch.zeros((), device=dev), torch.zeros(())
+    for i in range(n_steps):
+        acc, got = bench.step(rxp, n, stream, acc)
+        acc_cpu, want = bench.step(rxp_cpu, n, stream.cpu(), acc_cpu)
+        check(float(acc) == float(acc_cpu) == n * (i + 1), f"bench chain step {i}: acc {float(acc)} on the "
+              f"card, {float(acc_cpu)} on the CPU")
+        for k in BENCH_INTS:
+            check(torch.equal(getattr(got, k).cpu(), getattr(want, k)), f"bench chain step {i}: {k}, card vs CPU")
+    print(f"[bench] B={n}, {n_steps} chained steps: acc {float(acc):g} on the card and on the CPU, "
+          f"{', '.join(BENCH_INTS)} equal at every step", flush=True)
+
+    # one step traced: no host read inside it
+    stream = bench.make_stream(transmitter.build_tx(tcfg, dev), *bench.traffic(tcfg, B),
+                               torch.Generator(device=dev).manual_seed(SEED))
+    rxp = receiver.build_rx(cfg, dev)
+    acc = torch.zeros((), device=dev)
+    api, device, busy = traced_step(lambda: bench.step(rxp, B, stream, acc), "bench_step")
+    n_dev = sum(device.values())
+    print(f"[bench] one traced step at B={B}: CUDA runtime calls "
+          + ", ".join(f"{k} {v}" for k, v in sorted(api.items(), key=lambda kv: -kv[1]))
+          + "; copies on the device's timeline: "
+          + (", ".join(f"{k} {v}" for k, v in sorted(device.items()) if k.startswith("Memcpy")) or "none")
+          + f"; {n_dev} device kernels and copies, busy {busy:.3f} ms, idle share "
+          f"{1 - busy / median_ms[B]:.4f} of the bench's {median_ms[B]:.3f} ms median ({card})", flush=True)
+    check(any(k.startswith("cudaLaunchKernel") for k in api), "bench step: the profiler recorded no launch")
+    waits = [k for k in list(api) + list(device)
+             if "Synchronize" in k or ("DtoH" in k and "Pageable" in k)]
+    check(not waits, f"bench step: synchronising calls or pageable device-to-host copies: {waits}")
+    print(f"[bench] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
     return runs.totals
 
 

@@ -14,11 +14,12 @@ ms a call, with every window kept.
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 
 import torch
 
-__all__ = ["sync", "window_ms", "measure", "interleaved", "describe", "device_label"]
+__all__ = ["sync", "window_ms", "measure", "interleaved", "describe", "smi", "device_label"]
 
 
 def sync(dev) -> None:
@@ -76,7 +77,18 @@ def describe(dev, iters: int, reps: int) -> str:
     return f"{clock} around {iters} back-to-back calls after warm-up, median of {reps} windows"
 
 
+def smi(query: str, index: int = 0) -> str:
+    """``nvidia-smi --query-gpu=<query>`` of card ``index``, e.g.
+    ``smi("name,power.limit")`` -> ``"NVIDIA H100 80GB HBM3, 700.00 W"``."""
+    out = subprocess.run(["nvidia-smi", "-i", str(index), f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
 def device_label(dev) -> str:
-    """The card's name, or ``cpu``."""
+    """The card's name and power limit as ``nvidia-smi`` gives them (a card
+    set below its maximum runs slower under load), or ``cpu``."""
     dev = torch.device(dev)
-    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if dev.type != "cuda":
+        return "cpu"
+    return smi("name,power.limit", torch.cuda.current_device() if dev.index is None else dev.index)

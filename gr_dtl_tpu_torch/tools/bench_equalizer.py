@@ -43,7 +43,8 @@ import torch
 
 from gr_dtl_tpu_torch.ops import constellation as cn
 from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda
-from gr_dtl_tpu_torch.tools.bench_sync_metric import HBM_BYTES_PER_S, smi
+from gr_dtl_tpu_torch.tools._timing import smi
+from gr_dtl_tpu_torch.tools.bench_sync_metric import HBM_BYTES_PER_S
 from gr_dtl_tpu_torch.utils import config, wire_compat
 
 FRAME_LENGTH = 20

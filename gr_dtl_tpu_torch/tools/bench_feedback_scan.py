@@ -47,7 +47,7 @@ import torch
 
 from gr_dtl_tpu_torch.models import adaptive
 from gr_dtl_tpu_torch.ops import _cuda_build, feedback_cuda
-from gr_dtl_tpu_torch.tools.bench_sync_metric import smi
+from gr_dtl_tpu_torch.tools._timing import smi
 from gr_dtl_tpu_torch.utils import config
 
 T_CASES = (1, 8, 16, 37, 256, 1024)

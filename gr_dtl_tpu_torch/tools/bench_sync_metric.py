@@ -23,24 +23,18 @@ Run on the card:  python3 -m gr_dtl_tpu_torch.tools.bench_sync_metric
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 
 import torch
 
 from gr_dtl_tpu_torch.ops import sync, sync_cuda
+from gr_dtl_tpu_torch.tools._timing import smi
 
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM data sheet, at the 700 W limit
 P_ATOL, M_ATOL = 2e-4, 2e-3
 SHAPES = {"uncoded_step": (3_770_368,), "coded_step": (1_968_128,), "stream_block": (8, 262_144)}
 RING_BYTES = 300e6
 KERNEL_NAME = "sc_metric_kernel"
-
-
-def smi(query: str) -> str:
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def bound_ms(shape) -> float:

@@ -1,7 +1,7 @@
 """The port runs on a machine without JAX: every ``gr_dtl_tpu_torch`` module
 and ``chip_smoke`` import with ``jax`` and ``gr_dtl_tpu`` blocked, and the
-kernel module imports without ``nvcc`` on the PATH; an LDPC bench and the
-stream bench run that way on the CPU.  The sharded receivers'
+kernel module imports without ``nvcc`` on the PATH; an LDPC bench, the
+stream bench and the receiver's bench run that way on the CPU.  The sharded receivers'
 worker processes start from the port alone: their module, imported in a
 fresh interpreter, brings in neither, and a spawned grid runs with both
 blocked in its parent."""
@@ -79,6 +79,11 @@ with contextlib.redirect_stdout(io.StringIO()):
                             "--duplex-steps", "0", "--cpu"])
 assert res["regimes"]["clean"]["twopass"]["ok_rate"] == 1.0
 assert all(r["crc_ok"] == r["valid_frames"] > 0 for r in st["stream_rx"])
+# the bench, a step of four frames
+from gr_dtl_tpu_torch import bench
+with contextlib.redirect_stdout(io.StringIO()):
+    b = bench.main(["4", "--device", "cpu", "--reps", "1", "--iters", "1"])
+assert b["extra"]["crc_ok_rate"] == 1.0 and b["vs_baseline"] is None and b["extra"]["device"] == "cpu"
 print("imported", len(names), "modules:", *names)
 """
 
@@ -90,7 +95,7 @@ def test_port_imports_without_jax_or_nvcc():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 66, proc.stdout  # every module of slices A-H, the testbed, wire compat
+    assert n >= 67, proc.stdout  # every module of slices A-I, the testbed, wire compat
     for name in ("utils.alist", "ops.ldpc", "models.fec_chain", "ops.constellation",
                  "models.receiver", "models.transmitter", "ops.sync_cuda", "ops._cuda_build",
                  "ops.scans_cuda", "ops.metrics", "models.adaptive", "models.streaming",
@@ -105,7 +110,7 @@ def test_port_imports_without_jax_or_nvcc():
                  "ops.feedback_cuda", "tools.sample_link", "tools.soak_link", "tools.multihost",
                  "tools._timing", "tools._ldpc_bench", "tools.bench_fec", "tools.bench_twopass",
                  "tools.bench_bf16_ab", "tools.bench_bank_switch", "tools.profile_fec_breakdown",
-                 "tools.profile_rx", "tools.bench_stream"):
+                 "tools.profile_rx", "tools.bench_stream", "bench"):
         assert f"gr_dtl_tpu_torch.{name}" in proc.stdout.split(), name
 
 
