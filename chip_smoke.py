@@ -12,8 +12,11 @@ as tools/bench_fec.py draws them.  Phases:
 1. device: the card's name and power limit, torch/CUDA versions, and
    whether nvcc and triton are present;
 2. build: compiles csrc/sync_metric.cu, csrc/stream_scans.cu,
-   csrc/tb_ring.cu, csrc/equalizer.cu and csrc/feedback_scan.cu for sm_90a
-   from this checkout, one nvcc each, side by side;
+   csrc/tb_ring.cu, csrc/equalizer.cu, csrc/feedback_scan.cu and
+   csrc/ldpc_bp.cu for sm_90a from this checkout, one nvcc each, side by
+   side; from here on every ``ldpc.decode_mm`` / ``decode_bank_mm`` call on
+   the card is held to its K3 launches (``BpLedger``: one a call, one a
+   code of a bank), booked by phase;
 3. kernel vs plain: the CUDA Schmidl-Cox kernel against its plain
    PyTorch version on the card, at the uncoded path's N, at two ragged
    lengths, on a [4, N] batch and at the edges of its tiling: one output
@@ -35,7 +38,7 @@ as tools/bench_fec.py draws them.  Phases:
 6. coded path: the kernel against the plain metric on the coded
    streams (25 and 11 dB), then TX -> AWGN (25 dB) -> detect_and_extract
    -> rx_frames; every frame's CRC must pass with its payload equal to what was sent,
-   the kernel must have been launched, and a 16-frame run must agree
+   the kernel must have been launched (and K3 once), and a 16-frame run must agree
    with the port's CPU path; at 11 dB the CRC rate and BP iterations,
    and a 32-frame run against the CPU path; then B=256 runs with mixed
    constellations and with the two-code bank (30 dB) must decode every
@@ -273,6 +276,24 @@ the JAX package's ``bench.py``; no new kernel):
    synchronising call and no pageable copy to the host, and its device
    kernels, copies, busy ms and idle share are printed.
 
+And slice J, K3 (csrc/ldpc_bp.cu), the sum-product BP of ``decode_mm`` and
+``decode_bank_mm`` as one launch (a code of the bank), with no host check:
+
+29. K3: the kernel, called directly, against the plain ``ldpc._bp`` on the
+   same CUDA tensors: the 13,312 codewords the coded step decoded at 25 and
+   at 11 dB (phase 6), the 2048-codeword clean, knee and waterfall sets of
+   phase 27, the two-code bank's codewords at 30 dB (each code, the other
+   code's rows marked done), bf16 on (11 dB and the knee), and
+   ``decode_mm_twopass`` through K3 and through ``_bp``: ok and iterations
+   equal on every row, hard bits and final totals bit-equal on every
+   converged row, parted rows counted and named (at most 1%); K3 and
+   ``_bp`` timed in turns (CUDA events) at those five inputs beside the
+   bound from this run's iterations; the coded step and its stages at 25
+   and 11 dB with K3 and with ``_bp`` in turns; one ``decode_mm`` at 13,312
+   codewords traced (one device kernel, no synchronising call, no copy);
+   the K3 launches of every phase (each coded phase must have launched it).
+   The kernels line gains an eighth entry (its launches: phases 6-28).
+
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
 failure exits non-zero before it.
@@ -296,8 +317,8 @@ from gr_dtl_tpu_torch import bench
 from gr_dtl_tpu_torch.models import adaptive, fec_chain, full_duplex, receiver, session, simplex
 from gr_dtl_tpu_torch.models import streaming, transmitter
 from gr_dtl_tpu_torch.ops import _cuda_build, burst, channel, constellation as cn, ldpc, metrics
-from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda, feedback_cuda, scans_cuda, sync, sync_cuda
-from gr_dtl_tpu_torch.ops import tb_cuda
+from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda, feedback_cuda, ldpc_cuda, scans_cuda, sync
+from gr_dtl_tpu_torch.ops import sync_cuda, tb_cuda
 from gr_dtl_tpu_torch.testbed import monitor, phy_converge
 from gr_dtl_tpu_torch.tools import _timing
 from gr_dtl_tpu_torch.tools import bench_equalizer as eq_bench
@@ -397,18 +418,21 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc each, side by side
     _cuda_build.build_all(sync_cuda.build, scans_cuda.build, tb_cuda.build, equalizer_cuda.build,
-                          feedback_cuda.build, k7_bench.build_bench, phy_converge.build)
+                          feedback_cuda.build, ldpc_cuda.build, k7_bench.build_bench, phy_converge.build)
     print(f"[build] csrc/sync_metric.cu -> {sync_cuda.library_path().name}, csrc/stream_scans.cu "
           f"-> {scans_cuda.library_path().name}, csrc/tb_ring.cu -> {tb_cuda.library_path().name}, "
           f"csrc/equalizer.cu -> {equalizer_cuda.library_path().name}, csrc/feedback_scan.cu -> "
-          f"{feedback_cuda.library_path().name}, native/phy_converge.cpp (g++) -> "
+          f"{feedback_cuda.library_path().name}, csrc/ldpc_bp.cu -> {ldpc_cuda.library_path().name}, "
+          f"native/phy_converge.cpp (g++) -> "
           f"{phy_converge.library_path().name} in {time.perf_counter() - t0:.2f} s")
     for lib in (sync_cuda.library_path(), scans_cuda.library_path(), tb_cuda.library_path(),
-                equalizer_cuda.library_path(), feedback_cuda.library_path()):
+                equalizer_cuda.library_path(), feedback_cuda.library_path(), ldpc_cuda.library_path()):
         log = lib.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
             if line.strip():
                 print(f"[build] {line.strip()}")
+
+    BP.install()  # every BP call of every phase from here on is held to its K3 launches
 
     cfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
     tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
@@ -520,7 +544,8 @@ def main() -> int:
     del stream, out, small, got, want, frames, spectra, pay_eq
 
     # ---- 6-7. the coded path ----
-    launches_coded, max_err_coded = coded_phase(dev, gen, card)
+    BP.tag = "6-7 coded batch"
+    launches_coded, max_err_coded, bp_paths = coded_phase(dev, gen, card)
     print(f"[timing] after coded timing: {smi('clocks.sm,power.draw,temperature.gpu')}")
 
     print(f"[timing] schmidl_cox_metric: launches a step 1 uncoded ({launches} counted), 1 coded "
@@ -529,9 +554,11 @@ def main() -> int:
           f"{timed['warm_l2_ms']:.4f} ms, profiler {timed['profiler_kernel_ms'] or float('nan'):.4f} ms, bound "
           f"{timed['bound_ms']:.4f} ms for {timed['bytes']} bytes, library call: none")
     # ---- 8-12. the streaming sessions ----
+    BP.tag = "8-12 streams"
     stream_launches, stream_blocks, max_err_stream, scan_kernels, tb_kernel = stream_phases(dev, card)
     print(f"[timing] after the streaming phases: {smi('clocks.sm,power.draw,temperature.gpu')}")
     # ---- 13-17. channels, bursts, links ----
+    BP.tag = "13-17 slice D"
     d_counts, d_steps, d_blocks, max_err_d = slice_d_phases(dev, card)
     stream_launches += d_counts[0]
     max_err_stream = max(max_err_stream, max_err_d)
@@ -541,9 +568,12 @@ def main() -> int:
         entry["launches_per_step"] = entry["launches"] / scan_blocks
     stream_blocks += d_steps + d_blocks
     print(f"[timing] after the slice D phases: {smi('clocks.sm,power.draw,temperature.gpu')}")
+    BP.tag = "22 telemetry"
     telemetry_phase(dev, card)
+    BP.tag = "23 wire compat"
     wire_entry = wire_phase(dev, card)
     # ---- 24. slice E: the sharded session ----
+    BP.tag = "24 sharded"
     shard = sharded_phase(dev, card)
     tot = shard["totals"]
     launches += tot["k1"]
@@ -560,6 +590,7 @@ def main() -> int:
     tb_kernel["batched"] = dict(shard["times"]["tb_reassemble"], launches=tot["tb_reassemble"],
                                 launches_per_block=tot["tb_reassemble"] / tot["tb_blocks"])
     # ---- 25. slice F: the app layer ----
+    BP.tag = "25 app"
     app = app_phase(dev, card)
     launches += app["k1"][0]
     stream_blocks += app["k1"][1]
@@ -568,8 +599,10 @@ def main() -> int:
         entry["launches_per_step"] = entry["launches"] / (scan_blocks + app[key][1])
     tb_kernel["launches"] += app["tb"][0]
     # ---- 26. slice G: the live-I/O tools and K7 ----
+    BP.tag = "26 live I/O"
     k7_entry = live_io_phase(dev, card)
     # ---- 27. slice H: the measuring tools and the LDPC leftovers ----
+    BP.tag = "27 slice H"
     h = slice_h_phase(dev, card)
     launches += h["k1"][0]
     stream_blocks += h["k1"][1]
@@ -577,9 +610,13 @@ def main() -> int:
         entry["launches"] += h[key][0]
         entry["launches_per_step"] = entry["launches"] / (scan_blocks + app[key][1] + h[key][1])
     # ---- 28. slice I: the bench ----
+    BP.tag = "28 bench"
     bn = bench_phase(dev, card, med)
     launches += bn["k1"][0]
     stream_blocks += bn["k1"][1]
+    # ---- 29. slice J: K3 ----
+    BP.tag = "29 K3"
+    k3_entry = k3_phase(dev, card, bp_paths)
     k7_entry.update(launches=K7.launches, launches_per_step=K7.launches / K7.calls, max_abs_err=K7.max_err)
     eq_entry = time_equalizer(dev, card)
     print(card)
@@ -594,7 +631,7 @@ def main() -> int:
         "max_abs_err": max(max_err, max_err_coded, max_err_stream),
         "ms": timed["kernel_ms"], "ms_by": timed["kernel_ms_by"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
         "bound_by": "bytes", "library_ms": None}] + scan_kernels + [tb_kernel, eq_entry, wire_entry,
-                                                                    k7_entry]}))
+                                                                    k7_entry, k3_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -659,10 +696,45 @@ def per_codeword_iters(rxp, stream, n):
     return iters.reshape(n, fec.max_ncws)[:, : int(fec.ncws_tab2[1, 2])]
 
 
-def coded_phase(dev, gen, card) -> int:
+def coded_stages(rxp, rcfg, stream, reps: int = 5) -> tuple:
+    """The coded receive step's stages timed with CUDA events, BP inside
+    fec_frame_decode and alone: (median ms by stage over ``reps`` steps, the
+    last BP call's iterations, its codewords)."""
+    fec = rxp.fec
+    names = ("detect_and_extract", "demodulate", "equalize_passes",
+             "soft LLRs + serialisation", "fec_frame_decode", "BP (decode_mm alone)")
+    stages = {k: [] for k in names}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        ev[0].record()
+        frames, _ = receiver.detect_and_extract(stream, rcfg, B_FEC)
+        ev[1].record()
+        spectra, carr_off, taps = receiver.demodulate(rxp, frames)
+        ev[2].record()
+        pay_eq, fields, header_ok, cnst = receiver.equalize_passes(rxp, spectra, taps)
+        ev[3].record()
+        out_d, fec_in = receiver.demap_and_verify(rxp, pay_eq, fields, header_ok, cnst,
+                                                  carr_off, defer_fec=True)
+        ev[4].record()
+        fec_chain.fec_frame_decode(fec, fec_in["llrs"], cnst, fec_in["tb_payload"])
+        ev[5].record()
+        cw = fec_chain.codeword_llrs(fec, fec_in["llrs"], cnst).reshape(-1, fec.n)
+        ev[6].record()
+        _, iters, _ = ldpc.decode_mm(cw, fec.code)
+        ev[7].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(names[:5]):
+            stages[k].append(ev[i].elapsed_time(ev[i + 1]))
+        stages[names[5]].append(ev[6].elapsed_time(ev[7]))
+    return {k: sorted(v)[len(v) // 2] for k, v in stages.items()}, iters, cw.shape[0]
+
+
+def coded_phase(dev, gen, card) -> tuple:
     """Phases 6 and 7; returns the Schmidl-Cox kernel's launches in the
-    coded path's run and its largest error against the plain metric on
-    the coded streams."""
+    coded path's run, its largest error against the plain metric on the
+    coded streams, and what phase 29 holds K3 to: the arguments of the BP
+    calls the steps at 25 and 11 dB and the two-code bank's step made, the
+    receiver and streams, and phase 7's step medians."""
     tcfg, rcfg, txp, rxp = coded_params(BANK_ALISTS[1:], dev)
     fec = rxp.fec
     cpu_rxp = coded_params(BANK_ALISTS[1:], "cpu")[3]
@@ -685,9 +757,11 @@ def coded_phase(dev, gen, card) -> int:
     torch.cuda.synchronize()
     launches = sync_cuda.timing_metric_cuda.LAUNCHES
     EQ.counted(1, "coded slice")
+    paths = {"25 dB": BP.last}
     print(f"[coded] kernel launches in the coded slice: Schmidl-Cox metric {launches}, equalizer "
-          f"{equalizer_cuda.equalize_frame_cuda.LAUNCHES}")
+          f"{equalizer_cuda.equalize_frame_cuda.LAUNCHES}, K3 (BP) {ldpc_cuda.bp_decode_cuda.LAUNCHES}")
     check(launches > 0, "the coded slice did not launch the Schmidl-Cox kernel")
+    check(ldpc_cuda.bp_decode_cuda.LAUNCHES == 1, "the coded slice did not launch K3 once")
     check(out.payload.shape == (B_FEC, fec.max_payload_bytes), "coded payload shape")
     check(bool(torch.isfinite(out.soft_syms).all()) and bool(torch.isfinite(out.avg_iters).all()),
           "coded soft symbols or BP iterations not finite")
@@ -709,6 +783,8 @@ def coded_phase(dev, gen, card) -> int:
     reset_counts()
     out = rx_step(rxp, streams[11.0][0], B_FEC)
     EQ.counted(1, "coded slice at 11 dB")
+    paths["11 dB"] = BP.last
+    check(ldpc_cuda.bp_decode_cuda.LAUNCHES == 1, "the coded slice at 11 dB did not launch K3 once")
     with EqualizerCheck(f"coded B={B_FEC} at 11 dB") as chk:
         rx_step(rxp, streams[11.0][0], B_FEC)
     with plain_equalizer():
@@ -750,12 +826,15 @@ def coded_phase(dev, gen, card) -> int:
         samples_s, sent_s = coded_tx(txp_s, cnst, fec_id)
         out = rx_step(rxp_s, noisy(samples_s, SNR_MIXED_DB, gen)[0], B_FEC_SMALL)
         check_decoded(out, sent_s, f"coded B={B_FEC_SMALL} {name}")
+        if with_ids:
+            paths["two-code bank"] = BP.last
         print(f"[coded] B={B_FEC_SMALL} {name} (constellations 1..4"
               f"{', fec_id 1..2' if with_ids else ''}) at {SNR_MIXED_DB:g} dB: all frames decoded, mean BP "
               f"iterations {out.avg_iters.mean().item():.4f}", flush=True)
         del txp_s, rxp_s, out
 
     # ---- 7. timing ----
+    step_med = {}
     n_samples = B_FEC * rcfg.frame_samples
     for snr, (stream, _) in streams.items():
         for _ in range(2):
@@ -764,43 +843,24 @@ def coded_phase(dev, gen, card) -> int:
         torch.cuda.reset_peak_memory_stats()
         step_ms = sorted(cuda_ms(lambda: rx_step(rxp, stream, B_FEC), STEPS_PER_WINDOW)
                          for _ in range(WINDOWS))
-        med = step_ms[len(step_ms) // 2]
+        med = step_med[snr] = step_ms[len(step_ms) // 2]
         print(f"[coded-timing] {snr:g} dB: RX step (detect_and_extract + rx_frames), {WINDOWS} "
               f"windows of {STEPS_PER_WINDOW} steps: median {med:.3f} ms, min {step_ms[0]:.3f}, "
               f"max {step_ms[-1]:.3f}; {n_samples / med / 1e3:.2f} Msamples/s at the median; "
               f"all windows ms {[round(x, 3) for x in step_ms]}; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-        names = ("detect_and_extract", "demodulate", "equalize_passes",
-                 "soft LLRs + serialisation", "fec_frame_decode", "BP (decode_mm alone)")
-        stages = {k: [] for k in names}
-        for _ in range(5):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
-            ev[0].record()
-            frames, _ = receiver.detect_and_extract(stream, rcfg, B_FEC)
-            ev[1].record()
-            spectra, carr_off, taps = receiver.demodulate(rxp, frames)
-            ev[2].record()
-            pay_eq, fields, header_ok, cnst = receiver.equalize_passes(rxp, spectra, taps)
-            ev[3].record()
-            out_d, fec_in = receiver.demap_and_verify(rxp, pay_eq, fields, header_ok, cnst,
-                                                      carr_off, defer_fec=True)
-            ev[4].record()
-            fec_chain.fec_frame_decode(fec, fec_in["llrs"], cnst, fec_in["tb_payload"])
-            ev[5].record()
-            cw = fec_chain.codeword_llrs(fec, fec_in["llrs"], cnst).reshape(-1, fec.n)
-            ev[6].record()
-            _, iters, _ = ldpc.decode_mm(cw, fec.code)
-            ev[7].record()
-            torch.cuda.synchronize()
-            for i, k in enumerate(names[:5]):
-                stages[k].append(ev[i].elapsed_time(ev[i + 1]))
-            stages[names[5]].append(ev[6].elapsed_time(ev[7]))
+        stages, iters, n_cw = coded_stages(rxp, rcfg, stream)
         print(f"[coded-timing] {snr:g} dB per stage, median of 5 (ms): "
-              + ", ".join(f"{k} {sorted(v)[2]:.3f}" for k, v in stages.items())
-              + f"; BP message updates run {int(iters.max())} (of 15), on {cw.shape[0]} "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+              + f"; BP message updates run {int(iters.max())} (of 15), on {n_cw} "
               f"codewords, mean iterations per codeword {iters.float().mean().item():.4f}",
               flush=True)
+        frames, _ = receiver.detect_and_extract(stream, rcfg, B_FEC)
+        spectra, carr_off, taps = receiver.demodulate(rxp, frames)
+        pay_eq, fields, header_ok, cnst = receiver.equalize_passes(rxp, spectra, taps)
+        out_d, fec_in = receiver.demap_and_verify(rxp, pay_eq, fields, header_ok, cnst, carr_off,
+                                                  defer_fec=True)
         census(f"coded B={B_FEC} at {snr:g} dB", {
             "detect_and_extract": lambda: receiver.detect_and_extract(stream, rcfg, B_FEC),
             "demodulate": lambda: receiver.demodulate(rxp, frames),
@@ -809,7 +869,8 @@ def coded_phase(dev, gen, card) -> int:
                 rxp, pay_eq, fields, header_ok, cnst, carr_off, defer_fec=True),
             "fec_frame_decode": lambda: fec_chain.fec_frame_decode(fec, fec_in["llrs"], cnst, fec_in["tb_payload"]),
         }, med, card)
-    return launches, max_err
+    return launches, max_err, {"calls": paths, "rxp": rxp, "rcfg": rcfg, "streams": streams,
+                               "step_ms": step_med}
 
 
 # ---------------------------------------------------------------------------
@@ -1166,7 +1227,7 @@ def same_as(results, want, what: str) -> None:
 def reset_counts() -> None:
     for w in (sync_cuda.timing_metric_cuda, scans_cuda.trigger_lock_scan_cuda,
               scans_cuda.frame_accounting_cuda, tb_cuda.tb_reassemble_cuda,
-              equalizer_cuda.equalize_frame_cuda):
+              equalizer_cuda.equalize_frame_cuda, ldpc_cuda.bp_decode_cuda):
         w.LAUNCHES = 0
     equalizer_cuda.equalize_frame_cuda.TABLE_LAUNCHES = 0
 
@@ -3871,6 +3932,19 @@ H_B, H_B_FEC, H_BANK_CW = 2048, 1024, 1024  # the tools' batches: uncoded, coded
 H_STREAM = ("16,64,256,1024", 1024, "16x16", 12)  # bench_stream: sizes, --device-stream size, --mega, --blocks
 
 
+def h_llrs(dev) -> tuple:
+    """The n=300 code's build dict, the code on the CPU and on ``dev``, and
+    the LLRs of the leftovers' 2048 codewords in each of ``H_REGIMES``
+    (seeded numpy: random messages, then each regime's noise in turn)."""
+    d = ldpc.build_ldpc(alist.load_alist(str(ROOT / "examples" / "n_0300_k_0152.alist")))
+    codes = {"cpu": ldpc.ldpc_from_reference(d, "cpu"), "card": ldpc.ldpc_from_reference(d, dev)}
+    rng = np.random.RandomState(SEED + 27)
+    cw = ldpc.encode(torch.as_tensor(rng.randint(0, 2, (H_CW, d["K"])).astype(np.float32)),
+                     codes["cpu"]).numpy().astype(np.float32)
+    return d, codes, {regime: ((1.0 - 2.0 * cw) * amp + rng.randn(*cw.shape) * sigma).astype(np.float32)
+                      for regime, (amp, sigma) in H_REGIMES.items()}
+
+
 def ldpc_leftovers(dev) -> None:
     """``decode``, ``decode_mm_twopass`` (default bucket and 64) and
     ``decode_mm`` with bf16 on CUDA tensors against the same functions on
@@ -3880,18 +3954,13 @@ def ldpc_leftovers(dev) -> None:
     iteration counts parted on at most 1% of the rows (tanh, log, exp and
     atanh on the card differ from the CPU's by ulps).  Then twopass against
     decode_mm on the card: the same ``ok`` and message bits wherever ok."""
-    d = ldpc.build_ldpc(alist.load_alist(str(ROOT / "examples" / "n_0300_k_0152.alist")))
-    codes = {"cpu": ldpc.ldpc_from_reference(d, "cpu"), "card": ldpc.ldpc_from_reference(d, dev)}
-    rng = np.random.RandomState(SEED + 27)
-    cw = ldpc.encode(torch.as_tensor(rng.randint(0, 2, (H_CW, d["K"])).astype(np.float32)),
-                     codes["cpu"]).numpy().astype(np.float32)
+    d, codes, llrs = h_llrs(dev)
     variants = {"decode": lambda x, c: ldpc.decode(x, c),
                 "decode_mm_twopass": lambda x, c: ldpc.decode_mm_twopass(x, c),
                 "decode_mm_twopass bucket=64": lambda x, c: ldpc.decode_mm_twopass(x, c, bucket=64),
                 "decode_mm bf16": lambda x, c: ldpc.decode_mm(x, c, 15, bf16=True)}
     for regime, (amp, sigma) in H_REGIMES.items():
-        llr = ((1.0 - 2.0 * cw) * amp + rng.randn(*cw.shape) * sigma).astype(np.float32)
-        x = {"cpu": torch.as_tensor(llr), "card": torch.as_tensor(llr, device=dev)}
+        x = {"cpu": torch.as_tensor(llrs[regime]), "card": torch.as_tensor(llrs[regime], device=dev)}
         for name, fn in variants.items():
             t0 = time.perf_counter()
             hard, iters, ok = (t.cpu().numpy() for t in fn(x["card"], codes["card"]))
@@ -4028,14 +4097,16 @@ BENCH_CHAIN = (16, 3)         # card against CPU: frames a step, chained steps
 BENCH_INTS = ("payload", "payload_len", "crc_ok", "header_ok", "frame_no", "cnst_id", "carr_offset")
 
 
-def traced_step(fn, name: str) -> tuple:
-    """One fn() traced by the profiler, after one sacrificed call: the CUDA
-    runtime calls the host makes inside it and the device's kernels and
-    copies that start inside it, by name, and their busy ms."""
+def traced_step(fn, name: str, sacrifice: int = 1) -> tuple:
+    """One fn() traced by the profiler, after ``sacrifice`` sacrificed calls
+    (the profiler misses the first launches after it starts: ``profiled``):
+    the CUDA runtime calls the host makes inside it and the device's
+    kernels and copies that start inside it, by name, and their busy ms."""
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(sacrifice):
+            fn()
         torch.cuda.synchronize()
         with record_function(name):
             fn()
@@ -4114,6 +4185,226 @@ def bench_phase(dev, card, phase5_ms: float) -> dict:
     check(not waits, f"bench step: synchronising calls or pageable device-to-host copies: {waits}")
     print(f"[bench] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
     return runs.totals
+
+
+# ---------------------------------------------------------------------------
+# phase 29: slice J, K3 (csrc/ldpc_bp.cu)
+# ---------------------------------------------------------------------------
+
+K3_PARTED_MAX = 0.01  # share of an input's rows that may part from _bp, never one that converged
+# the phases whose paths decode LDPC codewords on the card: each must have launched K3
+K3_CODED_TAGS = ("6-7 coded batch", "8-12 streams", "13-17 slice D", "23 wire compat", "24 sharded",
+                 "25 app", "27 slice H")
+
+
+class BpLedger:
+    """K3's launches on the paths.  Once installed, every ``ldpc.decode_mm``
+    and ``ldpc.decode_bank_mm`` call on a CUDA tensor (the receivers', the
+    tools', ``decode_mm_twopass``'s inner calls) must launch K3 once, or once
+    a code of the bank, counted from the wrapper's count just before and
+    just after the call; each is booked under the phase named in ``tag``.
+    The last call's arguments are kept in ``last``, so that phase 29 can hold
+    K3 to ``_bp`` on the tensors a path decoded.  Under ``plain_bp`` a call
+    must launch nothing."""
+
+    def __init__(self):
+        self.tag, self.plain, self.last = "setup", False, None
+        self.by_tag = {}  # tag -> [calls, launches]
+
+    def install(self) -> None:
+        def counted(fn, per_call):
+            def call(llr, *args, **kw):
+                n0 = ldpc_cuda.bp_decode_cuda.LAUNCHES
+                out = fn(llr, *args, **kw)
+                if self.on_card(llr):
+                    want = 0 if self.plain else per_call(args, kw)
+                    got = ldpc_cuda.bp_decode_cuda.LAUNCHES - n0
+                    check(got == want, f"[{self.tag}] {fn.__name__}: {got} K3 launches, expected {want}")
+                    if not self.plain:
+                        row = self.by_tag.setdefault(self.tag, [0, 0])
+                        row[0] += 1
+                        row[1] += got
+                        self.last = (fn.__name__, llr, args, kw)
+                return out
+            return call
+
+        ldpc.decode_mm = counted(ldpc.decode_mm, lambda a, kw: 1)
+        ldpc.decode_bank_mm = counted(ldpc.decode_bank_mm,
+                                      lambda a, kw: (a[1] if len(a) > 1 else kw["bank"]).n_codes)
+
+    @staticmethod
+    def on_card(llr) -> bool:
+        return llr.is_cuda
+
+    def totals(self) -> tuple:
+        """(calls, launches) over the paths' phases (all but phase 29's own)."""
+        rows = [v for k, v in self.by_tag.items() if k != "29 K3"]
+        return sum(r[0] for r in rows), sum(r[1] for r in rows)
+
+
+BP = BpLedger()
+
+
+@contextlib.contextmanager
+def plain_bp():
+    """BP on its plain version on CUDA tensors too (what the port ran
+    before K3): for comparisons only."""
+    orig = ldpc._decode
+    ldpc._decode = lambda llr, g, max_iters, done, bf16: ldpc._bp(llr, g, max_iters, done=done, bf16=bf16)[:3]
+    BP.plain = True
+    try:
+        yield
+    finally:
+        ldpc._decode = orig
+        BP.plain = False
+
+
+def k3_against_plain(what: str, llr, g, done=None, bf16: bool = False) -> dict:
+    """K3, called directly (no path's launch), against ``_bp`` on the same
+    CUDA tensors: ok and iterations equal on every row, hard bits and final
+    totals bit-equal on every row that converged; a row that never
+    converged may part (an ulp of a transcendental), and such rows are
+    counted and named, at most ``K3_PARTED_MAX`` of them."""
+    total = torch.empty_like(llr)
+    hard, iters, ok = ldpc_cuda.bp_decode_cuda(llr, g, 15, done=done, bf16=bf16, total_out=total)
+    hard0, iters0, ok0, total0 = ldpc._bp(llr, g, 15, done=done, bf16=bf16)
+    torch.cuda.synchronize()
+    n = llr.shape[0]
+    check(torch.equal(ok, ok0), f"K3 vs _bp on {what}: ok parted on {int((ok != ok0).sum())} rows")
+    check(torch.equal(iters, iters0), f"K3 vs _bp on {what}: iterations parted on {int((iters != iters0).sum())} rows")
+    parted = (hard != hard0).any(1) | (total.view(torch.int32) != total0.view(torch.int32)).any(1)
+    ids = torch.nonzero(parted).flatten().tolist()
+    check(not bool((parted & ok0).any()), f"K3 vs _bp on {what}: converged rows parted: {ids[:20]}")
+    check(len(ids) <= K3_PARTED_MAX * n, f"K3 vs _bp on {what}: {len(ids)} rows parted: {ids[:20]}")
+    err = float((total - total0).abs().max()) if n else 0.0
+    print(f"[k3] {what}: {n} codewords, ok rate {ok.float().mean().item():.4f}, iterations mean "
+          f"{iters.float().mean().item():.4f} max {int(iters.max())}: K3 against _bp: ok and iterations equal on "
+          f"every row, hard bits and totals bit-equal on {n - len(ids)} rows, parted rows {len(ids)} {ids[:10]}, "
+          f"max |d total| {err:.3e}", flush=True)
+    return {"rows": n, "parted": len(ids), "max_abs_err": err, "iters": iters}
+
+
+def in_turns(fns: dict, reps: dict, rounds: int = 2) -> dict:
+    """ms a call of each fn by CUDA events, after a warm-up call each, the
+    variants in turns (a, b, b, a every round): {name: (median, windows)}."""
+    for fn in fns.values():
+        fn()
+    names = list(fns)
+    ms = {k: [] for k in names}
+    for _ in range(rounds):
+        for k in names + names[::-1]:
+            ms[k].append(cuda_ms(fns[k], reps[k]))
+    return {k: (median(v), v) for k, v in ms.items()}
+
+
+def k3_phase(dev, card, paths: dict) -> dict:
+    """Phase 29.  Returns K3's entry for the ``kernels`` line."""
+    t_phase = time.perf_counter()
+    code = paths["rxp"].fec.code
+    _, codes, h = h_llrs(dev)
+    inputs = {}  # name -> (llr, graph)
+    for snr in ("25 dB", "11 dB"):
+        name, llr, _, _ = paths["calls"][snr]
+        check(name == "decode_mm" and llr.shape == (B_FEC * paths["rxp"].fec.max_ncws, code.N),
+              f"the coded step's BP call at {snr}: {name} {tuple(llr.shape)}")
+        inputs[f"coded {snr}"] = (llr.float().contiguous(), code.graph)
+    for regime, x in h.items():
+        inputs[f"{H_CW} {regime}"] = (torch.as_tensor(x, device=dev), codes["card"].graph)
+
+    # ---- K3 against _bp on the paths' own tensors ----
+    cmp = {what: k3_against_plain(what, x, g) for what, (x, g) in inputs.items()}
+    for what in ("coded 11 dB", f"{H_CW} knee"):
+        cmp[f"{what}, bf16"] = k3_against_plain(f"{what}, bf16", *inputs[what], bf16=True)
+    name, llr, args, kw = paths["calls"]["two-code bank"]
+    check(name == "decode_bank_mm", f"the two-code bank's BP call: {name}")
+    code_idx, bank = args[0], args[1]
+    sel = torch.clamp(code_idx, 1, bank.n_codes) - 1
+    for ci, g in enumerate(bank.graphs):
+        what = f"two-code bank at {SNR_MIXED_DB:g} dB, code {ci + 1} (other rows marked done)"
+        cmp[what] = k3_against_plain(what, llr.float().contiguous(), g, done=sel != ci)
+    for what, c in (("coded 11 dB", code), (f"{H_CW} waterfall", codes["card"])):
+        x = inputs[what][0]
+        got = ldpc.decode_mm_twopass(x, c)
+        with plain_bp():
+            want = ldpc.decode_mm_twopass(x, c)
+        check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+              and torch.equal(got[0][want[2]], want[0][want[2]]),
+              f"decode_mm_twopass on {what}: K3 against _bp")
+        print(f"[k3] decode_mm_twopass on {what}: through K3 and through _bp, ok and iterations equal on every "
+              f"row, hard bits on every converged row ({int(want[2].sum())} of {x.shape[0]})", flush=True)
+    rows = sum(c["rows"] for c in cmp.values())
+    parted = sum(c["parted"] for c in cmp.values())
+    max_err = max(c["max_abs_err"] for c in cmp.values())
+
+    # ---- times: _bp, K3, K3, _bp ----
+    times = {}
+    for what, (x, g) in inputs.items():
+        t = in_turns({"plain": lambda: ldpc._bp(x, g, 15), "k3": lambda: ldpc_cuda.bp_decode_cuda(x, g, 15)},
+                     {"plain": 3, "k3": 20})
+        it = cmp[what]["iters"]
+        by_bytes = ldpc_cuda.bp_bytes(*x.shape) / HBM_BYTES_PER_S * 1e3
+        by_ops = ldpc_cuda.bp_ops(it, g) / FP32_OPS_PER_S * 1e3
+        times[what] = {"ms": t["k3"][0], "plain_ms": t["plain"][0], "bound_ms": max(by_bytes, by_ops),
+                       "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                       "mean_iters": it.float().mean().item()}
+        print(f"[k3-timing] {what}: K3 {t['k3'][0]:.4f} ms (windows {[round(v, 4) for v in t['k3'][1]]}), _bp "
+              f"{t['plain'][0]:.3f} ms ({[round(v, 3) for v in t['plain'][1]]}); bound {times[what]['bound_ms']:.4f} ms "
+              f"by {times[what]['bound_by']} ({by_bytes:.4f} ms for {ldpc_cuda.bp_bytes(*x.shape)} bytes, "
+              f"{by_ops:.4f} ms for {ldpc_cuda.bp_ops(it, g)} operations at {it.float().mean().item():.4f} updates a "
+              f"codeword), {times[what]['bound_ms'] / t['k3'][0]:.1%} of it; library call: none computes it ({card})",
+              flush=True)
+
+    # ---- the coded step with K3 and with _bp, in turns ----
+    rxp, rcfg = paths["rxp"], paths["rcfg"]
+    for snr, (stream, _) in paths["streams"].items():
+        def step_plain(stream=stream):
+            with plain_bp():
+                return rx_step(rxp, stream, B_FEC)
+        t = in_turns({"plain": step_plain, "k3": lambda: rx_step(rxp, stream, B_FEC)},
+                     {"plain": STEPS_PER_WINDOW, "k3": STEPS_PER_WINDOW})
+        stages_k3, iters, _ = coded_stages(rxp, rcfg, stream)
+        with plain_bp():
+            stages_plain, _, _ = coded_stages(rxp, rcfg, stream)
+        print(f"[k3-step] {snr:g} dB coded step B={B_FEC}: with K3 {t['k3'][0]:.3f} ms (windows "
+              f"{[round(v, 3) for v in t['k3'][1]]}), with _bp {t['plain'][0]:.3f} ms "
+              f"({[round(v, 3) for v in t['plain'][1]]}); phase 7's median {paths['step_ms'][snr]:.3f} ms ({card})")
+        print(f"[k3-step] {snr:g} dB stages (ms, median of 5), with K3: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages_k3.items()) + "; with _bp: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages_plain.items())
+              + f"; mean BP iterations {iters.float().mean().item():.4f}", flush=True)
+
+    # ---- one decode_mm traced: one kernel, no host read ----
+    x = inputs["coded 11 dB"][0]
+    for _ in range(3):  # a profiler window now and then comes back empty
+        # one launch a call: late in the script the profiler misses a dozen or more at its start
+        api, device, busy = traced_step(lambda: ldpc.decode_mm(x, code), "k3_decode_mm", sacrifice=64)
+        if device:
+            break
+    print(f"[k3] one decode_mm traced at {x.shape[0]} codewords: CUDA runtime calls "
+          + (", ".join(f"{k} {v}" for k, v in sorted(api.items())) or "none seen")
+          + "; on the device's timeline " + ", ".join(f"{k} {v}" for k, v in sorted(device.items()))
+          + f", busy {busy:.4f} ms ({card})", flush=True)
+    check(sum(device.values()) == 1 and "bp_kernel" in next(iter(device)),
+          f"a traced decode_mm: device work {device}, expected the one K3 kernel")
+    waits = [k for k in list(api) + list(device) if "Synchronize" in k or "DtoH" in k or "Memcpy" in k]
+    check(not waits, f"a traced decode_mm: synchronising calls or copies {waits}")
+
+    # ---- launches on the paths ----
+    print("[k3] launches a phase (BP calls / K3 launches): "
+          + ", ".join(f"{k} {c} / {n}" for k, (c, n) in BP.by_tag.items()), flush=True)
+    for tag in K3_CODED_TAGS:
+        check(BP.by_tag.get(tag, [0, 0])[1] > 0, f"phase {tag} launched no K3")
+    calls, launches = BP.totals()
+    print(f"[k3] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    main = times["coded 11 dB"]
+    return {"name": "ldpc_bp", "route": "cuda", "source": "gr_dtl_tpu_torch/csrc/ldpc_bp.cu",
+            "replaces": "gr_dtl_tpu/ops/ldpc.py:249-353", "launches": launches,
+            # a step: a BP call of a path (a coded receive step makes one)
+            "launches_per_step": launches / calls, "max_abs_err": max_err, "rows_compared": rows,
+            "parted_rows": parted, "ms": main["ms"], "ms_by": "events", "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+            "at": f"the coded 11 dB step's {x.shape[0]} codewords of n={code.N}",
+            "ms_at": times}
 
 
 def meshmod_cpu():

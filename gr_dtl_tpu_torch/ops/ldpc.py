@@ -28,10 +28,17 @@ Device part:
   with per-codeword code selection (large banks).  Both run one loop.
 
 Early exit: the reference scans a fixed 15 iterations and skips the
-message update once every codeword's syndrome passed (messages are
-frozen per codeword once it converges).  Here the loop breaks on that
-condition, one host sync per iteration; ``(hard, iters_used, ok)`` are
-the same either way, and ``early_exit=False`` runs every iteration.
+message update once every codeword's syndrome passed; ``iters_used``
+counts per codeword and a converged codeword's messages are frozen, so the
+update it would still take changes nothing it returns.  On a CUDA tensor
+``decode_mm`` and ``decode_bank_mm`` (one launch a code of the bank) run K3,
+``ops/ldpc_cuda.bp_decode_cuda`` (``csrc/ldpc_bp.cu``): a block a codeword,
+each stopping at its own syndrome pass, with no host check; a failed build
+or launch raises.  On a CPU tensor they run the plain version ``_bp``,
+whose loop breaks once every row has converged (one host read an
+iteration; ``early_exit=False`` runs every iteration).  ``(hard,
+iters_used, ok)`` are the same either way.  ``decode`` and
+``decode_bank`` stay plain PyTorch on both devices.
 
 Codeword layout ``[check bits | systematic bits]``; LLR > 0 <=> bit 0;
 shortened bits are pinned at ``+SHORTENED_LLR``.
@@ -45,6 +52,8 @@ import os
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gr_dtl_tpu_torch.ops import ldpc_cuda
 
 __all__ = ["SHORTENED_LLR", "build_ldpc", "build_ldpc_bank", "BpGraph", "LdpcCode",
            "LdpcBank", "ldpc_from_reference", "bank_from_reference", "encode", "encode_bank",
@@ -364,6 +373,18 @@ def _gather(x: torch.Tensor, idx: torch.Tensor, fill: float) -> torch.Tensor:
     return xp[:, idx.reshape(-1)].reshape(x.shape[0], *idx.shape)
 
 
+def _slot_sum(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, L] gathered at idx [R, D] (an index of L reads 0) and summed
+    over the D slots left to right: ``((x[i0] + x[i1]) + x[i2]) + ...``.
+    A reduction kernel adds in an order of its own, another on the CPU than
+    on the card; this order is the one K3 (``csrc/ldpc_bp.cu``) adds in."""
+    g = _gather(x, idx, 0.0)
+    s = g[..., 0]
+    for d in range(1, idx.shape[-1]):
+        s = s + g[..., d]
+    return s
+
+
 def _syndrome_ok(total: torch.Tensor, g: BpGraph) -> torch.Tensor:
     """[B] bool: every parity check of the hard decision is satisfied
     (integer counts, exact)."""
@@ -373,7 +394,7 @@ def _syndrome_ok(total: torch.Tensor, g: BpGraph) -> torch.Tensor:
 
 def _var_totals(llr: torch.Tensor, c2v: torch.Tensor, g: BpGraph, bf16: bool) -> torch.Tensor:
     """Channel LLR plus every incoming check message, per variable."""
-    return llr + _gather(_round_bf16(c2v) if bf16 else c2v, g.var_edges, 0.0).sum(-1)
+    return llr + _slot_sum(_round_bf16(c2v) if bf16 else c2v, g.var_edges)
 
 
 def _check_update(c2v, total, done, g: BpGraph, bf16: bool):
@@ -387,7 +408,7 @@ def _check_update(c2v, total, done, g: BpGraph, bf16: bool):
     t = torch.tanh(torch.clamp(v2c, -20.0, 20.0) / 2.0)
     mag = torch.log(torch.clamp(t.abs(), min=1e-12))
     neg = (t < 0).float()
-    sum_mag = _gather(rnd(mag), g.chk_edges, 0.0).sum(-1)  # [B, M]
+    sum_mag = _slot_sum(rnd(mag), g.chk_edges)  # [B, M]
     sum_neg = _gather(neg, g.chk_edges, 0.0).sum(-1)
     loo_mag = rnd(sum_mag)[:, g.edge_chk] - mag  # leave-one-out at checks
     loo_neg = sum_neg[:, g.edge_chk] - neg
@@ -419,6 +440,13 @@ def _bp(llr: torch.Tensor, g: BpGraph, max_iters: int = 15,
     return (total < 0).int(), iters, done | _syndrome_ok(total, g), total
 
 
+def _decode(llr: torch.Tensor, g: BpGraph, max_iters: int, done: torch.Tensor | None, bf16: bool):
+    """(hard, iters_used, ok) of one graph: K3 on a CUDA tensor, ``_bp`` on a CPU one."""
+    if llr.is_cuda:
+        return ldpc_cuda.bp_decode_cuda(llr.contiguous(), g, max_iters, done=done, bf16=bf16)
+    return _bp(llr, g, max_iters, done=done, bf16=bf16)[:3]
+
+
 def decode_mm(llr: torch.Tensor, code: LdpcCode, max_iters: int = 15, bf16: bool | None = None):
     """Batched sum-product BP, the reference's ``decode_mm`` contract.
 
@@ -430,7 +458,7 @@ def decode_mm(llr: torch.Tensor, code: LdpcCode, max_iters: int = 15, bf16: bool
     ``iters_used`` counts the message updates a codeword took part in
     (max_iters if its syndrome never passed).
     """
-    return _bp(llr.float(), code.graph, max_iters, bf16=_bf16_switch(bf16))[:3]
+    return _decode(llr.float(), code.graph, max_iters, None, _bf16_switch(bf16))
 
 
 def decode_mm_twopass(llr: torch.Tensor, code: LdpcCode, max_iters: int = 15, first: int = 3,
@@ -478,10 +506,11 @@ def decode_bank_mm(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
     """BP over a small code bank: every code's decode runs over the whole
     batch with that code's graph, and each codeword keeps its own code's
     result (the reference's ``decode_bank_mm`` contract, which decodes
-    with ``decode_mm`` and so honours ``GR_DTL_TPU_BP_BF16`` too).  Rows of
-    other codes start converged, so they never hold back the batch-wide
-    exit; a row's result does not depend on the other rows, so this
-    changes nothing the caller sees."""
+    with ``decode_mm`` and so honours ``GR_DTL_TPU_BP_BF16`` too): on a
+    CUDA tensor one K3 launch a code.  Rows of other codes start converged,
+    so they take no update (and never hold back ``_bp``'s batch-wide exit);
+    a row's result does not depend on the other rows, so this changes
+    nothing the caller sees."""
     llr = llr.float()
     bf16 = _bf16_switch(None)
     sel = torch.clamp(code_idx, 1, bank.n_codes) - 1
@@ -491,7 +520,7 @@ def decode_bank_mm(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
     ok = torch.zeros(B, dtype=torch.bool, device=llr.device)
     for ci, g in enumerate(bank.graphs):
         mine = sel == ci
-        h, it, o, _ = _bp(llr, g, max_iters, done=~mine, bf16=bf16)
+        h, it, o = _decode(llr, g, max_iters, ~mine, bf16)
         hard = torch.where(mine[:, None], h, hard)
         iters = torch.where(mine, it, iters)
         ok = torch.where(mine, o, ok)

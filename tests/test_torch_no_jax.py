@@ -24,7 +24,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import torch
-from gr_dtl_tpu_torch.ops import equalizer_cuda, scans_cuda, sync_cuda, tb_cuda
+from gr_dtl_tpu_torch.ops import equalizer_cuda, ldpc_cuda, scans_cuda, sync_cuda, tb_cuda
 assert sync_cuda.timing_metric_cuda.LAUNCHES == 0 and tb_cuda.tb_reassemble_cuda.LAUNCHES == 0
 assert scans_cuda.trigger_lock_scan_cuda.LAUNCHES == 0 and scans_cuda.frame_accounting_cuda.LAUNCHES == 0
 from gr_dtl_tpu_torch.models import fec_chain, session
@@ -38,6 +38,7 @@ rx = session.StreamRx(cfg, "cpu", frames_per_block=2, fec=fec_chain.build_fec(cf
 assert len(rx.process(zeros(rx.block_samples, "complex64"))) == 3
 assert tb_cuda.tb_reassemble_cuda.LAUNCHES == 0 and sync_cuda.timing_metric_cuda.LAUNCHES == 0
 assert equalizer_cuda.equalize_frame_cuda.LAUNCHES == 0  # nor does the equalizer
+assert ldpc_cuda.bp_decode_cuda.LAUNCHES == 0  # nor BP (its plain version, _bp)
 # the telemetry (capture mode needs no pyzmq) and the wire-compat tables
 from gr_dtl_tpu_torch.testbed import monitor
 from gr_dtl_tpu_torch.utils import wire_compat
