@@ -15,8 +15,8 @@ as tools/bench_fec.py draws them.  Phases:
    csrc/tb_ring.cu, csrc/equalizer.cu, csrc/feedback_scan.cu and
    csrc/ldpc_bp.cu for sm_90a from this checkout, one nvcc each, side by
    side; from here on every ``ldpc.decode_mm`` / ``decode_bank_mm`` call on
-   the card is held to its K3 launches (``BpLedger``: one a call, one a
-   code of a bank), booked by phase;
+   the card is held to its K3 launches (``BpLedger``: one a call, a bank's
+   too), booked by phase;
 3. kernel vs plain: the CUDA Schmidl-Cox kernel against its plain
    PyTorch version on the card, at the uncoded path's N, at two ragged
    lengths, on a [4, N] batch and at the edges of its tiling: one output
@@ -277,22 +277,32 @@ the JAX package's ``bench.py``; no new kernel):
    kernels, copies, busy ms and idle share are printed.
 
 And slice J, K3 (csrc/ldpc_bp.cu), the sum-product BP of ``decode_mm`` and
-``decode_bank_mm`` as one launch (a code of the bank), with no host check:
+``decode_bank_mm`` as one launch a call (a bank's too, every row with its
+own code), with no host check:
 
-29. K3: the kernel, called directly, against the plain ``ldpc._bp`` on the
-   same CUDA tensors: the 13,312 codewords the coded step decoded at 25 and
-   at 11 dB (phase 6), the 2048-codeword clean, knee and waterfall sets of
-   phase 27, the two-code bank's codewords at 30 dB (each code, the other
-   code's rows marked done), bf16 on (11 dB and the knee), and
-   ``decode_mm_twopass`` through K3 and through ``_bp``: ok and iterations
-   equal on every row, hard bits and final totals bit-equal on every
-   converged row, parted rows counted and named (at most 1%); K3 and
-   ``_bp`` timed in turns (CUDA events) at those five inputs beside the
-   bound from this run's iterations; the coded step and its stages at 25
-   and 11 dB with K3 and with ``_bp`` in turns; one ``decode_mm`` at 13,312
-   codewords traced (one device kernel, no synchronising call, no copy);
-   the K3 launches of every phase (each coded phase must have launched it).
-   The kernels line gains an eighth entry (its launches: phases 6-28).
+29. K3: how it is compiled (the ``ptxas`` report of each instantiation,
+   codewords resident an SM, and what a message update issues an edge in
+   its SASS, ``tools/bench_k3.py``); the kernel, called directly, against
+   the plain ``ldpc._bp`` on the same CUDA tensors: the 13,312 codewords the
+   coded step decoded at 25 and at 11 dB (phase 6), the 2048-codeword clean,
+   knee and waterfall sets of phase 27, the two-code bank's codewords at
+   30 dB (each code with the other code's rows marked done, and every row
+   its own code in one launch), banks of 8 and 32 codes at 1024 codewords
+   (tools/bench_bank_switch's inputs) in one launch each, quasi-cyclic codes
+   of row degree 12 and 64 and a bank of row degrees 6 and 12 (rows past
+   the 8 unrolled slots: the guarded instantiation), bf16 on (11 dB and
+   the knee), and ``decode_mm_twopass`` through K3 and through ``_bp``: ok and
+   iterations equal on every row, hard bits and final totals bit-equal on
+   every converged row, parted rows counted and named (at most 1%); K3 and
+   ``_bp`` timed in turns (CUDA events, and K3's device time by the
+   profiler) at those five inputs and at banks of 1, 2, 8 and 32 codes,
+   beside the bound and the issue floor from this run's iterations; the
+   coded step and its stages at 25 and 11 dB with K3 and with
+   ``_bp`` in turns; one ``decode_mm`` at 13,312 codewords and one
+   ``decode_bank_mm`` of 32 codes traced (one device kernel each, no
+   synchronising call, no copy); the K3 launches of every phase (each coded
+   phase must have launched it, one a BP call).  The kernels line's eighth
+   entry is K3's (its launches: phases 6-28).
 
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
@@ -320,9 +330,10 @@ from gr_dtl_tpu_torch.ops import _cuda_build, burst, channel, constellation as c
 from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda, feedback_cuda, ldpc_cuda, scans_cuda, sync
 from gr_dtl_tpu_torch.ops import sync_cuda, tb_cuda
 from gr_dtl_tpu_torch.testbed import monitor, phy_converge
-from gr_dtl_tpu_torch.tools import _timing
+from gr_dtl_tpu_torch.tools import _ldpc_bench, _timing
 from gr_dtl_tpu_torch.tools import bench_equalizer as eq_bench
 from gr_dtl_tpu_torch.tools import bench_feedback_scan as k7_bench
+from gr_dtl_tpu_torch.tools import bench_k3
 from gr_dtl_tpu_torch.tools import bench_sync_metric as metric_bench
 from gr_dtl_tpu_torch.utils import alist, config as cfgmod, wire_compat
 
@@ -4097,17 +4108,21 @@ BENCH_CHAIN = (16, 3)         # card against CPU: frames a step, chained steps
 BENCH_INTS = ("payload", "payload_len", "crc_ok", "header_ok", "frame_no", "cnst_id", "carr_offset")
 
 
-def traced_step(fn, name: str, sacrifice: int = 1) -> tuple:
-    """One fn() traced by the profiler, after ``sacrifice`` sacrificed calls
-    (the profiler misses the first launches after it starts: ``profiled``):
-    the CUDA runtime calls the host makes inside it and the device's
-    kernels and copies that start inside it, by name, and their busy ms."""
+def traced_step(fn, name: str, sacrifice: int = 1, warm_ms: float = 0.0) -> tuple:
+    """One fn() traced by the profiler, after ``sacrifice`` sacrificed calls,
+    and more until ``warm_ms`` have passed (the profiler misses the first
+    launches after it starts, ``profiled``, for longer than a few calls of
+    a short fn take): the CUDA runtime calls the host makes inside it and
+    the device's kernels and copies that start inside it, by name, and
+    their busy ms."""
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(sacrifice):
+        t0, n = time.perf_counter(), 0
+        while n < sacrifice or (time.perf_counter() - t0) * 1e3 < warm_ms:
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            n += 1
         with record_function(name):
             fn()
         torch.cuda.synchronize()  # outside the span: the step's own calls only
@@ -4200,8 +4215,8 @@ K3_CODED_TAGS = ("6-7 coded batch", "8-12 streams", "13-17 slice D", "23 wire co
 class BpLedger:
     """K3's launches on the paths.  Once installed, every ``ldpc.decode_mm``
     and ``ldpc.decode_bank_mm`` call on a CUDA tensor (the receivers', the
-    tools', ``decode_mm_twopass``'s inner calls) must launch K3 once, or once
-    a code of the bank, counted from the wrapper's count just before and
+    tools', ``decode_mm_twopass``'s inner calls) must launch K3 once, a
+    bank's call too, counted from the wrapper's count just before and
     just after the call; each is booked under the phase named in ``tag``.
     The last call's arguments are kept in ``last``, so that phase 29 can hold
     K3 to ``_bp`` on the tensors a path decoded.  Under ``plain_bp`` a call
@@ -4229,8 +4244,7 @@ class BpLedger:
             return call
 
         ldpc.decode_mm = counted(ldpc.decode_mm, lambda a, kw: 1)
-        ldpc.decode_bank_mm = counted(ldpc.decode_bank_mm,
-                                      lambda a, kw: (a[1] if len(a) > 1 else kw["bank"]).n_codes)
+        ldpc.decode_bank_mm = counted(ldpc.decode_bank_mm, lambda a, kw: 1)
 
     @staticmethod
     def on_card(llr) -> bool:
@@ -4247,8 +4261,8 @@ BP = BpLedger()
 
 @contextlib.contextmanager
 def plain_bp():
-    """BP on its plain version on CUDA tensors too (what the port ran
-    before K3): for comparisons only."""
+    """``decode_mm`` on its plain version on CUDA tensors too (what the port
+    ran before K3): for comparisons only."""
     orig = ldpc._decode
     ldpc._decode = lambda llr, g, max_iters, done, bf16: ldpc._bp(llr, g, max_iters, done=done, bf16=bf16)[:3]
     BP.plain = True
@@ -4259,15 +4273,23 @@ def plain_bp():
         BP.plain = False
 
 
-def k3_against_plain(what: str, llr, g, done=None, bf16: bool = False) -> dict:
+def k3_against_plain(what: str, llr, g, done=None, bf16: bool = False, code_idx=None) -> dict:
     """K3, called directly (no path's launch), against ``_bp`` on the same
     CUDA tensors: ok and iterations equal on every row, hard bits and final
     totals bit-equal on every row that converged; a row that never
     converged may part (an ulp of a transcendental), and such rows are
-    counted and named, at most ``K3_PARTED_MAX`` of them."""
+    counted and named, at most ``K3_PARTED_MAX`` of them.  With a bank's
+    graphs and ``code_idx``: one launch, each row against ``_bp`` of its
+    own code (the other codes' rows marked done)."""
     total = torch.empty_like(llr)
-    hard, iters, ok = ldpc_cuda.bp_decode_cuda(llr, g, 15, done=done, bf16=bf16, total_out=total)
-    hard0, iters0, ok0, total0 = ldpc._bp(llr, g, 15, done=done, bf16=bf16)
+    n0 = ldpc_cuda.bp_decode_cuda.LAUNCHES
+    hard, iters, ok = ldpc_cuda.bp_decode_cuda(llr, g, 15, done=done, bf16=bf16, total_out=total,
+                                               code_idx=code_idx)
+    check(ldpc_cuda.bp_decode_cuda.LAUNCHES == n0 + 1, f"K3 on {what}: not one launch")
+    if code_idx is None:
+        hard0, iters0, ok0, total0 = ldpc._bp(llr, g, 15, done=done, bf16=bf16)
+    else:
+        hard0, iters0, ok0, total0 = plain_bank(llr, code_idx, g, bf16, totals=True)
     torch.cuda.synchronize()
     n = llr.shape[0]
     check(torch.equal(ok, ok0), f"K3 vs _bp on {what}: ok parted on {int((ok != ok0).sum())} rows")
@@ -4278,23 +4300,33 @@ def k3_against_plain(what: str, llr, g, done=None, bf16: bool = False) -> dict:
     check(len(ids) <= K3_PARTED_MAX * n, f"K3 vs _bp on {what}: {len(ids)} rows parted: {ids[:20]}")
     err = float((total - total0).abs().max()) if n else 0.0
     print(f"[k3] {what}: {n} codewords, ok rate {ok.float().mean().item():.4f}, iterations mean "
-          f"{iters.float().mean().item():.4f} max {int(iters.max())}: K3 against _bp: ok and iterations equal on "
-          f"every row, hard bits and totals bit-equal on {n - len(ids)} rows, parted rows {len(ids)} {ids[:10]}, "
-          f"max |d total| {err:.3e}", flush=True)
+          f"{iters.float().mean().item():.4f} max {int(iters.max())}: K3 (one launch) against _bp: ok and iterations "
+          f"equal on every row, hard bits and totals bit-equal on {n - len(ids)} rows, parted rows {len(ids)} "
+          f"{ids[:10]}, max |d total| {err:.3e}", flush=True)
     return {"rows": n, "parted": len(ids), "max_abs_err": err, "iters": iters}
 
 
-def in_turns(fns: dict, reps: dict, rounds: int = 2) -> dict:
-    """ms a call of each fn by CUDA events, after a warm-up call each, the
-    variants in turns (a, b, b, a every round): {name: (median, windows)}."""
-    for fn in fns.values():
-        fn()
-    names = list(fns)
-    ms = {k: [] for k in names}
-    for _ in range(rounds):
-        for k in names + names[::-1]:
-            ms[k].append(cuda_ms(fns[k], reps[k]))
-    return {k: (median(v), v) for k, v in ms.items()}
+def plain_bank(llr, code_idx, graphs, bf16: bool = False, totals: bool = False):
+    """``decode_bank_mm``'s plain version on the card: ``_bp`` a code over
+    every row, the other codes' rows marked done, merged a code at a time."""
+    sel = torch.clamp(code_idx, 1, len(graphs)) - 1
+    out = None
+    for ci, g in enumerate(graphs):
+        mine = sel == ci
+        got = ldpc._bp(llr, g, 15, done=~mine, bf16=bf16)[:4 if totals else 3]
+        out = got if out is None else [torch.where(mine.reshape(-1, *[1] * (a.ndim - 1)), a, o)
+                                       for a, o in zip(got, out)]
+    return out
+
+
+def sass_of(counts: dict, bf16: bool, slots: int) -> tuple:
+    """(name, counts) of the instantiation bp_kernel<bf16, slots> of a build."""
+    tag = f"bp_kernelILb{int(bf16)}ELi{slots}EE"
+    name = next(k for k in counts if tag in k)
+    return name, counts[name]
+
+
+K3_BANK_CW = 1024  # codewords of the banks phase 29 times (tools/bench_bank_switch's)
 
 
 def k3_phase(dev, card, paths: dict) -> dict:
@@ -4310,6 +4342,28 @@ def k3_phase(dev, card, paths: dict) -> dict:
         inputs[f"coded {snr}"] = (llr.float().contiguous(), code.graph)
     for regime, x in h.items():
         inputs[f"{H_CW} {regime}"] = (torch.as_tensor(x, device=dev), codes["card"].graph)
+    banks = bench_k3.bank_inputs(dev, K3_BANK_CW)
+
+    # ---- how K3 is compiled: registers, residency, what an update issues an edge ----
+    clock = bench_k3.sm_clock_mhz()
+    # the main path's instantiation: bp_kernel<bf16, the code's row degree>, warps_for's warps
+    lib, slots, warps = ldpc_cuda.library_path(), code.graph.chk_edges.shape[1], ldpc_cuda.warps_for(code.graph)
+    resident = {bf: ldpc_cuda.resident_codewords(code.graph, bf) for bf in (False, True)}
+    for line in bench_k3.ptxas_lines(lib):
+        print(f"[k3-build] {line}")
+    counts = bench_k3.kernel_counts(lib)
+    for bf in (False, True):
+        name, c = sass_of(counts, bf, slots)
+        e = c["per_edge"]
+        print(f"[k3-sass] bf16={int(bf)} ({name}): {c['kernel_instructions']} instructions; a message update "
+              f"issues {e['instructions']:.1f} an edge in the loops that evaluate the transcendentals "
+              f"({e['mufu']:.1f} MUFU, {e['lds']:.1f} shared loads, {e['sts']:.1f} shared stores an edge; loops "
+              f"{c['loops']}), barriers in its loop of updates {c['update_loop_barriers']}; resident codewords an "
+              f"SM {resident[bf]} ({resident[bf] * bench_k3.SMS} on {bench_k3.SMS} SMs, {warps} warps a codeword) "
+              f"({card})", flush=True)
+    per_edge = sass_of(counts, False, slots)[1]["per_edge"]["instructions"]
+    print(f"[k3-sass] issue floor: instructions an edge x E x updates over {bench_k3.SMS} SMs x "
+          f"{bench_k3.SCHEDULERS} schedulers x {bench_k3.LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
 
     # ---- K3 against _bp on the paths' own tensors ----
     cmp = {what: k3_against_plain(what, x, g) for what, (x, g) in inputs.items()}
@@ -4319,9 +4373,27 @@ def k3_phase(dev, card, paths: dict) -> dict:
     check(name == "decode_bank_mm", f"the two-code bank's BP call: {name}")
     code_idx, bank = args[0], args[1]
     sel = torch.clamp(code_idx, 1, bank.n_codes) - 1
+    x = llr.float().contiguous()
     for ci, g in enumerate(bank.graphs):
         what = f"two-code bank at {SNR_MIXED_DB:g} dB, code {ci + 1} (other rows marked done)"
-        cmp[what] = k3_against_plain(what, llr.float().contiguous(), g, done=sel != ci)
+        cmp[what] = k3_against_plain(what, x, g, done=sel != ci)
+    what = f"two-code bank at {SNR_MIXED_DB:g} dB, every row its own code"
+    cmp[what] = k3_against_plain(what, x, bank.graphs, code_idx=code_idx.contiguous())
+    for n, (x, idx, bank) in banks.items():
+        if n in (8, 32):
+            what = f"bank of {n} codes, {K3_BANK_CW} codewords"
+            cmp[what] = k3_against_plain(what, x, bank.graphs, code_idx=idx)
+    # rows wider than the unrolled slots (8): the guarded instantiation, alone and in a bank
+    qc = lambda dc, z: ldpc._graph(_ldpc_bench.qc_parity(3, dc, z), dev)
+    for dc, z in ((12, 16), (64, 8)):
+        g = qc(dc, z)
+        what = f"a quasi-cyclic code of row degree {dc}, {H_CW} codewords"
+        x = torch.as_tensor(_ldpc_bench.zero_word_llrs(H_CW, g.n_var, dc), device=dev)
+        cmp[what] = k3_against_plain(what, x, g)
+    what = f"a bank of quasi-cyclic codes of row degrees 6 and 12, {H_CW} codewords, every row its own code"
+    cmp[what] = k3_against_plain(
+        what, torch.as_tensor(_ldpc_bench.zero_word_llrs(H_CW, 192, 7), device=dev), (qc(6, 32), qc(12, 16)),
+        code_idx=torch.as_tensor(np.random.RandomState(8).randint(0, 4, H_CW).astype(np.int32), device=dev))
     for what, c in (("coded 11 dB", code), (f"{H_CW} waterfall", codes["card"])):
         x = inputs[what][0]
         got = ldpc.decode_mm_twopass(x, c)
@@ -4337,22 +4409,39 @@ def k3_phase(dev, card, paths: dict) -> dict:
     max_err = max(c["max_abs_err"] for c in cmp.values())
 
     # ---- times: _bp, K3, K3, _bp ----
+    def timed(what, fns, nbytes, ops, edge_updates):
+        # the plain loop's device time is not taken: it is tens of launches a call, host-bound
+        t = bench_k3.in_turns(fns, {"plain": 3, "k3": 20}, {"k3": 1})
+        ms, dev_ms, plain_ms = median(t["k3"]["events"]), median(t["k3"]["device"]), median(t["plain"]["events"])
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        floor = bench_k3.issue_floor_ms(per_edge, 1, edge_updates, clock)
+        row = times[what] = {"ms": ms, "device_ms": dev_ms, "ms_windows": t["k3"]["events"],
+                             "device_ms_windows": t["k3"]["device"], "plain_ms": plain_ms,
+                             "bound_ms": max(by_bytes, by_ops),
+                             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                             "issue_floor_ms": floor, "edge_updates": edge_updates}
+        print(f"[k3-timing] {what}: K3 {ms:.4f} ms by events (windows {[round(v, 4) for v in t['k3']['events']]}), "
+              f"{dev_ms:.4f} ms on the device (profiler, {[round(v, 4) for v in t['k3']['device']]}); _bp "
+              f"{plain_ms:.3f} ms ({[round(v, 3) for v in t['plain']['events']]}); bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']} ({by_bytes:.4f} ms for {nbytes} bytes, {by_ops:.4f} ms for {ops} operations), "
+              f"{row['bound_ms'] / dev_ms:.1%} of the device time; issue floor {floor:.4f} ms ({edge_updates} "
+              f"edge updates at {per_edge:.1f} instructions), {floor / dev_ms:.1%} of it; library call: "
+              f"none computes it ({card})", flush=True)
+
     times = {}
     for what, (x, g) in inputs.items():
-        t = in_turns({"plain": lambda: ldpc._bp(x, g, 15), "k3": lambda: ldpc_cuda.bp_decode_cuda(x, g, 15)},
-                     {"plain": 3, "k3": 20})
         it = cmp[what]["iters"]
-        by_bytes = ldpc_cuda.bp_bytes(*x.shape) / HBM_BYTES_PER_S * 1e3
-        by_ops = ldpc_cuda.bp_ops(it, g) / FP32_OPS_PER_S * 1e3
-        times[what] = {"ms": t["k3"][0], "plain_ms": t["plain"][0], "bound_ms": max(by_bytes, by_ops),
-                       "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                       "mean_iters": it.float().mean().item()}
-        print(f"[k3-timing] {what}: K3 {t['k3'][0]:.4f} ms (windows {[round(v, 4) for v in t['k3'][1]]}), _bp "
-              f"{t['plain'][0]:.3f} ms ({[round(v, 3) for v in t['plain'][1]]}); bound {times[what]['bound_ms']:.4f} ms "
-              f"by {times[what]['bound_by']} ({by_bytes:.4f} ms for {ldpc_cuda.bp_bytes(*x.shape)} bytes, "
-              f"{by_ops:.4f} ms for {ldpc_cuda.bp_ops(it, g)} operations at {it.float().mean().item():.4f} updates a "
-              f"codeword), {times[what]['bound_ms'] / t['k3'][0]:.1%} of it; library call: none computes it ({card})",
-              flush=True)
+        timed(what, {"plain": lambda: ldpc._bp(x, g, 15), "k3": lambda: ldpc_cuda.bp_decode_cuda(x, g, 15)},
+              ldpc_cuda.bp_bytes(*x.shape), ldpc_cuda.bp_ops(it, g), int(it.sum()) * g.n_edge)
+        times[what]["mean_iters"] = it.float().mean().item()
+    for n, (x, idx, bank) in banks.items():
+        _, it, _ = ldpc.decode_bank_mm(x, idx, bank)
+        sel = idx.long() - 1
+        ops = sum(ldpc_cuda.bp_ops(it[sel == ci], g) for ci, g in enumerate(bank.graphs))
+        updates = sum(int(it[sel == ci].sum()) * g.n_edge for ci, g in enumerate(bank.graphs))
+        timed(f"bank of {n} codes, {K3_BANK_CW} codewords",
+              {"plain": lambda: plain_bank(x, idx, bank.graphs), "k3": lambda: ldpc.decode_bank_mm(x, idx, bank)},
+              ldpc_cuda.bp_bytes(*x.shape) + idx.element_size() * idx.numel(), ops, updates)
 
     # ---- the coded step with K3 and with _bp, in turns ----
     rxp, rcfg = paths["rxp"], paths["rcfg"]
@@ -4360,8 +4449,8 @@ def k3_phase(dev, card, paths: dict) -> dict:
         def step_plain(stream=stream):
             with plain_bp():
                 return rx_step(rxp, stream, B_FEC)
-        t = in_turns({"plain": step_plain, "k3": lambda: rx_step(rxp, stream, B_FEC)},
-                     {"plain": STEPS_PER_WINDOW, "k3": STEPS_PER_WINDOW})
+        t = {k: (median(v["events"]), v["events"]) for k, v in bench_k3.in_turns(
+            {"plain": step_plain, "k3": lambda: rx_step(rxp, stream, B_FEC)}, STEPS_PER_WINDOW).items()}
         stages_k3, iters, _ = coded_stages(rxp, rcfg, stream)
         with plain_bp():
             stages_plain, _, _ = coded_stages(rxp, rcfg, stream)
@@ -4373,21 +4462,29 @@ def k3_phase(dev, card, paths: dict) -> dict:
               + ", ".join(f"{k} {v:.3f}" for k, v in stages_plain.items())
               + f"; mean BP iterations {iters.float().mean().item():.4f}", flush=True)
 
-    # ---- one decode_mm traced: one kernel, no host read ----
+    # ---- one decode_mm and one decode_bank_mm traced: one kernel each, no host read ----
     x = inputs["coded 11 dB"][0]
-    for _ in range(3):  # a profiler window now and then comes back empty
-        # one launch a call: late in the script the profiler misses a dozen or more at its start
-        api, device, busy = traced_step(lambda: ldpc.decode_mm(x, code), "k3_decode_mm", sacrifice=64)
-        if device:
-            break
-    print(f"[k3] one decode_mm traced at {x.shape[0]} codewords: CUDA runtime calls "
-          + (", ".join(f"{k} {v}" for k, v in sorted(api.items())) or "none seen")
-          + "; on the device's timeline " + ", ".join(f"{k} {v}" for k, v in sorted(device.items()))
-          + f", busy {busy:.4f} ms ({card})", flush=True)
-    check(sum(device.values()) == 1 and "bp_kernel" in next(iter(device)),
-          f"a traced decode_mm: device work {device}, expected the one K3 kernel")
-    waits = [k for k in list(api) + list(device) if "Synchronize" in k or "DtoH" in k or "Memcpy" in k]
-    check(not waits, f"a traced decode_mm: synchronising calls or copies {waits}")
+    xb, idxb, bankb = banks[32]
+    for what, fn in ((f"decode_mm at {x.shape[0]} codewords", lambda: ldpc.decode_mm(x, code)),
+                     (f"decode_bank_mm of {bankb.n_codes} codes at {xb.shape[0]} codewords",
+                      lambda: ldpc.decode_bank_mm(xb, idxb, bankb))):
+        # one launch a call: late in the script the profiler misses the launches of its first
+        # milliseconds, more than 64 calls of a short fn; a window that comes back empty is taken
+        # again, warmed for longer
+        for warm_ms in (50.0, 200.0, 800.0, 2000.0):
+            api, device, busy = traced_step(fn, "k3_traced", sacrifice=64, warm_ms=warm_ms)
+            if device:
+                break
+            print(f"[k3] one {what} traced after {warm_ms:g} ms of warm calls: the profiler saw no device "
+                  f"work in the span (runtime calls {api}); taken again", flush=True)
+        print(f"[k3] one {what} traced: CUDA runtime calls "
+              + (", ".join(f"{k} {v}" for k, v in sorted(api.items())) or "none seen")
+              + "; on the device's timeline " + ", ".join(f"{k} {v}" for k, v in sorted(device.items()))
+              + f", busy {busy:.4f} ms ({card})", flush=True)
+        check(sum(device.values()) == 1 and "bp_kernel" in next(iter(device)),
+              f"a traced {what}: device work {device}, expected the one K3 kernel")
+        waits = [k for k in list(api) + list(device) if "Synchronize" in k or "DtoH" in k or "Memcpy" in k]
+        check(not waits, f"a traced {what}: synchronising calls or copies {waits}")
 
     # ---- launches on the paths ----
     print("[k3] launches a phase (BP calls / K3 launches): "
@@ -4395,6 +4492,7 @@ def k3_phase(dev, card, paths: dict) -> dict:
     for tag in K3_CODED_TAGS:
         check(BP.by_tag.get(tag, [0, 0])[1] > 0, f"phase {tag} launched no K3")
     calls, launches = BP.totals()
+    check(launches == calls, f"the paths made {calls} BP calls and {launches} K3 launches, not one a call")
     print(f"[k3] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
     main = times["coded 11 dB"]
     return {"name": "ldpc_bp", "route": "cuda", "source": "gr_dtl_tpu_torch/csrc/ldpc_bp.cu",
@@ -4403,6 +4501,8 @@ def k3_phase(dev, card, paths: dict) -> dict:
             "launches_per_step": launches / calls, "max_abs_err": max_err, "rows_compared": rows,
             "parted_rows": parted, "ms": main["ms"], "ms_by": "events", "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+            "device_ms": main["device_ms"], "issue_floor_ms": main["issue_floor_ms"], "instructions_per_edge": per_edge,
+            "resident_codewords_per_sm": resident[False],
             "at": f"the coded 11 dB step's {x.shape[0]} codewords of n={code.N}",
             "ms_at": times}
 

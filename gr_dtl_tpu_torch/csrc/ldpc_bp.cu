@@ -1,54 +1,73 @@
-// K3: the log/sign-domain sum-product BP decoder as one CUDA launch.
+// K3: the log/sign-domain sum-product BP decoder as one CUDA launch, for one
+// code or for a bank of codes with a code id a codeword.
 //
 // What it replaces.  The JAX package decodes with
 // gr_dtl_tpu/ops/ldpc.py::decode_mm (:249-353): a lax.scan of max_iters
 // message updates over a flat [B, E] edge tensor, every gather a 0/1
 // incidence matmul, each update behind a lax.cond that skips it once every
-// codeword of the batch has passed its syndrome check.  XLA compiles it into
-// one loop.  Its plain PyTorch version,
-// gr_dtl_tpu_torch/ops/ldpc.py::_bp, is a Python loop of ~40 launches an
-// update and reads `done.all()` back to the host after each one.
+// codeword of the batch has passed its syndrome check; decode_bank_mm
+// (:545-572) runs it once a code of the bank and keeps each codeword's own
+// code's result.  XLA compiles each into one loop.  Their plain PyTorch
+// version, gr_dtl_tpu_torch/ops/ldpc.py::_bp, is a Python loop of ~40
+// launches an update and reads `done.all()` back to the host after each one.
 //
-// What it computes.  Per codeword b (a row of llr [B, N]), with the check to
-// variable messages c2v [E] starting at 0 and it = 0:
-//   1. total[v] = llr[v] + sum_d c2v[var_edges[v, d]]  and  hard[v] = total[v] < 0;
-//   2. ok = every check's parity over hard[chk_vars[c, :]] is even;
+// What it computes.  Per codeword b (a row of llr [B, N]) of code c(b), with
+// the check to variable messages c2v [E] starting at 0 and it = 0:
+//   1. total[v] = llr[v] + sum_d c2v[var_edges[d, v]]  and  hard[v] = total[v] < 0;
+//   2. ok = every check's parity over hard[chk_vars[:, c]] is even;
 //   3. stop if done_in[b] or ok, or if it == max_iters;
-//   4. per edge e: v2c = total[edge_var[e]] - c2v[e], t = tanh(clamp(v2c, +-20) / 2),
-//      mag[e] = log(max(|t|, 1e-12)), neg[e] = t < 0;
-//   5. per check c: sum_mag[c] and sum_neg[c] over its edges chk_edges[c, :];
-//   6. per edge e: loo = (-1)^(sum_neg - neg) exp(sum_mag - mag), clamped to
-//      +-0.999999, c2v[e] = 2 atanh(loo);
-//   7. it += 1, back to 1.
+//   4. per check c and each of its edges e = chk_edges[r, c] (variable
+//      chk_vars[r, c]): v2c = total[var] - c2v[e], t = tanh(clamp(v2c, +-20) / 2),
+//      mag = log(max(|t|, 1e-12)), neg = t < 0; the check's sums of mag and
+//      neg over its slots; then per edge loo = (-1)^(sum_neg - neg)
+//      exp(sum_mag - mag), clamped to +-0.999999, c2v[e] = 2 atanh(loo);
+//   5. it += 1, back to 1.
 // Outputs hard [B, N] int32, iters [B] int32 (the updates taken), ok [B]
 // (done_in, or the last syndrome check passed) and, when asked, the last
-// totals [B, N] float32.  A done_in row takes no update: its c2v stay 0.
+// totals [B, N] float32.  A done_in row takes no update.
 //
 // Why a codeword may stop on its own.  The reference's exit is batch-wide,
 // but its iters_used counts per codeword (ldpc.py:321), done is sticky, and a
 // converged codeword's messages are frozen (:310): the update it would still
 // take changes nothing it returns.  So stopping each codeword at its own
 // syndrome pass gives the reference's (hard, iters_used, ok) exactly, with no
-// barrier across blocks and nothing read back to the host.
+// barrier across blocks and nothing read back to the host.  decode_bank_mm's
+// rows do not depend on each other either, so one launch decodes every row
+// with its own code (c(b) = clamp(code_idx[b], 1, C) - 1, the reference's
+// selection) where the reference runs every code over every row.
 //
 // What bounds it.  Bytes: a codeword reads N float32 LLRs and writes N int32
 // hard bits (and 5 bytes of iters and ok), 32.0 MB at 13,312 codewords of
-// n = 300, 9.5 us at 3.35 TB/s; the operations of the updates that the data
-// needs (~1.7 a codeword at the coded path's waterfall) come to fewer.  What
-// stands in the way is the tail: a codeword that never converges runs
-// max_iters updates one after another, each four block-wide barriers deep.
+// n = 300, 9.6 us at 3.35 TB/s.  Issue: the accurate tanhf, logf, expf and
+// atanhf are tens of instructions each, so a message update issues ~140 an
+// edge (tools/bench_k3.py counts them in this source's SASS), and 2048
+// codewords of n = 300 at 15 updates (27.6 M edge updates) are bound by it.
+// And the tail: a codeword that never converges runs max_iters updates one
+// after another, so its update's latency is what a batch of a few such
+// codewords waits for.
 //
-// Design.  One block of kThreads threads a codeword; the codeword's LLRs,
-// messages, totals and the per-edge and per-check scratch live in shared
-// memory for the whole decode (~12 KB at n = 300, so 16 codewords share an
-// SM), and the LLRs are read from device memory once.  Each step is a loop
-// of the block's threads over variables, checks or edges, separated by
-// __syncthreads; the syndrome is one __syncthreads_and.  Every loop trip
-// count and every exit is the same for the whole block.  The Tanner-graph
-// tables are int16 copies (ops/ldpc_cuda.py builds and caches them) read
-// through the caches.  Padded slots of var_edges / chk_edges index E and of
-// chk_vars index N: the kernel keeps c2v[E] = mag[E] = neg[E] = 0 and
-// hard[N] = 0, so a pad reads 0 as the plain version's gather does.
+// Design.  One block a codeword, of 1 to 8 warps (the wrapper's choice: a
+// thread a check of the largest code, 5 warps at n = 300); a thread holds up
+// to 80 registers.  The block keeps the codeword's LLRs, totals and messages
+// in shared memory (bp_smem_bytes, 6,008 bytes at n = 300) for the whole
+// decode; its threads take checks for the syndrome and the update and
+// variables for the totals, and an update waits at three barriers: the
+// syndrome's __syncthreads_and, one after the check update, one after the
+// totals.  A thread holds a check's edges, message magnitudes and signs and
+// its sums in registers, unrolled over exactly the call's row slots (every
+// code's row tables are padded to them) with no branch, so the slots' chains
+// interleave; nothing but c2v and the totals goes through shared memory.
+// Every message is 0 until a codeword's first update, so the first totals
+// are llr + 0 with no gather, and the first update reads no message: c2v is
+// never zeroed, a codeword that converges at once touches no message, and a
+// done row computes that pass, writes its outputs and stops.  The tables of
+// every code of a call are one int16 array, slot-major ([dv, N], [dc, M]:
+// neighbouring threads read neighbouring entries of a slot), found through a
+// header a code (ops/ldpc_cuda.py builds and caches both); padded slots of
+// var_edges / chk_edges index E and of chk_vars index N, and the kernel keeps
+// c2v[E] = total[N] = 0, so a pad reads 0 as the plain version's gather does.
+// Rows wider than kRegSlots take the kMaxDeg instantiation, whose slots are
+// guarded and whose thread holds up to 255 registers.
 //
 // Arithmetic.  The plain version is a chain of PyTorch kernels, each rounding
 // its result to float32, so every sum or difference here is __fadd_rn /
@@ -70,10 +89,14 @@
 
 namespace {
 
-constexpr int kThreads = 128;      // a block: one codeword
+constexpr int kMaxThreads = 256;   // a block: one codeword, 1 to 8 warps (the wrapper picks)
+constexpr int kMinBlocks = 3;      // so that a thread may hold 80 registers (85 of 65,536 / (3 x 256))
 constexpr int kMaxIndex = 32767;   // N and E, so that every index and pad fits int16
-constexpr int kMaxDeg = 64;        // column and row degree: a thread's serial sum in steps 1, 2, 5
+constexpr int kMaxDeg = 64;        // column and row degree
+constexpr int kRegSlots = 8;       // row degree up to which a lane's slots are unrolled with no guard
 constexpr int kMaxSmem = 232448;   // shared memory a block may use on sm_90 (227 KB)
+constexpr int kHeader = 7;         // ints a code in the header: M, E, dv, dc, and the offsets of
+                                   // var_edges, chk_edges and chk_vars in the tables
 
 template <bool kBf16>
 __device__ __forceinline__ float rnd(float x) {
@@ -91,95 +114,120 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
 
 __device__ __forceinline__ float clamp_min(float x, float lo) { return isnan(x) ? x : fmaxf(x, lo); }
 
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads) bp_kernel(
-    const float* __restrict__ llr, const uint8_t* __restrict__ done_in,
-    const int16_t* __restrict__ var_edges, int dv, const int16_t* __restrict__ chk_edges,
-    const int16_t* __restrict__ chk_vars, int dc, const int16_t* __restrict__ edge_var,
-    const int16_t* __restrict__ edge_chk, int N, int M, int E, int max_iters, int* __restrict__ hard,
-    int* __restrict__ iters, uint8_t* __restrict__ ok_out, float* __restrict__ total_out) {
-    extern __shared__ float smem[];
-    float* c2v = smem;                              // [E + 1], c2v[E] = 0
-    float* mag = c2v + (E + 1);                     // [E + 1], mag[E] = 0
-    float* total = mag + (E + 1);                   // [N]
-    float* lr = total + N;                          // [N]
-    float* sum_mag = lr + N;                        // [M]
-    int* sum_neg = (int*)(sum_mag + M);             // [M]
-    uint8_t* neg = (uint8_t*)(sum_neg + M);         // [E + 1], neg[E] = 0
-    uint8_t* hb = neg + (E + 1);                    // [N + 1], hb[N] = 0
-
-    const long long b = blockIdx.x;
-    const int tid = threadIdx.x;
-    for (int v = tid; v < N; v += kThreads) lr[v] = llr[b * N + v];
-    for (int e = tid; e <= E; e += kThreads) {
-        c2v[e] = 0.0f;
-        mag[e] = 0.0f;
-        neg[e] = 0;
+// One check's message update: its slots' v2c, tanh and log, the check's sums
+// left to right from slot 0, then each edge's leave-one-out message.  A pad
+// slot (edge E, variable N) reads total[N] = c2v[E] = 0, adds log 0 = 0 and
+// no sign, as mag[E] = neg[E] = 0 did, and stores nothing.  With kSlots <=
+// kRegSlots every row has exactly kSlots slots (the tables are padded to
+// them) and no slot is guarded, so the slots' chains interleave; wider rows
+// guard their slots past dc.
+template <bool kBf16, int kSlots>
+__device__ __forceinline__ void check_update(int M, int E, int dc, const int16_t* __restrict__ ce,
+                                             const int16_t* __restrict__ cv, const float* total, float* c2v,
+                                             bool first) {
+    float mag[kSlots];
+    int edge[kSlots];
+    unsigned long long negs = 0;
+    float s = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kSlots; ++r) {
+        if (kSlots > kRegSlots && r >= dc) break;
+        const int e = ce[r * M];
+        const float old = first ? 0.0f : c2v[e];  // every message is 0 before the first update
+        const float v2c = __fsub_rn(rnd<kBf16>(total[cv[r * M]]), old);
+        const float t = tanhf(__fmul_rn(clampf(v2c, -20.0f, 20.0f), 0.5f));
+        const bool real = e < E;
+        const float lg = logf(clamp_min(fabsf(t), 1e-12f));  // taken at a pad too: no branch in the slots
+        const float m = real ? lg : 0.0f;
+        negs |= (unsigned long long)(real && t < 0.0f) << r;
+        edge[r] = e;
+        mag[r] = m;
+        s = r == 0 ? rnd<kBf16>(m) : __fadd_rn(s, rnd<kBf16>(m));
     }
-    if (tid == 0) hb[N] = 0;
-    const bool skip = done_in != nullptr && done_in[b] != 0;
+    const float sum_mag = rnd<kBf16>(s);
+    const int parity = __popcll(negs) & 1;
+#pragma unroll
+    for (int r = 0; r < kSlots; ++r) {
+        if (kSlots > kRegSlots && r >= dc) break;
+        const float m = expf(__fsub_rn(sum_mag, mag[r]));
+        const float loo = clampf((parity ^ (int)(negs >> r)) & 1 ? -m : m, -0.999999f, 0.999999f);
+        const float msg = __fmul_rn(2.0f, atanhf(loo));
+        if (edge[r] < E) c2v[edge[r]] = msg;
+    }
+}
+
+template <bool kBf16, int kSlots>
+__global__ void __launch_bounds__(kMaxThreads, kSlots <= kRegSlots ? kMinBlocks : 1) bp_kernel(
+    const float* __restrict__ llr, const uint8_t* __restrict__ done_in, const void* __restrict__ code_idx,
+    int idx64, int n_codes, const int* __restrict__ header, const int16_t* __restrict__ tab, int N,
+    int max_iters, int* __restrict__ hard, int* __restrict__ iters, uint8_t* __restrict__ ok_out,
+    float* __restrict__ total_out) {
+    extern __shared__ float smem[];
+    const long long b = blockIdx.x;
+    const int tid = threadIdx.x, nt = blockDim.x;
+    int code = 0;
+    if (code_idx != nullptr) {
+        const long long id = idx64 ? ((const long long*)code_idx)[b] : ((const int*)code_idx)[b];
+        code = (int)(min(max(id, 1LL), (long long)n_codes) - 1);
+    }
+    const int* h = header + code * kHeader;
+    const int M = h[0], E = h[1], dv = h[2], dc = h[3];
+    const int16_t* var_edges = tab + h[4];  // [dv, N], pads E
+    const int16_t* chk_edges = tab + h[5];  // [dc, M], pads E
+    const int16_t* chk_vars = tab + h[6];   // [dc, M], pads N
+    float* lr = smem;                       // [N]
+    float* total = lr + N;                  // [N + 1], total[N] = 0
+    float* c2v = total + N + 1;             // [E + 1], c2v[E] = 0
+
+    // the first totals: every message is 0, so llr + 0 (which makes -0.0 +0.0, as _bp's sum does)
+    const float* row = llr + b * N;
+    for (int v = tid; v < N; v += nt) {
+        const float x = row[v];
+        lr[v] = x;
+        total[v] = __fadd_rn(x, 0.0f);
+    }
+    if (tid == 0) {
+        total[N] = 0.0f;
+        c2v[E] = 0.0f;
+    }
     __syncthreads();
 
     int it = 0;
-    bool ok = true;
-    for (;;) {
-        // 1. totals and hard decisions (_var_totals)
-        for (int v = tid; v < N; v += kThreads) {
-            const int16_t* ve = var_edges + v * dv;
-            float s = rnd<kBf16>(c2v[ve[0]]);
-            for (int d = 1; d < dv; ++d) s = __fadd_rn(s, rnd<kBf16>(c2v[ve[d]]));
-            const float t = __fadd_rn(lr[v], s);
-            total[v] = t;
-            hb[v] = t < 0.0f;
-        }
-        __syncthreads();
-        if (skip) break;  // ok stays true, it 0
-        // 2. syndrome (_syndrome_ok)
-        int even = 1;
-        for (int c = tid; c < M; c += kThreads) {
-            const int16_t* cv = chk_vars + c * dc;
-            int p = 0;
-            for (int r = 0; r < dc; ++r) p ^= hb[cv[r]];
-            even &= p == 0;
-        }
-        ok = __syncthreads_and(even) != 0;
-        // 3. this codeword's exit
-        if (ok || it == max_iters) break;
-        // 4. variable to check, in log/sign form (_check_update)
-        for (int e = tid; e < E; e += kThreads) {
-            const float v2c = __fsub_rn(rnd<kBf16>(total[edge_var[e]]), c2v[e]);
-            const float t = tanhf(__fmul_rn(clampf(v2c, -20.0f, 20.0f), 0.5f));
-            mag[e] = logf(clamp_min(fabsf(t), 1e-12f));
-            neg[e] = t < 0.0f;
-        }
-        __syncthreads();
-        // 5. per-check sums, slots left to right
-        for (int c = tid; c < M; c += kThreads) {
-            const int16_t* ce = chk_edges + c * dc;
-            float s = rnd<kBf16>(mag[ce[0]]);
-            int n = neg[ce[0]];
-            for (int r = 1; r < dc; ++r) {
-                s = __fadd_rn(s, rnd<kBf16>(mag[ce[r]]));
-                n += neg[ce[r]];
+    bool ok = true;  // a done row: ok, no update
+    if (done_in == nullptr || done_in[b] == 0) {
+        for (;;) {
+            // syndrome (_syndrome_ok): a pad reads total[N] = 0, an even bit
+            int odd = 0;
+            for (int c = tid; c < M; c += nt) {
+                int p = 0;
+#pragma unroll
+                for (int r = 0; r < kSlots; ++r) {
+                    if (kSlots > kRegSlots && r >= dc) break;
+                    p ^= total[chk_vars[r * M + c]] < 0.0f;
+                }
+                odd |= p;
             }
-            sum_mag[c] = s;
-            sum_neg[c] = n;
+            ok = __syncthreads_and(odd == 0) != 0;
+            if (ok || it == max_iters) break;
+            // the check update (_check_update), a thread a check
+            for (int c = tid; c < M; c += nt)
+                check_update<kBf16, kSlots>(M, E, dc, chk_edges + c, chk_vars + c, total, c2v, it == 0);
+            __syncthreads();
+            ++it;
+            // totals (_var_totals), a thread a variable, slots left to right
+            for (int v = tid; v < N; v += nt) {
+                float s = rnd<kBf16>(c2v[var_edges[v]]);
+                for (int d = 1; d < dv; ++d) s = __fadd_rn(s, rnd<kBf16>(c2v[var_edges[d * N + v]]));
+                total[v] = __fadd_rn(lr[v], s);
+            }
+            __syncthreads();
         }
-        __syncthreads();
-        // 6. leave-one-out at the checks, back to check to variable
-        for (int e = tid; e < E; e += kThreads) {
-            const int c = edge_chk[e];
-            const float m = expf(__fsub_rn(rnd<kBf16>(sum_mag[c]), mag[e]));
-            const float loo = clampf(((sum_neg[c] - neg[e]) & 1) ? -m : m, -0.999999f, 0.999999f);
-            c2v[e] = __fmul_rn(2.0f, atanhf(loo));
-        }
-        __syncthreads();
-        ++it;  // 7.
     }
 
-    for (int v = tid; v < N; v += kThreads) {
-        hard[b * N + v] = hb[v];
-        if (total_out != nullptr) total_out[b * N + v] = total[v];
+    for (int v = tid; v < N; v += nt) {
+        const float t = total[v];
+        hard[b * N + v] = t < 0.0f;
+        if (total_out != nullptr) total_out[b * N + v] = t;
     }
     if (tid == 0) {
         iters[b] = it;
@@ -187,38 +235,90 @@ __global__ void __launch_bounds__(kThreads) bp_kernel(
     }
 }
 
-// Shared memory a block takes for a code of N variables, M checks and E edges
-// (ops/ldpc_cuda.py::smem_bytes).
-long long bp_smem_bytes(int N, int M, int E) {
-    return 4LL * (2LL * (E + 1) + 2LL * N + 2LL * M) + (E + 1) + (N + 1);
+// Shared memory a block takes for codewords of N bits, codes of at most E
+// edges (ops/ldpc_cuda.py::smem_bytes).
+long long bp_smem_bytes(int N, int E) { return 4LL * (2LL * N + E + 2); }
+
+using Kernel = void (*)(const float*, const uint8_t*, const void*, int, int, const int*, const int16_t*, int,
+                        int, int*, int*, uint8_t*, float*);
+
+template <bool kBf16>
+Kernel pick_slots(int slots) {
+    switch (slots) {
+        case 1: return bp_kernel<kBf16, 1>;
+        case 2: return bp_kernel<kBf16, 2>;
+        case 3: return bp_kernel<kBf16, 3>;
+        case 4: return bp_kernel<kBf16, 4>;
+        case 5: return bp_kernel<kBf16, 5>;
+        case 6: return bp_kernel<kBf16, 6>;
+        case 7: return bp_kernel<kBf16, 7>;
+        case 8: return bp_kernel<kBf16, 8>;
+        default: return bp_kernel<kBf16, kMaxDeg>;
+    }
+}
+
+// The instantiation for rows of dc slots: exactly dc up to kRegSlots, else
+// the guarded kMaxDeg.
+Kernel pick(int bf16, int dc) { return bf16 ? pick_slots<true>(dc) : pick_slots<false>(dc); }
+
+constexpr int kMaxDevices = 64;
+constexpr int kKernels = 2 * (kRegSlots + 1);
+int prepared[kMaxDevices][kKernels];  // the dynamic shared memory each kernel was last allowed, a device
+
+// The attributes a launch needs, set once a kernel and device (and again
+// for more shared memory): its dynamic shared memory, and the carveout that
+// gives shared memory the most of an SM's 256 KB.
+cudaError_t prepare(Kernel kernel, int bf16, int dc, long long smem) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    int* done = dev < kMaxDevices ? &prepared[dev][(bf16 ? kRegSlots + 1 : 0) + (dc <= kRegSlots ? dc : 0)] : nullptr;
+    if (done != nullptr && *done >= smem) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess && done != nullptr) *done = (int)smem;
+    return err;
 }
 
 }  // namespace
 
-// llr [B, N] float32; done_in [B] bytes or null; var_edges [N, dv], chk_edges
-// and chk_vars [M, dc], edge_var and edge_chk [E] int16 (pads E, E and N);
-// all contiguous.  Writes hard [B, N] int32, iters [B] int32, ok [B] bytes and,
-// if total is not null, total [B, N] float32.  bf16: the bfloat16 rounding of
-// GR_DTL_TPU_BP_BF16.  Returns the CUDA error of the launch.
-extern "C" int bp_decode_launch(const void* llr, const void* done_in, const void* var_edges, int dv,
-                                const void* chk_edges, const void* chk_vars, int dc,
-                                const void* edge_var, const void* edge_chk, int B, int N, int M,
-                                int E, int max_iters, int bf16, void* hard, void* iters, void* ok,
+// llr [B, N] float32; done_in [B] bytes or null; code_idx [B] 1-based code
+// ids (int64 if idx64, else int32) or null (every row code 1); header
+// [n_codes, kHeader] int32 and tab int16 as ops/ldpc_cuda.py::bank_tables
+// lays them out, every code's rows padded to dc slots, max_e the codes'
+// largest E; warps: a block's warps (1 to 8); all contiguous.  Writes hard
+// [B, N] int32, iters [B] int32, ok [B] bytes and, if total is not null,
+// total [B, N] float32.  bf16: the bfloat16 rounding of GR_DTL_TPU_BP_BF16.
+// Returns the CUDA error of the launch.
+extern "C" int bp_decode_launch(const void* llr, const void* done_in, const void* code_idx, int idx64,
+                                int n_codes, const void* header, const void* tab, int max_e, int dc, int warps,
+                                int B, int N, int max_iters, int bf16, void* hard, void* iters, void* ok,
                                 void* total, void* stream) {
-    const long long smem = bp_smem_bytes(N, M, E);
-    if (B < 1 || N < 1 || M < 1 || E < 1 || N > kMaxIndex || E > kMaxIndex || dv < 1 ||
-        dv > kMaxDeg || dc < 1 || dc > kMaxDeg || max_iters < 0 || smem > kMaxSmem)
+    const long long smem = bp_smem_bytes(N, max_e);
+    if (B < 1 || N < 1 || N > kMaxIndex || max_e < 1 || max_e > kMaxIndex || dc < 1 || dc > kMaxDeg ||
+        warps < 1 || 32 * warps > kMaxThreads || n_codes < 1 || max_iters < 0 || smem > kMaxSmem)
         return (int)cudaErrorInvalidValue;
-    auto kernel = bf16 ? bp_kernel<true> : bp_kernel<false>;
-    if (smem > 48 * 1024) {
-        const cudaError_t err =
-            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    kernel<<<B, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-        (const float*)llr, (const uint8_t*)done_in, (const int16_t*)var_edges, dv,
-        (const int16_t*)chk_edges, (const int16_t*)chk_vars, dc, (const int16_t*)edge_var,
-        (const int16_t*)edge_chk, N, M, E, max_iters, (int*)hard, (int*)iters, (uint8_t*)ok,
-        (float*)total);
+    const Kernel kernel = pick(bf16, dc);
+    const cudaError_t err = prepare(kernel, bf16, dc, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<B, 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
+        (const float*)llr, (const uint8_t*)done_in, code_idx, idx64, n_codes, (const int*)header,
+        (const int16_t*)tab, N, max_iters, (int*)hard, (int*)iters, (uint8_t*)ok, (float*)total);
     return (int)cudaGetLastError();
+}
+
+// Codewords an SM keeps resident at once (a codeword a block of `warps`
+// warps) for codewords of N bits and codes of at most max_e edges and dc
+// row slots: cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative on a
+// CUDA error.
+extern "C" int bp_resident_codewords(int N, int max_e, int dc, int warps, int bf16) {
+    const long long smem = bp_smem_bytes(N, max_e);
+    const Kernel kernel = pick(bf16, dc);
+    int blocks = 0;
+    cudaError_t err = prepare(kernel, bf16, dc, smem);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * warps, (size_t)smem);
+    return err == cudaSuccess ? blocks : -(int)err;
 }

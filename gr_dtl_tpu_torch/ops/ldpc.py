@@ -31,10 +31,10 @@ Early exit: the reference scans a fixed 15 iterations and skips the
 message update once every codeword's syndrome passed; ``iters_used``
 counts per codeword and a converged codeword's messages are frozen, so the
 update it would still take changes nothing it returns.  On a CUDA tensor
-``decode_mm`` and ``decode_bank_mm`` (one launch a code of the bank) run K3,
-``ops/ldpc_cuda.bp_decode_cuda`` (``csrc/ldpc_bp.cu``): a block a codeword,
-each stopping at its own syndrome pass, with no host check; a failed build
-or launch raises.  On a CPU tensor they run the plain version ``_bp``,
+``decode_mm`` and ``decode_bank_mm`` run K3, ``ops/ldpc_cuda.bp_decode_cuda``
+(``csrc/ldpc_bp.cu``), in one launch a call (a bank's too, every row with
+its own code): a block a codeword, each stopping at its own syndrome pass,
+with no host check; a failed build or launch raises.  On a CPU tensor they run the plain version ``_bp``,
 whose loop breaks once every row has converged (one host read an
 iteration; ``early_exit=False`` runs every iteration).  ``(hard,
 iters_used, ok)`` are the same either way.  ``decode`` and
@@ -503,16 +503,20 @@ def decode_mm_twopass(llr: torch.Tensor, code: LdpcCode, max_iters: int = 15, fi
 
 def decode_bank_mm(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
                    max_iters: int = 15):
-    """BP over a small code bank: every code's decode runs over the whole
-    batch with that code's graph, and each codeword keeps its own code's
-    result (the reference's ``decode_bank_mm`` contract, which decodes
-    with ``decode_mm`` and so honours ``GR_DTL_TPU_BP_BF16`` too): on a
-    CUDA tensor one K3 launch a code.  Rows of other codes start converged,
-    so they take no update (and never hold back ``_bp``'s batch-wide exit);
-    a row's result does not depend on the other rows, so this changes
-    nothing the caller sees."""
+    """BP over a small code bank, each codeword with its own code's graph
+    (the reference's ``decode_bank_mm`` contract, which runs every code's
+    ``decode_mm`` over the whole batch, keeps each codeword's own code's
+    result, and so honours ``GR_DTL_TPU_BP_BF16`` too).  A row's result does
+    not depend on the other rows, so on a CUDA tensor one K3 launch decodes
+    every row with its own code.  On a CPU tensor ``_bp`` runs once a code
+    with the other codes' rows marked converged (they take no update and
+    never hold back its batch-wide exit), and the results are merged."""
     llr = llr.float()
     bf16 = _bf16_switch(None)
+    if llr.is_cuda:
+        idx = code_idx if code_idx.dtype in (torch.int32, torch.int64) else code_idx.long()
+        return ldpc_cuda.bp_decode_cuda(llr.contiguous(), bank.graphs, max_iters, bf16=bf16,
+                                        code_idx=idx.contiguous())
     sel = torch.clamp(code_idx, 1, bank.n_codes) - 1
     B, N = llr.shape
     hard = torch.zeros((B, N), dtype=torch.int32, device=llr.device)

@@ -2,17 +2,21 @@
 and its wrapper.
 
 ``bp_decode_cuda`` stands for the ``lax.scan`` of
-``gr_dtl_tpu/ops/ldpc.py::decode_mm`` (:249-353): one block a codeword
-keeps the codeword's messages in shared memory over all its updates and
-stops at its own syndrome pass, in one launch with no host check.  Its plain
-PyTorch version is ``ops/ldpc.py::_bp``, which ``decode_mm`` and
-``decode_bank_mm`` run on CPU tensors.  The library is built at first use
-(``ops/_cuda_build``); importing this module needs neither ``nvcc`` nor a
-GPU.  The wrapper launches on PyTorch's current stream, allocates its
-outputs with ``torch.empty``, never synchronises, reads nothing back, and
-counts its launches in ``bp_decode_cuda.LAUNCHES``.  The kernel reads
-int16 copies of a graph's index tables (:func:`bp_tables`), made on the
-graph's device at its first call and kept.
+``gr_dtl_tpu/ops/ldpc.py::decode_mm`` (:249-353) and, given a bank's graphs
+and a code id a row, of ``decode_bank_mm`` (:545-572): one block a
+codeword (a thread a check, :func:`warps_for`) keeps the codeword's
+messages in shared memory over all its updates and stops at its own
+syndrome pass, every row with its own code, in one launch with no host
+check.  Its plain PyTorch version is ``ops/ldpc.py::_bp``,
+which ``decode_mm`` and ``decode_bank_mm`` run on CPU tensors.  The
+library is built at first use (``ops/_cuda_build``); importing this module
+needs neither ``nvcc`` nor a GPU.  The wrapper launches on PyTorch's
+current stream, allocates its outputs with ``torch.empty``, never
+synchronises, reads nothing back, and counts its launches in
+``bp_decode_cuda.LAUNCHES``.  The kernel reads int16 copies of the codes'
+index tables, slot-major, one array for all the codes of a call
+(:func:`bank_tables`), made on the graphs' device at their first call and
+kept.
 """
 
 from __future__ import annotations
@@ -26,16 +30,21 @@ import torch
 
 from gr_dtl_tpu_torch.ops import _cuda_build
 
-__all__ = ["build", "library_path", "BpTables", "bp_tables", "smem_bytes", "bp_bytes", "bp_ops",
-           "bp_decode_cuda"]
+__all__ = ["build", "library_path", "BpTables", "bp_tables", "BankTables", "bank_tables", "smem_bytes",
+           "warps_for", "resident_codewords", "bp_bytes", "bp_ops", "bp_decode_cuda"]
 
 SOURCE = _cuda_build.PKG / "csrc" / "ldpc_bp.cu"
 NVCC_FLAGS = _cuda_build.NVCC_FLAGS
 # the source's limits: kMaxIndex (N and E, int16 tables), kMaxDeg (column and
-# row degree), kMaxSmem (a block's shared memory on sm_90)
+# row degree), kMaxSmem (a block's shared memory on sm_90), kMaxThreads (a
+# block's, so 8 warps); kRegSlots, the row degree up to which a thread's
+# slots are unrolled with no guard
 MAX_INDEX = 32767
 MAX_DEG = 64
 MAX_SMEM = 232448
+MAX_WARPS = 8
+REG_SLOTS = 8
+HEADER = 7  # ints a code in the header: M, E, dv, dc and the offsets of var_edges, chk_edges, chk_vars
 # operations of the plain version, one an element of each of its ops: a
 # message update's per edge (v2c, clamp, halve, tanh, abs, max, log, sign,
 # the two check sums, two leave-one-out differences, parity, exp, sign,
@@ -53,60 +62,122 @@ def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     lib = _cuda_build.load(SOURCE, NVCC_FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bp_decode_launch.argtypes = [p, p, p, i, p, p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    lib.bp_decode_launch.argtypes = [p, p, p, i, i, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
     lib.bp_decode_launch.restype = i
+    lib.bp_resident_codewords.argtypes = [i, i, i, i, i]
+    lib.bp_resident_codewords.restype = i
     return lib
 
 
 @dataclasses.dataclass(frozen=True)
 class BpTables:
     """A graph's index tables as the kernel reads them: int16, contiguous,
-    on the graph's device, with the graph's pads (E in ``var_edges`` and
-    ``chk_edges``, N in ``chk_vars``)."""
+    slot-major (a row a slot), on the graph's device, with the graph's pads
+    (E in ``var_edges`` and ``chk_edges``, N in ``chk_vars``)."""
 
     dv: int  # column degree slots
     dc: int  # row degree slots
-    var_edges: torch.Tensor  # [N, dv]
-    chk_edges: torch.Tensor  # [M, dc]
-    chk_vars: torch.Tensor  # [M, dc]
-    edge_var: torch.Tensor  # [E]
-    edge_chk: torch.Tensor  # [E]
+    var_edges: torch.Tensor  # [dv, N]
+    chk_edges: torch.Tensor  # [dc, M]
+    chk_vars: torch.Tensor  # [dc, M]
 
 
-def smem_bytes(N: int, M: int, E: int) -> int:
+@dataclasses.dataclass(frozen=True)
+class BankTables:
+    """The tables of every code of a call in one array, as the kernel finds
+    them: code c's ``var_edges``, ``chk_edges`` and ``chk_vars``
+    (:func:`bp_tables`, pads and all, the row tables padded with pad slots
+    to the call's largest row degree) lie in ``tab`` from the offsets in
+    row c of ``header``."""
+
+    n_var: int  # N, every code's
+    max_chk: int  # the largest M
+    max_edges: int  # the largest E
+    max_dc: int  # the largest row degree: every code's row slots in the tables
+    header: torch.Tensor  # [C, HEADER] int32: M, E, dv, max_dc, offset of var_edges, chk_edges, chk_vars
+    tab: torch.Tensor  # int16, every code's three tables flattened one after another
+
+
+def smem_bytes(N: int, E: int) -> int:
     """Shared memory a block of the kernel takes (the source's
-    ``bp_smem_bytes``): c2v and mag [E + 1], totals and LLRs [N], the check
-    sums [M] in 4 bytes each; neg [E + 1] and hard [N + 1] in one."""
-    return 4 * (2 * (E + 1) + 2 * N + 2 * M) + (E + 1) + (N + 1)
+    ``bp_smem_bytes``) for codewords of N bits and codes of at most E edges:
+    the LLRs [N], totals [N + 1] and messages [E + 1], 4 bytes each."""
+    return 4 * (2 * N + E + 2)
 
 
 def _check_limits(graph) -> None:
-    N, M, E = graph.n_var, graph.n_chk, graph.n_edge
+    N, E = graph.n_var, graph.n_edge
     dv, dc = graph.var_edges.shape[1], graph.chk_edges.shape[1]
-    if max(N, E) > MAX_INDEX or max(dv, dc) > MAX_DEG or smem_bytes(N, M, E) > MAX_SMEM:
+    if max(N, E) > MAX_INDEX or max(dv, dc) > MAX_DEG or smem_bytes(N, E) > MAX_SMEM:
         raise ValueError(f"K3 takes N, E <= {MAX_INDEX}, degrees <= {MAX_DEG} and {MAX_SMEM} bytes of "
-                         f"shared memory; this graph has N = {N}, M = {M}, E = {E}, column degree {dv}, "
-                         f"row degree {dc}, {smem_bytes(N, M, E)} bytes")
+                         f"shared memory; this graph has N = {N}, E = {E}, column degree {dv}, "
+                         f"row degree {dc}, {smem_bytes(N, E)} bytes")
 
 
 def bp_tables(graph) -> BpTables:
-    """The int16 tables of a :class:`~gr_dtl_tpu_torch.ops.ldpc.BpGraph`,
-    made on its device (no host read); raises above the kernel's limits."""
+    """The int16 slot-major tables of a
+    :class:`~gr_dtl_tpu_torch.ops.ldpc.BpGraph`, made on its device (no
+    host read); raises above the kernel's limits."""
     _check_limits(graph)
-    t = lambda x: x.to(torch.int16).contiguous()
-    return BpTables(dv=graph.var_edges.shape[1], dc=graph.chk_edges.shape[1],
-                    var_edges=t(graph.var_edges), chk_edges=t(graph.chk_edges),
-                    chk_vars=t(graph.chk_vars), edge_var=t(graph.edge_var), edge_chk=t(graph.edge_chk))
+    t = lambda x: x.T.to(torch.int16).contiguous()
+    return BpTables(dv=graph.var_edges.shape[1], dc=graph.chk_edges.shape[1], var_edges=t(graph.var_edges),
+                    chk_edges=t(graph.chk_edges), chk_vars=t(graph.chk_vars))
 
 
-_TABLES: dict[int, tuple] = {}  # id(graph) -> (graph, its BpTables); the graph is held so its id stays its own
+def bank_tables(graphs) -> BankTables:
+    """Every graph's :func:`bp_tables` in one int16 array on their device,
+    each code's row tables padded to the largest row degree (pads E and N),
+    with the header that finds them (built on the host from the graphs'
+    sizes, copied once).  The graphs must share N."""
+    if not graphs:
+        raise ValueError("a bank needs at least one graph")
+    N = graphs[0].n_var
+    if any(g.n_var != N for g in graphs):
+        raise ValueError(f"a bank's graphs must share N; got {[g.n_var for g in graphs]}")
+    dc = max(g.chk_edges.shape[1] for g in graphs)
+    parts, header, off = [], [], 0
+    for g in graphs:
+        tab = bp_tables(g)
+        pad = lambda t, fill: torch.cat([t, t.new_full((dc - tab.dc, t.shape[1]), fill)])
+        row = [g.n_chk, g.n_edge, tab.dv, dc]
+        for t in (tab.var_edges, pad(tab.chk_edges, g.n_edge), pad(tab.chk_vars, N)):
+            row.append(off)
+            parts.append(t.reshape(-1))
+            off += t.numel()
+        header.append(row)
+    dev = graphs[0].var_edges.device
+    return BankTables(n_var=N, max_chk=max(g.n_chk for g in graphs), max_edges=max(g.n_edge for g in graphs),
+                      max_dc=dc, header=torch.tensor(header, dtype=torch.int32, device=dev), tab=torch.cat(parts))
 
 
-def _tables(graph) -> BpTables:
-    hit = _TABLES.get(id(graph))
-    if hit is None or hit[0] is not graph:
-        hit = _TABLES[id(graph)] = (graph, bp_tables(graph))
-    return hit[1]
+_TABLES: dict[int, tuple] = {}  # id(graphs) -> (graphs, their BankTables, warps); held so the id stays theirs
+
+
+def _cached(graphs) -> tuple:
+    """(:func:`bank_tables`, :func:`warps_for`) of a graph, or of a tuple of
+    graphs (a bank's), made at the first call and kept."""
+    hit = _TABLES.get(id(graphs))
+    if hit is None or hit[0] is not graphs:
+        tab = bank_tables(graphs if isinstance(graphs, tuple) else (graphs,))
+        hit = _TABLES[id(graphs)] = (graphs, tab, min(MAX_WARPS, -(-tab.max_chk // 32)))
+    return hit[1:]
+
+
+def warps_for(graphs) -> int:
+    """A block's warps for these graphs' calls: a thread a check of the
+    largest code, up to ``MAX_WARPS``."""
+    return _cached(graphs)[1]
+
+
+def resident_codewords(graphs, bf16: bool = False) -> int:
+    """Codewords of these graphs' calls that one SM keeps resident at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; a codeword a block
+    of :func:`warps_for` warps)."""
+    tab, warps = _cached(graphs)
+    n = build().bp_resident_codewords(tab.n_var, tab.max_edges, tab.max_dc, warps, int(bool(bf16)))
+    if n < 0:
+        raise RuntimeError(f"bp_resident_codewords failed: CUDA error {-n}")
+    return n
 
 
 def bp_bytes(B: int, N: int) -> int:
@@ -130,30 +201,49 @@ def bp_ops(iters_used, graph) -> int:
 
 
 def bp_decode_cuda(llr: torch.Tensor, graph, max_iters: int = 15, done: torch.Tensor | None = None,
-                   bf16: bool = False, total_out: torch.Tensor | None = None):
-    """Sum-product BP over one graph in one launch: ``_bp``'s contract.
+                   bf16: bool = False, total_out: torch.Tensor | None = None,
+                   code_idx: torch.Tensor | None = None):
+    """Sum-product BP in one launch: ``_bp``'s contract, over one graph or a
+    bank with a code a row.
 
     Args:
       llr: [B, N] float32 CUDA tensor, contiguous, N = ``graph.n_var``; LLR
         > 0 <=> bit 0.
-      graph: a ``BpGraph`` on the same device.
+      graph: a ``BpGraph`` on the same device; or, with ``code_idx``, a
+        bank's graphs (the tuple ``LdpcBank.graphs``, every one of N
+        variables), row b decoded with graph ``clamp(code_idx[b], 1, C) - 1``
+        (``decode_bank_mm``'s selection).
       done: optional [B] bool, contiguous: rows treated as converged from the
-        start (their messages stay 0, their iterations 0, their ok True).
+        start (their iterations 0, their ok True, their totals the LLRs).
       bf16: round to bfloat16 the operands ``_bp(bf16=True)`` rounds.
       total_out: optional [B, N] float32 contiguous tensor that receives the
         final total LLRs (``_bp``'s fourth output).
+      code_idx: [B] int32 or int64 1-based code ids, contiguous, with a
+        bank's graphs.
     Returns (hard [B, N] int32, iters_used [B] int32, ok [B] bool).
     """
-    if llr.dtype != torch.float32 or llr.ndim != 2 or llr.shape[1] != graph.n_var:
-        raise ValueError(f"llr must be float32 [B, {graph.n_var}], got {llr.dtype} {tuple(llr.shape)}")
+    bank = isinstance(graph, tuple)
+    if bank != (code_idx is not None):
+        raise ValueError("code_idx goes with a bank's graphs (a tuple), and a tuple of graphs with code_idx")
+    graphs = graph if bank else (graph,)
+    N = graphs[0].n_var
+    if llr.dtype != torch.float32 or llr.ndim != 2 or llr.shape[1] != N:
+        raise ValueError(f"llr must be float32 [B, {N}], got {llr.dtype} {tuple(llr.shape)}")
     if not llr.is_contiguous():
         raise ValueError(f"llr must be contiguous, got strides {llr.stride()}")
+    B = llr.shape[0]
+    if code_idx is not None and (code_idx.dtype not in (torch.int32, torch.int64) or tuple(code_idx.shape) != (B,)
+                                 or not code_idx.is_contiguous()):
+        raise ValueError(f"code_idx must be a contiguous int32 or int64 [{B}] tensor, got {code_idx.dtype} "
+                         f"{tuple(code_idx.shape)} with strides {code_idx.stride()}")
     dev = llr.device
     if dev.type != "cuda":
         raise ValueError(f"bp_decode_cuda needs CUDA tensors, got one on {dev}")
-    if graph.var_edges.device != dev:
-        raise ValueError(f"the graph lies on {graph.var_edges.device}, the LLRs on {dev}")
-    B, N = llr.shape
+    tab, warps = _cached(graph)
+    if tab.tab.device != dev:
+        raise ValueError(f"the graph lies on {tab.tab.device}, the LLRs on {dev}")
+    if code_idx is not None and code_idx.device != dev:
+        raise ValueError(f"code_idx lies on {code_idx.device}, the LLRs on {dev}")
     if done is not None and (done.dtype != torch.bool or tuple(done.shape) != (B,)
                              or not done.is_contiguous() or done.device != dev):
         raise ValueError(f"done must be a contiguous bool [{B}] tensor on {dev}, got {done.dtype} "
@@ -163,19 +253,21 @@ def bp_decode_cuda(llr: torch.Tensor, graph, max_iters: int = 15, done: torch.Te
         raise ValueError(f"total_out must be a contiguous float32 [{B}, {N}] tensor on {dev}")
     if max_iters < 0:
         raise ValueError(f"max_iters must be >= 0, got {max_iters}")
-    tab = _tables(graph)
     hard = torch.empty((B, N), dtype=torch.int32, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:  # no codeword: nothing to launch
         return hard, iters, ok
-    with torch.cuda.device(dev):
-        rc = build().bp_decode_launch(
-            llr.data_ptr(), None if done is None else done.data_ptr(), tab.var_edges.data_ptr(), tab.dv,
-            tab.chk_edges.data_ptr(), tab.chk_vars.data_ptr(), tab.dc, tab.edge_var.data_ptr(),
-            tab.edge_chk.data_ptr(), B, N, graph.n_chk, graph.n_edge, int(max_iters), int(bool(bf16)),
-            hard.data_ptr(), iters.data_ptr(), ok.data_ptr(),
-            None if total_out is None else total_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = (llr.data_ptr(), ptr(done), ptr(code_idx), int(code_idx is not None and code_idx.dtype == torch.int64),
+            len(graphs), tab.header.data_ptr(), tab.tab.data_ptr(), tab.max_edges, tab.max_dc,
+            warps, B, N, int(max_iters), int(bool(bf16)), hard.data_ptr(), iters.data_ptr(),
+            ok.data_ptr(), ptr(total_out), torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = build().bp_decode_launch(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = build().bp_decode_launch(*args)
     if rc != 0:
         raise RuntimeError(f"bp_decode_launch failed: CUDA error {rc}")
     bp_decode_cuda.LAUNCHES += 1

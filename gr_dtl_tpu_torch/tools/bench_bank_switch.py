@@ -2,12 +2,13 @@
 tools/bench_bank_switch.py).
 
 ``fec_chain`` routes banks of up to ``BANK_MM_MAX_CODES`` codes
-(``GR_DTL_TPU_BANK_MM_MAX``, default 32) to ``ldpc.decode_bank_mm`` (one
-whole-batch decode a code) and larger banks to the gather form
+(``GR_DTL_TPU_BANK_MM_MAX``, default 32) to ``ldpc.decode_bank_mm`` (the
+reference's whole-batch decode a code; on the card one K3 launch, every
+row with its own code) and larger banks to the gather form
 ``ldpc.decode_bank`` (per-codeword tables).  This times both at each bank
 size of ``--sizes``.  A bank of n codes is n copies of the n=300/k=152
-demo code: the matmul-form's cost grows with the number of codes, not
-with their diversity.  Codewords, LLRs (amplitude 4, sigma 0.5) and code
+demo code: the reference's matmul form costs more with the number of
+codes, not with their diversity.  Codewords, LLRs (amplitude 4, sigma 0.5) and code
 ids from ``numpy.random.RandomState(0)`` and a ``torch.Generator``
 seeded ``--seed``.  Prints a JSON line a bank size, then the crossover.
 

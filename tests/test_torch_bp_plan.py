@@ -1,26 +1,34 @@
 """K3's plan on the CPU: a numpy model of ``csrc/ldpc_bp.cu``'s own schedule
 held to the port's plain BP (``ops/ldpc.py::_bp``) and to the reference's
-``decode_mm``, and the host side of ``ops/ldpc_cuda``.
+``decode_mm`` / ``decode_bank_mm``, and the host side of ``ops/ldpc_cuda``.
 
-The model decodes as the kernel does: a codeword at a time, from the
-compact int16 tables ``ldpc_cuda.bp_tables`` builds (pads read a zero kept
-at index E, or N), each degree sum added left to right from slot 0, and
-the codeword's loop ends at its own syndrome pass (or after ``max_iters``
-updates; a row marked done takes none).  It must equal ``_bp`` bit for
-bit (hard bits, iterations, ok and the final totals) and the reference's
-``decode_mm`` in hard bits, iterations and ok, on the inputs of
+The model decodes as the kernel does: a codeword at a time, with its own
+code's slot-major int16 tables found through the header of
+``ldpc_cuda.bank_tables`` (pads read a zero kept at index E, or N).  The
+first totals are the LLRs plus 0, with no gather; the first update reads
+no message.  The update goes a check at a time: the check's slots' v2c,
+tanh and log, its sums added left to right from slot 0, then each edge's
+leave-one-out message; the totals add their slots left to right too.  A
+codeword's loop ends at its own syndrome pass (or after ``max_iters``
+updates; a row marked done takes none), and a bank's rows each take their
+own code (``clamp(code_idx, 1, C) - 1``) in one pass.  It must equal
+``_bp`` bit for bit (hard bits, iterations, ok and the final totals) and
+the reference in hard bits, iterations and ok, on the inputs of
 tests/test_torch_ldpc.py: noiseless, noisy, shortened, moderate and
-waterfall vectors of all three alists, the two-code bank with the kernel's
-``done`` mask, and the bfloat16 switch.
+waterfall vectors of all three alists, the two-code bank (one pass with
+code ids, and the ``done`` mask), the bfloat16 switch and ``max_iters = 0``;
+and to ``_bp`` alone on rows wider than the kernel unrolls: regular
+quasi-cyclic codes of row degree 12 and 64, and a bank of row degrees 6
+and 12.
 
 Every sum and difference of the model is a float32 numpy operation, as
 each of ``_bp``'s is one PyTorch kernel.  tanh, log, exp and atanh are
 PyTorch's CPU functions: the CPU's atanh takes another path on the last
 elements of an array than on the rest (its vector body and its scalar
-tail differ by an ulp), so the model takes each function at the
-codeword's own place in a [B, E] array, where ``_bp`` takes it.  On the
-card the kernel calls the CUDA functions PyTorch's CUDA kernels call; the
-card tests (tests/test_torch_ldpc_cuda.py) hold it to ``_bp`` there.
+tail differ by an ulp), so the model takes each function at the edge's
+own place in a [B, E] array, where ``_bp`` takes it.  On the card the
+kernel calls the CUDA functions PyTorch's CUDA kernels call; the card
+tests (tests/test_torch_ldpc_cuda.py) hold it to ``_bp`` there.
 """
 
 import functools
@@ -35,6 +43,7 @@ import torch
 from gr_dtl_tpu.ops import ldpc as ref_ldpc
 
 from gr_dtl_tpu_torch.ops import ldpc, ldpc_cuda
+from gr_dtl_tpu_torch.tools import _ldpc_bench
 from test_torch_ldpc import ALISTS, BANK, _H, _bank_vectors, _llrs
 
 KINDS = ("noiseless", "noisy", "shortened", "moderate", "waterfall")
@@ -62,14 +71,14 @@ def _bf16(x: np.ndarray) -> np.ndarray:
     return torch.as_tensor(x).to(torch.bfloat16).float().numpy()
 
 
-def bp_model(llr: np.ndarray, graph, max_iters: int = 15, done=None, bf16: bool = False):
+def bp_model(llr: np.ndarray, graph, max_iters: int = 15, done=None, bf16: bool = False, code_idx=None):
     """The kernel's schedule in numpy -> (hard [B, N] int32, iters [B] int32,
-    ok [B] bool, totals [B, N] float32)."""
-    tab = ldpc_cuda.bp_tables(graph)
-    ve, ce, cv, ev, ec = (np.asarray(t.numpy(), np.int64) for t in (
-        tab.var_edges, tab.chk_edges, tab.chk_vars, tab.edge_var, tab.edge_chk))
+    ok [B] bool, totals [B, N] float32).  ``graph``: a graph, or a bank's
+    graphs (a tuple) with ``code_idx`` [B] 1-based ids."""
+    graphs = graph if isinstance(graph, tuple) else (graph,)
+    banked = ldpc_cuda.bank_tables(graphs)
+    header, tab = banked.header.numpy(), np.asarray(banked.tab.numpy(), np.int64)
     rows, N = llr.shape
-    E = graph.n_edge
     rnd = _bf16 if bf16 else (lambda x: x)
     f32 = np.float32
     hard = np.zeros((rows, N), np.int32)
@@ -77,34 +86,51 @@ def bp_model(llr: np.ndarray, graph, max_iters: int = 15, done=None, bf16: bool 
     ok_out = np.zeros(rows, bool)
     totals = np.zeros((rows, N), np.float32)
 
-    def slot_sum(x, idx):  # left to right from slot 0
-        s = x[idx[:, 0]]
-        for d in range(1, idx.shape[1]):
-            s = s + x[idx[:, d]]
-        return s
-
     for b in range(rows):
+        code = 0 if code_idx is None else min(max(int(code_idx[b]), 1), len(graphs)) - 1
+        M, E, dv, dc, o_ve, o_ce, o_cv = (int(x) for x in header[code])
+        ve = tab[o_ve:o_ve + dv * N].reshape(dv, N)
+        ce = tab[o_ce:o_ce + dc * M].reshape(dc, M)
+        cv = tab[o_cv:o_cv + dc * M].reshape(dc, M)
+        real = ce < E  # [dc, M]: the slots that hold an edge
+
+        def at_edges(fn, x):
+            """fn of each real slot of x [dc, M] at its edge's place in a
+            [rows, E] array, as _bp takes it; pads 0."""
+            flat = np.zeros(E, f32)
+            flat[ce[real]] = x[real]
+            y = np.zeros(x.shape, f32)
+            y[real] = _at(fn, flat, b, rows)[ce[real]]
+            return y
+
         c2v = np.zeros(E + 1, f32)  # c2v[E]: the pad's zero
+        total = llr[b] + f32(0.0)  # the first totals: no gather
         it, ok = 0, True
-        while True:
-            total = llr[b] + slot_sum(rnd(c2v), ve)
-            hb = np.append(total < 0, False).astype(np.int64)
-            if done is not None and done[b]:
-                break
-            ok = bool((slot_sum(hb, cv) % 2 == 0).all())
+        while done is None or not done[b]:
+            hb = np.append(total < 0, False).astype(np.int64)  # hb[N]: total[N] = 0
+            ok = bool((hb[cv].sum(0) % 2 == 0).all())
             if ok or it == max_iters:
                 break
-            v2c = rnd(total)[ev] - c2v[:E]
-            t = _at(torch.tanh, np.clip(v2c, f32(-20.0), f32(20.0)) * f32(0.5), b, rows)
-            mag = _at(torch.log, np.maximum(np.abs(t), f32(1e-12)), b, rows)
-            neg = (t < 0).astype(np.int64)
-            sum_mag = slot_sum(rnd(np.append(mag, f32(0.0))), ce)
-            sum_neg = slot_sum(np.append(neg, 0), ce)
-            m = _at(torch.exp, rnd(sum_mag)[ec] - mag, b, rows)
-            loo = np.clip(np.where((sum_neg[ec] - neg) % 2 == 1, -m, m), f32(-0.999999), f32(0.999999))
-            c2v[:E] = f32(2.0) * _at(torch.atanh, loo.astype(f32), b, rows)
+            # a check at a time: its slots' v2c, tanh and log (the first update reads no message)
+            old = np.zeros(ce.shape, f32) if it == 0 else c2v[ce]
+            v2c = np.where(real, rnd(np.append(total, f32(0.0)))[cv] - old, f32(0.0))
+            t = at_edges(torch.tanh, np.clip(v2c, f32(-20.0), f32(20.0)) * f32(0.5))
+            mag = at_edges(torch.log, np.maximum(np.abs(t), f32(1e-12)))
+            neg = real & (t < 0)
+            s = rnd(mag[0])  # the check's sum, slots left to right
+            for r in range(1, dc):
+                s = s + rnd(mag[r])
+            m = at_edges(torch.exp, rnd(s)[None, :] - mag)
+            odd = (neg.sum(0)[None, :] - neg) % 2 == 1
+            loo = np.clip(np.where(odd, -m, m), f32(-0.999999), f32(0.999999)).astype(f32)
+            c2v[ce[real]] = (f32(2.0) * at_edges(torch.atanh, loo))[real]
             it += 1
-        hard[b], iters[b], ok_out[b], totals[b] = hb[:N], it, ok, total
+            msgs = rnd(c2v)[ve]  # the totals, slots left to right
+            s = msgs[0]
+            for d in range(1, dv):
+                s = s + msgs[d]
+            total = llr[b] + s
+        hard[b], iters[b], ok_out[b], totals[b] = total < 0, it, ok, total
     return hard, iters, ok_out, totals
 
 
@@ -154,28 +180,40 @@ def test_model_equals_plain_and_reference(name, kind):
         assert name != "n_0300_k_0152.alist" or (0 < got[2].mean() < 1 and got[1].max() == 15)
 
 
+@functools.lru_cache(maxsize=None)
+def _bank():
+    d = ref_ldpc.build_ldpc_bank([_H(n) for n in BANK])
+    return d, ldpc.bank_from_reference(d, "cpu")
+
+
 @pytest.mark.parametrize("sigma", [0.9, 2.4])
 def test_model_bank_with_done_mask(sigma):
-    """decode_bank_mm's schedule: one pass a code with the other codes' rows
-    marked done.  Each pass equals _bp's with the same mask; the passes
-    merged equal the reference's decode_bank_mm."""
-    d = ref_ldpc.build_ldpc_bank([_H(n) for n in BANK])
-    bank = ldpc.bank_from_reference(d, "cpu")
+    """decode_bank_mm's schedule: one pass over the mixed bank, every row
+    with its own code.  Each row equals _bp of its code with the other
+    codes' rows marked done (the CPU path), bit for bit, and the whole
+    equals the reference's decode_bank_mm.  Ids out of range clamp, as the
+    reference's do.  The done mask alone, on each code's graph, equals
+    _bp's with the same mask (decode_mm's callers use it)."""
+    d, bank = _bank()
     llr, code_idx = _bank_vectors(d, 32, 5, sigma)
-    sel = np.clip(code_idx, 1, bank.n_codes) - 1
-    hard = np.zeros(llr.shape, np.int32)
-    iters = np.zeros(len(llr), np.int32)
-    ok = np.zeros(len(llr), bool)
-    for ci, g in enumerate(bank.graphs):
-        mine = sel == ci
-        got = bp_model(llr, g, done=~mine)
-        _assert_bit_equal(got, ldpc._bp(torch.as_tensor(llr), g, 15, done=torch.as_tensor(~mine)))
-        assert (got[1][~mine] == 0).all() and got[2][~mine].all()  # marked rows take no update
-        hard[mine], iters[mine], ok[mine] = got[0][mine], got[1][mine], got[2][mine]
+    got = bp_model(llr, bank.graphs, code_idx=code_idx)
     want = [np.asarray(v) for v in jax.jit(lambda x, c: ref_ldpc.decode_bank_mm(x, c, d, 15))(
         jnp.asarray(llr), jnp.asarray(code_idx))]
-    for g, w, what in zip((hard, iters, ok), want, ("hard", "iters_used", "ok")):
+    for g, w, what in zip(got, want, ("hard", "iters_used", "ok")):
         np.testing.assert_array_equal(g, w, err_msg=what)
+    assert sigma < 2 or got[1].max() > 0  # the sigma = 2.4 rows take updates
+    wild = code_idx.copy()
+    wild[:3] = (0, 3, -7)  # clamp to codes 1, 2 and 1
+    sel = np.clip(wild, 1, bank.n_codes) - 1
+    got = bp_model(llr, bank.graphs, code_idx=wild)
+    for ci, g in enumerate(bank.graphs):
+        mine = sel == ci
+        plain = ldpc._bp(torch.as_tensor(llr), g, 15, done=torch.as_tensor(~mine))
+        _assert_bit_equal([v[mine] for v in got], [v[torch.as_tensor(mine)] for v in plain])
+        masked = bp_model(llr, g, done=~mine)
+        _assert_bit_equal(masked, plain)
+        assert (masked[1][~mine] == 0).all() and masked[2][~mine].all()  # marked rows take no update
+        np.testing.assert_array_equal(masked[3][~mine], llr[~mine] + np.float32(0.0))  # and keep the LLRs
 
 
 @pytest.mark.parametrize("kind", ["noiseless", "moderate", "waterfall"])
@@ -207,14 +245,49 @@ def test_model_max_iters_zero():
     assert (got[1] == 0).all()
 
 
+def _qc(dc: int, z: int):
+    """A regular quasi-cyclic code of column degree 3 and row degree dc."""
+    return ldpc._graph(_ldpc_bench.qc_parity(3, dc, z), "cpu")
+
+
+@pytest.mark.parametrize("dc, z", [(12, 16), (64, 8)])
+def test_model_wide_rows(dc, z):
+    """Rows wider than the kernel's unrolled slots (kRegSlots = 8), which
+    its guarded instantiation decodes: the model equals _bp bit for bit,
+    bf16 too."""
+    g = _qc(dc, z)
+    assert g.chk_edges.shape[1] == dc > ldpc_cuda.REG_SLOTS
+    llr = _ldpc_bench.zero_word_llrs(B, g.n_var, dc)
+    for bf16 in (False, True):
+        got = bp_model(llr, g, bf16=bf16)
+        _assert_bit_equal(got, ldpc._bp(torch.as_tensor(llr), g, 15, bf16=bf16))
+        assert 0 < got[1].max()  # rows take updates
+
+
+def test_model_wide_bank():
+    """A bank whose widest rows (12) are past the unrolled slots, beside a
+    code of row degree 6 padded to them in the bank's tables: one pass with
+    code ids equals _bp of each row's own code bit for bit."""
+    graphs = (_qc(6, 32), _qc(12, 16))  # N = 192 each
+    banked = ldpc_cuda.bank_tables(graphs)
+    assert banked.max_dc == 12 and banked.header[:, 3].tolist() == [12, 12]
+    llr = _ldpc_bench.zero_word_llrs(B, 192, 7)
+    code_idx = np.random.RandomState(8).randint(0, 4, B)  # 0 and 3 clamp to codes 1 and 2
+    got = bp_model(llr, graphs, code_idx=code_idx)
+    sel = np.clip(code_idx, 1, 2) - 1
+    for ci, g in enumerate(graphs):
+        mine = sel == ci
+        plain = ldpc._bp(torch.as_tensor(llr), g, 15, done=torch.as_tensor(~mine))
+        _assert_bit_equal([v[mine] for v in got], [v[torch.as_tensor(mine)] for v in plain])
+
+
 # ---------------------------------------------------------------------------
 # ops/ldpc_cuda's host side
 # ---------------------------------------------------------------------------
 
 def _graphs():
     out = {name: _code(name)[1].graph for name in ALISTS}
-    bank = ldpc.bank_from_reference(ref_ldpc.build_ldpc_bank([_H(n) for n in BANK]), "cpu")
-    out.update({f"bank code {i + 1}": g for i, g in enumerate(bank.graphs)})
+    out.update({f"bank code {i + 1}": g for i, g in enumerate(_bank()[1].graphs)})
     return out
 
 
@@ -222,23 +295,57 @@ def test_tables_equal_the_graphs():
     for name, g in _graphs().items():
         tab = ldpc_cuda.bp_tables(g)
         assert (tab.dv, tab.dc) == (g.var_edges.shape[1], g.chk_edges.shape[1]), name
-        for field in ("var_edges", "chk_edges", "chk_vars", "edge_var", "edge_chk"):
+        for field in ("var_edges", "chk_edges", "chk_vars"):  # slot-major: a row a slot
             t = getattr(tab, field)
             assert t.dtype == torch.int16 and t.is_contiguous(), (name, field)
-            assert torch.equal(t.long(), getattr(g, field)), (name, field)
+            assert torch.equal(t.long(), getattr(g, field).T), (name, field)
         # pads: E in the edge tables, N in chk_vars; every real index below them
         E, N = g.n_edge, g.n_var
         assert int(tab.var_edges.max()) <= E and int(tab.chk_vars.max()) <= N
-        e = torch.arange(E)[:, None]  # edge e sits in the rows of its variable and of its check
-        assert (tab.var_edges.long()[tab.edge_var.long()] == e).any(1).all(), name
-        assert (tab.chk_edges.long()[tab.edge_chk.long()] == e).any(1).all(), name
+        e = torch.arange(E)[None, :]  # edge e sits in the slots of its variable and of its check
+        assert (tab.var_edges.long()[:, g.edge_var] == e).any(0).all(), name
+        assert (tab.chk_edges.long()[:, g.edge_chk] == e).any(0).all(), name
         assert int((tab.var_edges < E).sum()) == int((tab.chk_edges < E).sum()) == E
         assert int((tab.chk_vars < N).sum()) == E
+        real = tab.chk_edges < E  # a check's slot names its edge's variable
+        assert torch.equal(tab.chk_vars[real].long(), g.edge_var[tab.chk_edges[real].long()]), name
     # the three shipped codes: column degree 3, row degree 5, 4 and 7
     dims = {name: (ldpc_cuda.bp_tables(g).dv, ldpc_cuda.bp_tables(g).dc) for name, g in _graphs().items()
             if name in ALISTS}
     assert dims == {"n_0100_k_0027.alist": (3, 5), "n_0100_k_0023.alist": (3, 4),
                     "n_0300_k_0152.alist": (3, 7)}
+
+
+def test_bank_tables_hold_each_graph():
+    """The concatenated tables hold every graph's bp_tables, pads included,
+    at the offsets of its header row; a graph alone is a bank of one."""
+    for graphs in (_bank()[1].graphs, (_code("n_0300_k_0152.alist")[1].graph,)):
+        banked = ldpc_cuda.bank_tables(graphs)
+        assert banked.header.dtype == torch.int32 and banked.header.shape == (len(graphs), ldpc_cuda.HEADER)
+        assert banked.tab.dtype == torch.int16 and banked.tab.is_contiguous()
+        N, off = graphs[0].n_var, 0
+        assert banked.n_var == N
+        assert banked.max_edges == max(g.n_edge for g in graphs)
+        assert banked.max_dc == max(g.chk_edges.shape[1] for g in graphs)
+        dc = banked.max_dc
+        for row, g in zip(banked.header.tolist(), graphs):
+            tab = ldpc_cuda.bp_tables(g)
+            assert row[:4] == [g.n_chk, g.n_edge, tab.dv, dc]
+            for start, t, rows, fill in zip(row[4:], (tab.var_edges, tab.chk_edges, tab.chk_vars),
+                                            (tab.dv, dc, dc), (g.n_edge, g.n_edge, N)):
+                assert start == off  # one after another, in the header's order
+                got = banked.tab[start:start + rows * t.shape[1]].reshape(rows, t.shape[1])
+                assert torch.equal(got[:t.shape[0]], t)  # the graph's own slots
+                assert (got[t.shape[0]:] == fill).all()  # then pad slots up to the largest row degree
+                off += got.numel()
+        assert banked.tab.numel() == off
+    # the two-code bank: both codes in the padded layout of N = 300 (code 1's 100 bits
+    # among them), 148 checks each; code 1 has 300 edges of row degree 5, code 2 900 of 7,
+    # so code 1's row tables take 2 slots of pads: 900 + 2 x 7 x 148 entries a code
+    header = ldpc_cuda.bank_tables(_bank()[1].graphs).header.tolist()
+    assert header == [[148, 300, 3, 7, 0, 900, 1936], [148, 900, 3, 7, 2972, 3872, 4908]]
+    with pytest.raises(ValueError, match="share N"):
+        ldpc_cuda.bank_tables((_code("n_0100_k_0027.alist")[1].graph, _code("n_0300_k_0152.alist")[1].graph))
 
 
 def test_bytes_ops_and_shared_memory_by_hand():
@@ -249,15 +356,32 @@ def test_bytes_ops_and_shared_memory_by_hand():
     # two codewords taking 0 and 3 updates: 1 + 4 passes of 2 x 900 + 300, 3 updates of 18 x 900
     assert ldpc_cuda.bp_ops(torch.tensor([0, 3], dtype=torch.int32), g) == 5 * 2100 + 3 * 16200 == 59_100
     assert ldpc_cuda.bp_ops(np.zeros(7, np.int32), g) == 7 * 2100
-    assert ldpc_cuda.smem_bytes(300, 148, 900) == 4 * (2 * 901 + 600 + 296) + 901 + 301 == 11_994
+    # LLRs [300], totals [301] and messages [901], 4 bytes each
+    assert ldpc_cuda.smem_bytes(300, 900) == 4 * (300 + 301 + 901) == 6_008
+
+
+def test_bank_shared_memory_by_hand():
+    """A bank's block is sized by its largest code: the two-code bank's
+    codewords are 300 bits (the padded layout), its codes 300 and 900
+    edges, so 4 x (300 + 301 + 901) bytes, as for the n = 300 code alone;
+    a 32-code bank of that code takes no more."""
+    banked = ldpc_cuda.bank_tables(_bank()[1].graphs)
+    assert (banked.n_var, banked.max_chk, banked.max_edges, banked.max_dc) == (300, 148, 900, 7)
+    assert ldpc_cuda.smem_bytes(banked.n_var, banked.max_edges) == 4 * (300 + 301 + 901) == 6_008
+    g = _code("n_0300_k_0152.alist")[1].graph
+    banked = ldpc_cuda.bank_tables((g,) * 32)
+    assert ldpc_cuda.smem_bytes(banked.n_var, banked.max_edges) == 6_008
+    assert banked.tab.numel() == 32 * (3 * 300 + 2 * 7 * 148) == 95_104
 
 
 def test_source_constants_match():
     src = ldpc_cuda.SOURCE.read_text()
     for const, value in (("kMaxIndex", ldpc_cuda.MAX_INDEX), ("kMaxDeg", ldpc_cuda.MAX_DEG),
-                         ("kMaxSmem", ldpc_cuda.MAX_SMEM)):
+                         ("kMaxSmem", ldpc_cuda.MAX_SMEM), ("kRegSlots", ldpc_cuda.REG_SLOTS),
+                         ("kMaxThreads", 32 * ldpc_cuda.MAX_WARPS),
+                         ("kHeader", ldpc_cuda.HEADER)):
         assert re.search(rf"constexpr int {const} = {value};", src), const
-    assert "4LL * (2LL * (E + 1) + 2LL * N + 2LL * M) + (E + 1) + (N + 1)" in src  # smem_bytes
+    assert "return 4LL * (2LL * N + E + 2);" in src  # smem_bytes
 
 
 def _wide_graph(dv: int, dc: int):
@@ -286,6 +410,28 @@ def test_wrapper_refuses():
         with pytest.raises(ValueError, match="degree"):
             ldpc_cuda.bp_tables(_wide_graph(dv, dc))
     ldpc_cuda.bp_tables(_wide_graph(ldpc_cuda.MAX_DEG, ldpc_cuda.MAX_DEG))  # at the limit
+    assert ldpc_cuda.bp_decode_cuda.LAUNCHES == n0
+
+
+def test_wrapper_refuses_a_bank():
+    """Code ids go with a bank's graphs and a bank with code ids; ids must be
+    int32 or int64, one a row, contiguous; the check comes before the
+    device's, so it shows on the CPU (the device's are the card tests')."""
+    bank = _bank()[1]
+    g = bank.graphs[0]
+    n0 = ldpc_cuda.bp_decode_cuda.LAUNCHES
+    x = torch.zeros((4, g.n_var))
+    idx = torch.ones(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="code_idx goes with"):
+        ldpc_cuda.bp_decode_cuda(x, bank.graphs)
+    with pytest.raises(ValueError, match="code_idx goes with"):
+        ldpc_cuda.bp_decode_cuda(x, g, code_idx=idx)
+    for bad in (idx.float(), idx.to(torch.int16), torch.ones(5, dtype=torch.int32),
+                torch.ones(8, dtype=torch.int64)[::2]):
+        with pytest.raises(ValueError, match="code_idx must be"):
+            ldpc_cuda.bp_decode_cuda(x, bank.graphs, code_idx=bad)
+    with pytest.raises(ValueError, match="CUDA"):  # right ids, but the CPU
+        ldpc_cuda.bp_decode_cuda(x, bank.graphs, code_idx=idx.long())
     assert ldpc_cuda.bp_decode_cuda.LAUNCHES == n0
 
 

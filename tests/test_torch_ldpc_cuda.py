@@ -17,6 +17,7 @@ expf and atanhf that PyTorch's CUDA kernels call and adds in _bp's order,
 so none is expected: on an NVIDIA H100 none parted).
 """
 
+import types
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from gr_dtl_tpu_torch.ops import ldpc, ldpc_cuda
+from gr_dtl_tpu_torch.tools import _ldpc_bench
 from gr_dtl_tpu_torch.utils import alist
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
@@ -144,12 +146,58 @@ def test_decoders_launch_k3_and_never_the_plain_loop(dev, monkeypatch):
     hard, _, ok = ldpc.decode_mm_twopass(llr, code, bucket=256)
     assert ldpc_cuda.bp_decode_cuda.LAUNCHES == n0 + 1 + 2048 // 256
     assert torch.equal(ok, want[2]) and torch.equal(hard[ok][:, code.M:], want[0][ok][:, code.M:])
-    # the bank: one launch a code
+    # the bank: one launch, every row with its own code
     n0 = ldpc_cuda.bp_decode_cuda.LAUNCHES
     got = ldpc.decode_bank_mm(x, idx, bank)
-    assert ldpc_cuda.bp_decode_cuda.LAUNCHES == n0 + bank.n_codes
+    assert ldpc_cuda.bp_decode_cuda.LAUNCHES == n0 + 1
     for a, b in zip(got, want_bank):
         assert torch.equal(a, b)
+
+
+def _bank_of(n_codes: int, dev):
+    """A bank of n_codes codes cycling through the three shipped alists, in
+    their padded layout (N = 300, 148 checks; 300, 300 and 900 edges)."""
+    Hs = [alist.load_alist(str(EXAMPLES / ALISTS[i % 3])) for i in range(n_codes)]
+    return ldpc.bank_from_reference(ldpc.build_ldpc_bank(Hs), dev)
+
+
+def hold_bank_to_plain(x, idx, bank, bf16=False) -> None:
+    """One K3 launch over a bank against _bp of each row's own code (the
+    other codes' rows marked done): every row bit-equal, totals included."""
+    total = torch.empty_like(x)
+    n0 = ldpc_cuda.bp_decode_cuda.LAUNCHES
+    hard, iters, ok = ldpc_cuda.bp_decode_cuda(x, bank.graphs, 15, bf16=bf16, total_out=total, code_idx=idx)
+    assert ldpc_cuda.bp_decode_cuda.LAUNCHES == n0 + 1
+    sel = torch.clamp(idx, 1, bank.n_codes) - 1
+    for ci, g in enumerate(bank.graphs):
+        mine = sel == ci
+        want = ldpc._bp(x, g, 15, done=~mine, bf16=bf16)
+        for a, b in zip((hard, iters, ok), want):
+            assert torch.equal(a[mine], b[mine]), ci
+        assert torch.equal(total[mine].view(torch.int32), want[3][mine].view(torch.int32)), ci
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_codes", [1, 2, 8, 32])
+def test_bank_one_launch(dev, n_codes):
+    """decode_bank_mm makes one K3 launch a call whatever the bank's size,
+    and every row equals _bp of its own code bit for bit (ids out of range
+    clamp as the reference's do; int32 and int64 ids alike)."""
+    bank = _bank_of(n_codes, dev)
+    rng = np.random.RandomState(n_codes)
+    ids = rng.randint(1, n_codes + 1, 1024).astype(np.int64)
+    ids[:4] = (0, n_codes + 1, -3, n_codes)
+    x = torch.as_tensor((rng.randn(1024, bank.Nmax) * 1.2 + 1.8).astype(np.float32), device=dev)
+    for dtype in (torch.int32, torch.int64):
+        idx = torch.as_tensor(ids, dtype=dtype, device=dev)
+        hold_bank_to_plain(x, idx, bank)
+        n0 = ldpc_cuda.bp_decode_cuda.LAUNCHES
+        got = ldpc.decode_bank_mm(x, idx, bank)
+        assert ldpc_cuda.bp_decode_cuda.LAUNCHES == n0 + 1
+        want = ldpc_cuda.bp_decode_cuda(x, bank.graphs, 15, code_idx=idx)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    hold_bank_to_plain(x, idx, bank, bf16=True)
 
 
 @pytest.mark.cuda
@@ -161,6 +209,37 @@ def test_bank_rows_against_plain(dev):
     x = torch.as_tensor((rng.randn(4096, bank.Nmax) * 1.2 + 2.0).astype(np.float32), device=dev)
     for ci, g in enumerate(bank.graphs):
         hold_to_plain(x, g, done=sel != ci)
+
+
+def _qc(dc: int, z: int, dev):
+    """A regular quasi-cyclic code of column degree 3 and row degree dc."""
+    return ldpc._graph(_ldpc_bench.qc_parity(3, dc, z), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dc, z", [(12, 16), (64, 8)])
+def test_wide_rows_against_plain(dev, dc, z):
+    """Rows wider than kRegSlots (8) take the guarded kMaxDeg instantiation:
+    bit-equal to _bp on every row, bf16, the done mask and max_iters too."""
+    g = _qc(dc, z, dev)
+    assert g.chk_edges.shape[1] == dc > ldpc_cuda.REG_SLOTS
+    x = torch.as_tensor(_ldpc_bench.zero_word_llrs(2048, g.n_var, dc), device=dev)
+    done = torch.as_tensor(np.random.RandomState(dc).rand(2048) < 0.5, device=dev)
+    for kw in ({}, {"bf16": True}, {"done": done}, {"max_iters": 3}):
+        assert hold_to_plain(x, g, **kw) == 0, kw
+
+
+@pytest.mark.cuda
+def test_wide_bank_against_plain(dev):
+    """A bank whose widest rows (12) are past the unrolled slots, with a code
+    of row degree 6 padded to them: one launch, every row bit-equal to _bp
+    of its own code."""
+    graphs = (_qc(6, 32, dev), _qc(12, 16, dev))  # N = 192 each
+    bank = types.SimpleNamespace(graphs=graphs, n_codes=2)
+    x = torch.as_tensor(_ldpc_bench.zero_word_llrs(2048, 192, 7), device=dev)
+    idx = torch.as_tensor(np.random.RandomState(8).randint(0, 4, 2048).astype(np.int32), device=dev)
+    hold_bank_to_plain(x, idx, bank)
+    hold_bank_to_plain(x, idx, bank, bf16=True)
 
 
 @pytest.mark.cuda
@@ -175,3 +254,12 @@ def test_wrapper_refuses_on_the_card(dev):
         ldpc_cuda.bp_decode_cuda(x, code.graph, done=torch.zeros(8, dtype=torch.bool))
     with pytest.raises(ValueError, match="graph"):
         ldpc_cuda.bp_decode_cuda(x, _code("n_0100_k_0027.alist", "cpu").graph)
+    bank = _bank_of(2, dev)
+    y = torch.zeros((8, bank.Nmax), device=dev)
+    idx = torch.ones(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="code_idx lies on"):
+        ldpc_cuda.bp_decode_cuda(y, bank.graphs, code_idx=idx.cpu())
+    with pytest.raises(ValueError, match="code_idx must be"):
+        ldpc_cuda.bp_decode_cuda(y, bank.graphs, code_idx=idx.float())
+    with pytest.raises(ValueError, match="graph"):
+        ldpc_cuda.bp_decode_cuda(y, _bank_of(2, "cpu").graphs, code_idx=idx)
