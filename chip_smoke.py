@@ -16,7 +16,8 @@ as tools/bench_fec.py draws them.  Phases:
    csrc/ldpc_bp.cu for sm_90a from this checkout, one nvcc each, side by
    side; from here on every ``ldpc.decode_mm`` / ``decode_bank_mm`` call on
    the card is held to its K3 launches (``BpLedger``: one a call, a bank's
-   too), booked by phase;
+   too), and every ``ldpc.decode`` / ``decode_bank`` call to its K8 launch
+   (``GATHER``), booked by phase;
 3. kernel vs plain: the CUDA Schmidl-Cox kernel against its plain
    PyTorch version on the card, at the uncoded path's N, at two ragged
    lengths, on a [4, N] batch and at the edges of its tiling: one output
@@ -238,7 +239,8 @@ node a ``python -m`` process started through ``checked_node``):
 
 And slice H, the measuring tools and the LDPC leftovers (no new kernel):
 
-27. the LDPC leftovers: ``ldpc.decode``, ``decode_mm_twopass`` (default
+27. the LDPC leftovers: ``ldpc.decode`` (K8 on the card, phase 30),
+   ``decode_mm_twopass`` (default
    bucket and 64) and ``decode_mm(bf16=True)`` on CUDA tensors against the
    same functions on the CPU, 2048 codewords of the n=300 code in three
    regimes (clean: equal; knee and waterfall: ok equal, hard equal where
@@ -303,6 +305,29 @@ own code), with no host check:
    synchronising call, no copy); the K3 launches of every phase (each coded
    phase must have launched it, one a BP call).  The kernels line's eighth
    entry is K3's (its launches: phases 6-28).
+
+And slice K, K8 (``bp_gather_kernel`` of csrc/ldpc_bp.cu, built with K3),
+the gather form's BP of ``decode`` and ``decode_bank`` as one launch a call
+with no host check:
+
+30. K8: the coded receive step at B=1024 QPSK frames, 25 dB, through a bank
+   of 33 copies of the n=300 code (fec_id 1..15, all the header carries),
+   which ``fec_frame_decode`` sends to ``decode_bank``: every frame decoded
+   with what was sent, the counts set to 0 just before the step and read
+   just after (one K8 launch, no K3); the step with K8 and with
+   ``_bp_gather`` in turns, each traced once (kernels, busy ms, idle
+   share); K8's SASS counts and residency (``tools/bench_k3.py --form
+   gather``); K8, called directly, against ``_bp_gather`` on the same CUDA
+   tensors: phase 27's 2048 codewords clean, at the knee and in the
+   waterfall, the 33-code step's own codewords, banks of 2, 8 and 32 codes
+   at 1024 codewords, the 8-code bank with ids in [-11, 11], max_iters = 0
+   and a noiseless batch (ok and iterations equal on every row, hard bits
+   on every converged row, parted rows counted and named, at most 1%); K8
+   and ``_bp_gather`` timed in turns (events, and K8's device time) beside
+   the bound and the issue floor; one ``decode_bank`` of 33 codes at 1024
+   codewords traced (one device kernel, no synchronising call, no copy);
+   the K8 launches of phases 27 and 30 (one a call).  The kernels line's
+   ninth entry is K8's.
 
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
@@ -444,6 +469,7 @@ def main() -> int:
                 print(f"[build] {line.strip()}")
 
     BP.install()  # every BP call of every phase from here on is held to its K3 launches
+    GATHER.install()  # and every gather-form call to its K8 launch
 
     cfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
     tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
@@ -628,6 +654,8 @@ def main() -> int:
     # ---- 29. slice J: K3 ----
     BP.tag = "29 K3"
     k3_entry = k3_phase(dev, card, bp_paths)
+    # ---- 30. slice K: K8 ----
+    k8_entry = k8_phase(dev, card, torch.Generator(device=dev).manual_seed(SEED + 30))
     k7_entry.update(launches=K7.launches, launches_per_step=K7.launches / K7.calls, max_abs_err=K7.max_err)
     eq_entry = time_equalizer(dev, card)
     print(card)
@@ -642,7 +670,7 @@ def main() -> int:
         "max_abs_err": max(max_err, max_err_coded, max_err_stream),
         "ms": timed["kernel_ms"], "ms_by": timed["kernel_ms_by"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
         "bound_by": "bytes", "library_ms": None}] + scan_kernels + [tb_kernel, eq_entry, wire_entry,
-                                                                    k7_entry, k3_entry]}))
+                                                                    k7_entry, k3_entry, k8_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -905,51 +933,107 @@ def median(xs):
     return xs[len(xs) // 2] if len(xs) % 2 else 0.5 * (xs[len(xs) // 2 - 1] + xs[len(xs) // 2])
 
 
+# warm-up before a profiled or traced window, by time: the profiler misses the launches of its
+# first milliseconds, more of them the more profiler sessions the process has had (2 of 18
+# launches in a fresh process, 12 of 18 after some sixty sessions), and a count of warm calls of
+# a short fn can end inside them (64 calls of a 32-code decode_bank_mm, ~3 ms, left a window
+# empty); a window that comes back empty is taken again, warmed for longer
+WARM_MS = (50.0, 200.0, 800.0, 2000.0)
+
+
+MARK = "spin_kernel"  # the kernel torch.cuda._sleep launches: nothing else in the script does
+
+
+def mark() -> None:
+    """A marker on the device's timeline, launched just before a traced
+    window: the window's device work is what starts after it, on the
+    device's own clock (``window_events``)."""
+    torch.cuda._sleep(1)
+
+
+def window_events(events, span: str) -> list:
+    """The device kernels and copies of a traced window: those that start
+    after its marker (``mark``) on the device's timeline.  A trace puts the
+    host's and the device's clocks on one axis only so nearly: kernels of
+    warm calls synchronised before the host span ``span`` opened have been
+    seen to start inside it.  Without a marker in the trace (a profiler that
+    dropped it), the window opens with the host span, as it used to."""
+    dev = [e for e in events if str(e.device_type).endswith("CUDA") and e.name != span]
+    marks = [e.time_range.start for e in dev if MARK in e.name]
+    if marks:
+        return [e for e in dev if e.time_range.start > max(marks) and MARK not in e.name]
+    print(f"[trace] no marker kernel in the trace of {span}: its window opens with the host span", flush=True)
+    start = host_span(events, span).start
+    return [e for e in dev if e.time_range.start >= start]
+
+
+def warm(fn, warm_ms: float, at_least: int = 1) -> None:
+    """fn called, each call synchronised, at least ``at_least`` times and
+    until ``warm_ms`` have passed."""
+    t0, n = time.perf_counter(), 0
+    while n < at_least or (time.perf_counter() - t0) * 1e3 < warm_ms:
+        fn()
+        torch.cuda.synchronize()
+        n += 1
+
+
 def profiled(fn, sacrifice: bool = False):
     """One call of fn under torch.profiler: (wall ms, device busy ms, device
     kernels and copies launched), from the device's timeline.
 
-    The profiler misses the first launches after it starts, more of them
-    the more sessions the process has had (2 of 18 in a fresh process, 12 of
-    18 after some sixty sessions): nothing to a block of 4,200 launches, most
-    of a call of 18.  ``sacrifice``: fn is called once more first, inside the
-    profiler, and only what the device starts after that call has ended is
-    counted; for an fn without side effects."""
+    ``sacrifice``: fn is first called inside the profiler for ``WARM_MS``
+    (at least one call), and only what the device starts after the warm
+    calls is counted (``mark``); a window that saw no device work is taken
+    again, warmed for longer.  For an fn without side effects.  Without
+    it, fn is called once (a block of thousands of launches, of which the
+    profiler may miss the first few), and what starts after the host opened
+    the call is counted."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for warm_ms in WARM_MS if sacrifice else (None,):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if warm_ms is not None:
+                warm(fn, warm_ms)
+                mark()
+            with record_function("profiled_call"):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
         if sacrifice:
-            fn()
-            torch.cuda.synchronize()
-        with record_function("profiled_call"):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    start = host_span(events, "profiled_call").start
-    dev_events = [e for e in events if str(e.device_type).endswith("CUDA")
-                  and e.name != "profiled_call" and e.time_range.start >= start]
+            dev_events = window_events(events, "profiled_call")
+        else:
+            start = host_span(events, "profiled_call").start
+            dev_events = [e for e in events if str(e.device_type).endswith("CUDA")
+                          and e.name != "profiled_call" and e.time_range.start >= start]
+        if dev_events:
+            break
     busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
     return wall, busy, len(dev_events)
 
 
 def kernel_profiler_ms(fn, kernel_name: str, reps: int):
     """Mean device duration (ms) of the kernel named so over reps calls of
-    fn.  The profiler may miss every launch of a short window late in the
-    process (see ``profiled``): a window that saw none is taken again, and
-    three such windows fail the run."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    fn, after ``WARM_MS`` of calls inside the profiler: only the launches
+    that start after the warm calls count (``mark``).  A window that saw
+    none is taken again, warmed for longer, and four such windows fail the
+    run."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for warm_ms in WARM_MS:
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            warm(fn, warm_ms)
+            mark()
+            with record_function("kernel_window"):
+                for _ in range(reps):
+                    fn()
             torch.cuda.synchronize()
-        found = [e for e in prof.key_averages() if kernel_name in e.key and e.self_device_time_total > 0]
-        count = sum(e.count for e in found)
-        if count:
-            return sum(e.self_device_time_total for e in found) / count / 1e3
-    check(False, f"the profiler saw no {kernel_name} in three windows of {reps} calls")
+        found = [e.time_range.elapsed_us() for e in window_events(prof.events(), "kernel_window")
+                 if kernel_name in e.name]
+        if found:
+            return sum(found) / len(found) / 1e3
+    check(False, f"the profiler saw no {kernel_name} in {len(WARM_MS)} windows of {reps} calls")
 
 
 def lock_inputs(T: int, seed: int, dev):
@@ -1238,7 +1322,7 @@ def same_as(results, want, what: str) -> None:
 def reset_counts() -> None:
     for w in (sync_cuda.timing_metric_cuda, scans_cuda.trigger_lock_scan_cuda,
               scans_cuda.frame_accounting_cuda, tb_cuda.tb_reassemble_cuda,
-              equalizer_cuda.equalize_frame_cuda, ldpc_cuda.bp_decode_cuda):
+              equalizer_cuda.equalize_frame_cuda, ldpc_cuda.bp_decode_cuda, ldpc_cuda.bp_gather_cuda):
         w.LAUNCHES = 0
     equalizer_cuda.equalize_frame_cuda.TABLE_LAUNCHES = 0
 
@@ -4108,35 +4192,37 @@ BENCH_CHAIN = (16, 3)         # card against CPU: frames a step, chained steps
 BENCH_INTS = ("payload", "payload_len", "crc_ok", "header_ok", "frame_no", "cnst_id", "carr_offset")
 
 
-def traced_step(fn, name: str, sacrifice: int = 1, warm_ms: float = 0.0) -> tuple:
-    """One fn() traced by the profiler, after ``sacrifice`` sacrificed calls,
-    and more until ``warm_ms`` have passed (the profiler misses the first
-    launches after it starts, ``profiled``, for longer than a few calls of
-    a short fn take): the CUDA runtime calls the host makes inside it and
-    the device's kernels and copies that start inside it, by name, and
-    their busy ms."""
+def traced_step(fn, name: str, sacrifice: int = 1) -> tuple:
+    """One fn() traced by the profiler, after ``sacrifice`` sacrificed calls
+    and more until ``WARM_MS`` have passed (``warm``): the CUDA runtime
+    calls the host makes inside it and the device's kernels and copies that
+    start after the warm calls' (``mark``), by name, and their busy ms.  A
+    trace whose window holds no device work is taken again, warmed for
+    longer."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0, n = time.perf_counter(), 0
-        while n < sacrifice or (time.perf_counter() - t0) * 1e3 < warm_ms:
-            fn()
-            torch.cuda.synchronize()
-            n += 1
-        with record_function(name):
-            fn()
-        torch.cuda.synchronize()  # outside the span: the step's own calls only
-    events = prof.events()
-    span = host_span(events, name)
-    api, device, busy = {}, {}, 0.0
-    for e in events:
-        if str(e.device_type).endswith("CUDA"):
-            if e.name != name and e.time_range.start >= span.start:
-                device[e.name] = device.get(e.name, 0) + 1
-                busy += e.time_range.elapsed_us() / 1e3
-        elif (e.name.startswith("cuda") and span.start <= e.time_range.start and e.time_range.end <= span.end
-              and not e.name.startswith(("cudaGet", "cudaDeviceGet", "cudaOccupancy", "cudaFuncGet"))):
-            api[e.name] = api.get(e.name, 0) + 1
+    for warm_ms in WARM_MS:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warm(fn, warm_ms, sacrifice)
+            mark()
+            with record_function(name):
+                fn()
+            torch.cuda.synchronize()  # outside the span: the step's own calls only
+        events = prof.events()
+        span = host_span(events, name)
+        api, device, busy = {}, {}, 0.0
+        for e in window_events(events, name):
+            device[e.name] = device.get(e.name, 0) + 1
+            busy += e.time_range.elapsed_us() / 1e3
+        for e in events:
+            if (not str(e.device_type).endswith("CUDA") and e.name.startswith("cuda")
+                    and span.start <= e.time_range.start and e.time_range.end <= span.end
+                    and not e.name.startswith(("cudaGet", "cudaDeviceGet", "cudaOccupancy", "cudaFuncGet"))):
+                api[e.name] = api.get(e.name, 0) + 1
+        if device:
+            break
+        print(f"[trace] {name} traced after {warm_ms:g} ms of warm calls: the profiler saw no device work in "
+              f"the span (runtime calls {api}); taken again", flush=True)
     return api, device, busy
 
 
@@ -4206,35 +4292,52 @@ def bench_phase(dev, card, phase5_ms: float) -> dict:
 # phase 29: slice J, K3 (csrc/ldpc_bp.cu)
 # ---------------------------------------------------------------------------
 
-K3_PARTED_MAX = 0.01  # share of an input's rows that may part from _bp, never one that converged
+BP_PARTED_MAX = 0.01  # share of an input's rows that may part from the plain version, never a converged one
 # the phases whose paths decode LDPC codewords on the card: each must have launched K3
 K3_CODED_TAGS = ("6-7 coded batch", "8-12 streams", "13-17 slice D", "23 wire compat", "24 sharded",
                  "25 app", "27 slice H")
 
 
 class BpLedger:
-    """K3's launches on the paths.  Once installed, every ``ldpc.decode_mm``
-    and ``ldpc.decode_bank_mm`` call on a CUDA tensor (the receivers', the
-    tools', ``decode_mm_twopass``'s inner calls) must launch K3 once, a
-    bank's call too, counted from the wrapper's count just before and
-    just after the call; each is booked under the phase named in ``tag``.
-    The last call's arguments are kept in ``last``, so that phase 29 can hold
-    K3 to ``_bp`` on the tensors a path decoded.  Under ``plain_bp`` a call
-    must launch nothing."""
+    """A BP kernel's launches on the paths: K3's (``BP``: ``ldpc.decode_mm``
+    and ``ldpc.decode_bank_mm``) or K8's (``GATHER``: ``ldpc.decode`` and
+    ``ldpc.decode_bank``).  Once installed, every call of those decoders on
+    a CUDA tensor (the receivers', the tools', ``decode_mm_twopass``'s inner
+    calls) must launch the kernel once, a bank's call too, counted from its
+    wrapper's count (``ldpc_cuda.<wrapper>.LAUNCHES``) just before and just
+    after the call; each is booked under the phase named in ``tag``, one tag
+    for every ledger.  The last call's arguments are kept in ``last``, so
+    that the kernel's phase can hold it to its plain version on the tensors
+    a path decoded.  Under ``plain_bp`` / ``plain_gather`` a call must
+    launch nothing."""
 
-    def __init__(self):
-        self.tag, self.plain, self.last = "setup", False, None
+    _tag = "setup"  # the phase running
+
+    def __init__(self, kernel: str, wrapper: str, decoders: tuple, own_tag: str):
+        self.kernel, self.wrapper, self.decoders, self.own_tag = kernel, wrapper, decoders, own_tag
+        self.plain, self.last = False, None
         self.by_tag = {}  # tag -> [calls, launches]
 
+    @property
+    def tag(self) -> str:
+        return BpLedger._tag
+
+    @tag.setter
+    def tag(self, value: str) -> None:
+        BpLedger._tag = value
+
+    def launches(self) -> int:
+        return getattr(ldpc_cuda, self.wrapper).LAUNCHES
+
     def install(self) -> None:
-        def counted(fn, per_call):
+        def counted(fn):
             def call(llr, *args, **kw):
-                n0 = ldpc_cuda.bp_decode_cuda.LAUNCHES
+                n0 = self.launches()
                 out = fn(llr, *args, **kw)
                 if self.on_card(llr):
-                    want = 0 if self.plain else per_call(args, kw)
-                    got = ldpc_cuda.bp_decode_cuda.LAUNCHES - n0
-                    check(got == want, f"[{self.tag}] {fn.__name__}: {got} K3 launches, expected {want}")
+                    want = 0 if self.plain else 1
+                    got = self.launches() - n0
+                    check(got == want, f"[{self.tag}] {fn.__name__}: {got} {self.kernel} launches, expected {want}")
                     if not self.plain:
                         row = self.by_tag.setdefault(self.tag, [0, 0])
                         row[0] += 1
@@ -4243,20 +4346,24 @@ class BpLedger:
                 return out
             return call
 
-        ldpc.decode_mm = counted(ldpc.decode_mm, lambda a, kw: 1)
-        ldpc.decode_bank_mm = counted(ldpc.decode_bank_mm, lambda a, kw: 1)
+        for name in self.decoders:
+            setattr(ldpc, name, counted(getattr(ldpc, name)))
 
     @staticmethod
     def on_card(llr) -> bool:
         return llr.is_cuda
 
     def totals(self) -> tuple:
-        """(calls, launches) over the paths' phases (all but phase 29's own)."""
-        rows = [v for k, v in self.by_tag.items() if k != "29 K3"]
+        """(calls, launches) over the paths' phases (all but the kernel's own phase)."""
+        rows = [v for k, v in self.by_tag.items() if k != self.own_tag]
         return sum(r[0] for r in rows), sum(r[1] for r in rows)
 
 
-BP = BpLedger()
+BP = BpLedger("K3", "bp_decode_cuda", ("decode_mm", "decode_bank_mm"), "29 K3")
+GATHER = BpLedger("K8", "bp_gather_cuda", ("decode", "decode_bank"), "30 K8")
+# each BP kernel's wrapper, plain version, device kernel, and rounds of its timing in turns
+BP_KERNELS = {"K3": {"wrapper": "bp_decode_cuda", "plain": "_bp", "kernel": "bp_kernel", "rounds": 2},
+              "K8": {"wrapper": "bp_gather_cuda", "plain": "_bp_gather", "kernel": "bp_gather_kernel", "rounds": 1}}
 
 
 @contextlib.contextmanager
@@ -4273,37 +4380,94 @@ def plain_bp():
         BP.plain = False
 
 
-def k3_against_plain(what: str, llr, g, done=None, bf16: bool = False, code_idx=None) -> dict:
-    """K3, called directly (no path's launch), against ``_bp`` on the same
-    CUDA tensors: ok and iterations equal on every row, hard bits and final
-    totals bit-equal on every row that converged; a row that never
-    converged may part (an ulp of a transcendental), and such rows are
-    counted and named, at most ``K3_PARTED_MAX`` of them.  With a bank's
-    graphs and ``code_idx``: one launch, each row against ``_bp`` of its
-    own code (the other codes' rows marked done)."""
-    total = torch.empty_like(llr)
-    n0 = ldpc_cuda.bp_decode_cuda.LAUNCHES
-    hard, iters, ok = ldpc_cuda.bp_decode_cuda(llr, g, 15, done=done, bf16=bf16, total_out=total,
-                                               code_idx=code_idx)
-    check(ldpc_cuda.bp_decode_cuda.LAUNCHES == n0 + 1, f"K3 on {what}: not one launch")
-    if code_idx is None:
-        hard0, iters0, ok0, total0 = ldpc._bp(llr, g, 15, done=done, bf16=bf16)
-    else:
-        hard0, iters0, ok0, total0 = plain_bank(llr, code_idx, g, bf16, totals=True)
+def against_plain(kernel: str, what: str, launch, plain) -> dict:
+    """A BP kernel (``kernel``: "K3" or "K8"), called directly by
+    ``launch()`` (no path's launch), against its plain version (``plain()``:
+    ``_bp`` or ``_bp_gather``) on the same CUDA tensors: ok and iterations
+    equal on every row, hard bits (and final totals, where ``launch`` and
+    ``plain`` return them as a fourth output) bit-equal on every row that
+    converged; a row that never converged may part (an ulp of a
+    transcendental), and such rows are counted and named, at most
+    ``BP_PARTED_MAX`` of them.  ``max_abs_err``: over the totals where they
+    are compared, else over the hard bits."""
+    counter = getattr(ldpc_cuda, BP_KERNELS[kernel]["wrapper"])
+    name = BP_KERNELS[kernel]["plain"]
+    n0 = counter.LAUNCHES
+    got = launch()
+    check(counter.LAUNCHES == n0 + 1, f"{kernel} on {what}: not one launch")
+    want = plain()
     torch.cuda.synchronize()
-    n = llr.shape[0]
-    check(torch.equal(ok, ok0), f"K3 vs _bp on {what}: ok parted on {int((ok != ok0).sum())} rows")
-    check(torch.equal(iters, iters0), f"K3 vs _bp on {what}: iterations parted on {int((iters != iters0).sum())} rows")
-    parted = (hard != hard0).any(1) | (total.view(torch.int32) != total0.view(torch.int32)).any(1)
+    (hard, iters, ok), (hard0, iters0, ok0) = got[:3], want[:3]
+    n = ok.shape[0]
+    check(torch.equal(ok, ok0), f"{kernel} vs {name} on {what}: ok parted on {int((ok != ok0).sum())} rows")
+    check(torch.equal(iters, iters0),
+          f"{kernel} vs {name} on {what}: iterations parted on {int((iters != iters0).sum())} rows")
+    parted = (hard != hard0).any(1)
+    if len(got) > 3:
+        parted |= (got[3].view(torch.int32) != want[3].view(torch.int32)).any(1)
+        err = float((got[3] - want[3]).abs().max()) if n else 0.0
+    else:
+        err = float((hard - hard0).abs().max()) if n else 0.0
     ids = torch.nonzero(parted).flatten().tolist()
-    check(not bool((parted & ok0).any()), f"K3 vs _bp on {what}: converged rows parted: {ids[:20]}")
-    check(len(ids) <= K3_PARTED_MAX * n, f"K3 vs _bp on {what}: {len(ids)} rows parted: {ids[:20]}")
-    err = float((total - total0).abs().max()) if n else 0.0
-    print(f"[k3] {what}: {n} codewords, ok rate {ok.float().mean().item():.4f}, iterations mean "
-          f"{iters.float().mean().item():.4f} max {int(iters.max())}: K3 (one launch) against _bp: ok and iterations "
-          f"equal on every row, hard bits and totals bit-equal on {n - len(ids)} rows, parted rows {len(ids)} "
-          f"{ids[:10]}, max |d total| {err:.3e}", flush=True)
+    check(not bool((parted & ok0).any()), f"{kernel} vs {name} on {what}: converged rows parted: {ids[:20]}")
+    check(len(ids) <= BP_PARTED_MAX * n, f"{kernel} vs {name} on {what}: {len(ids)} rows parted: {ids[:20]}")
+    print(f"[{kernel.lower()}] {what}: {n} codewords, ok rate {ok.float().mean().item():.4f}, iterations mean "
+          f"{iters.float().mean().item():.4f} max {int(iters.max()) if n else 0}: {kernel} (one launch) against "
+          f"{name}: ok and iterations equal on every row, hard bits{' and totals' if len(got) > 3 else ''} "
+          f"bit-equal on {n - len(ids)} rows, parted rows {len(ids)} {ids[:10]}, max |d| {err:.3e}", flush=True)
     return {"rows": n, "parted": len(ids), "max_abs_err": err, "iters": iters}
+
+
+def k3_against_plain(what: str, llr, g, done=None, bf16: bool = False, code_idx=None) -> dict:
+    """K3 against ``_bp`` (:func:`against_plain`), final totals included.
+    With a bank's graphs and ``code_idx``: one launch, each row against
+    ``_bp`` of its own code (the other codes' rows marked done)."""
+    total = torch.empty_like(llr)
+
+    def launch():
+        return (*ldpc_cuda.bp_decode_cuda(llr, g, 15, done=done, bf16=bf16, total_out=total, code_idx=code_idx),
+                total)
+
+    def plain():
+        if code_idx is None:
+            return ldpc._bp(llr, g, 15, done=done, bf16=bf16)
+        return plain_bank(llr, code_idx, g, bf16, totals=True)
+
+    return against_plain("K3", what, launch, plain)
+
+
+def time_against_plain(kernel: str, what: str, fns: dict, nbytes: int, ops: int, edge_updates: int,
+                       per_edge: float, clock: float, card: str, iters=None) -> dict:
+    """A BP kernel's call (``fns["kernel"]``, one launch of ``kernel``) and
+    its plain version's (``fns["plain"]``) in turns: plain, kernel, kernel,
+    plain.  Both by CUDA events, the kernel by its device time too (the plain
+    loop's is not taken: it is tens of launches a call, host-bound); beside
+    the bound (``nbytes`` over the memory rate or ``ops`` over the float32
+    rate, the larger) and the issue floor (``edge_updates`` at ``per_edge``
+    instructions at ``clock`` MHz).  Returns the row of ``ms_at``."""
+    k = BP_KERNELS[kernel]
+    t = bench_k3.in_turns(fns, {"plain": 3, "kernel": 20}, {"kernel": 1}, rounds=k["rounds"], kernel=k["kernel"])
+    ms, dev_ms = median(t["kernel"]["events"]), median(t["kernel"]["device"])
+    plain_ms = median(t["plain"]["events"])
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    floor = bench_k3.issue_floor_ms(per_edge, 1, edge_updates, clock)
+    row = {"ms": ms, "device_ms": dev_ms, "ms_windows": t["kernel"]["events"],
+           "device_ms_windows": t["kernel"]["device"], "plain_ms": plain_ms,
+           "plain_ms_windows": t["plain"]["events"], "bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations", "issue_floor_ms": floor,
+           "edge_updates": edge_updates}
+    if iters is not None:
+        row["mean_iters"] = iters.float().mean().item()
+    print(f"[{kernel.lower()}-timing] {what}: {kernel} {ms:.4f} ms by events "
+          f"({[round(v, 4) for v in t['kernel']['events']]}), {dev_ms:.4f} ms on the device (profiler, "
+          f"{[round(v, 4) for v in t['kernel']['device']]}); {k['plain']} {plain_ms:.3f} ms "
+          f"({[round(v, 3) for v in t['plain']['events']]}); bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({by_bytes:.4f} ms for {nbytes} bytes, {by_ops:.4f} ms for {ops} operations), "
+          f"{row['bound_ms'] / dev_ms:.1%} of the device time; issue floor {floor:.4f} ms ({edge_updates} edge "
+          f"updates at {per_edge:.1f} instructions), {floor / dev_ms:.1%} of it; "
+          + (f"mean iterations {row['mean_iters']:.4f}; " if iters is not None else "")
+          + f"library call: none computes it ({card})", flush=True)
+    return row
 
 
 def plain_bank(llr, code_idx, graphs, bf16: bool = False, totals: bool = False):
@@ -4409,39 +4573,23 @@ def k3_phase(dev, card, paths: dict) -> dict:
     max_err = max(c["max_abs_err"] for c in cmp.values())
 
     # ---- times: _bp, K3, K3, _bp ----
-    def timed(what, fns, nbytes, ops, edge_updates):
-        # the plain loop's device time is not taken: it is tens of launches a call, host-bound
-        t = bench_k3.in_turns(fns, {"plain": 3, "k3": 20}, {"k3": 1})
-        ms, dev_ms, plain_ms = median(t["k3"]["events"]), median(t["k3"]["device"]), median(t["plain"]["events"])
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        floor = bench_k3.issue_floor_ms(per_edge, 1, edge_updates, clock)
-        row = times[what] = {"ms": ms, "device_ms": dev_ms, "ms_windows": t["k3"]["events"],
-                             "device_ms_windows": t["k3"]["device"], "plain_ms": plain_ms,
-                             "bound_ms": max(by_bytes, by_ops),
-                             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                             "issue_floor_ms": floor, "edge_updates": edge_updates}
-        print(f"[k3-timing] {what}: K3 {ms:.4f} ms by events (windows {[round(v, 4) for v in t['k3']['events']]}), "
-              f"{dev_ms:.4f} ms on the device (profiler, {[round(v, 4) for v in t['k3']['device']]}); _bp "
-              f"{plain_ms:.3f} ms ({[round(v, 3) for v in t['plain']['events']]}); bound {row['bound_ms']:.4f} ms by "
-              f"{row['bound_by']} ({by_bytes:.4f} ms for {nbytes} bytes, {by_ops:.4f} ms for {ops} operations), "
-              f"{row['bound_ms'] / dev_ms:.1%} of the device time; issue floor {floor:.4f} ms ({edge_updates} "
-              f"edge updates at {per_edge:.1f} instructions), {floor / dev_ms:.1%} of it; library call: "
-              f"none computes it ({card})", flush=True)
-
     times = {}
     for what, (x, g) in inputs.items():
         it = cmp[what]["iters"]
-        timed(what, {"plain": lambda: ldpc._bp(x, g, 15), "k3": lambda: ldpc_cuda.bp_decode_cuda(x, g, 15)},
-              ldpc_cuda.bp_bytes(*x.shape), ldpc_cuda.bp_ops(it, g), int(it.sum()) * g.n_edge)
-        times[what]["mean_iters"] = it.float().mean().item()
+        times[what] = time_against_plain(
+            "K3", what, {"plain": lambda: ldpc._bp(x, g, 15), "kernel": lambda: ldpc_cuda.bp_decode_cuda(x, g, 15)},
+            ldpc_cuda.bp_bytes(*x.shape), ldpc_cuda.bp_ops(it, g), int(it.sum()) * g.n_edge, per_edge, clock, card,
+            it)
     for n, (x, idx, bank) in banks.items():
         _, it, _ = ldpc.decode_bank_mm(x, idx, bank)
         sel = idx.long() - 1
         ops = sum(ldpc_cuda.bp_ops(it[sel == ci], g) for ci, g in enumerate(bank.graphs))
         updates = sum(int(it[sel == ci].sum()) * g.n_edge for ci, g in enumerate(bank.graphs))
-        timed(f"bank of {n} codes, {K3_BANK_CW} codewords",
-              {"plain": lambda: plain_bank(x, idx, bank.graphs), "k3": lambda: ldpc.decode_bank_mm(x, idx, bank)},
-              ldpc_cuda.bp_bytes(*x.shape) + idx.element_size() * idx.numel(), ops, updates)
+        what = f"bank of {n} codes, {K3_BANK_CW} codewords"
+        times[what] = time_against_plain(
+            "K3", what,
+            {"plain": lambda: plain_bank(x, idx, bank.graphs), "kernel": lambda: ldpc.decode_bank_mm(x, idx, bank)},
+            ldpc_cuda.bp_bytes(*x.shape) + idx.element_size() * idx.numel(), ops, updates, per_edge, clock, card)
 
     # ---- the coded step with K3 and with _bp, in turns ----
     rxp, rcfg = paths["rxp"], paths["rcfg"]
@@ -4468,15 +4616,7 @@ def k3_phase(dev, card, paths: dict) -> dict:
     for what, fn in ((f"decode_mm at {x.shape[0]} codewords", lambda: ldpc.decode_mm(x, code)),
                      (f"decode_bank_mm of {bankb.n_codes} codes at {xb.shape[0]} codewords",
                       lambda: ldpc.decode_bank_mm(xb, idxb, bankb))):
-        # one launch a call: late in the script the profiler misses the launches of its first
-        # milliseconds, more than 64 calls of a short fn; a window that comes back empty is taken
-        # again, warmed for longer
-        for warm_ms in (50.0, 200.0, 800.0, 2000.0):
-            api, device, busy = traced_step(fn, "k3_traced", sacrifice=64, warm_ms=warm_ms)
-            if device:
-                break
-            print(f"[k3] one {what} traced after {warm_ms:g} ms of warm calls: the profiler saw no device "
-                  f"work in the span (runtime calls {api}); taken again", flush=True)
+        api, device, busy = traced_step(fn, "k3_traced", sacrifice=64)
         print(f"[k3] one {what} traced: CUDA runtime calls "
               + (", ".join(f"{k} {v}" for k, v in sorted(api.items())) or "none seen")
               + "; on the device's timeline " + ", ".join(f"{k} {v}" for k, v in sorted(device.items()))
@@ -4505,6 +4645,243 @@ def k3_phase(dev, card, paths: dict) -> dict:
             "resident_codewords_per_sm": resident[False],
             "at": f"the coded 11 dB step's {x.shape[0]} codewords of n={code.N}",
             "ms_at": times}
+
+
+# ---------------------------------------------------------------------------
+# phase 30: slice K, K8 (the gather form, csrc/ldpc_bp.cu's bp_gather_kernel)
+# ---------------------------------------------------------------------------
+
+K8_BANK_CODES = 33  # copies of the n=300 code: one more than BANK_MM_MAX_CODES, so decode_bank decodes
+K8_IDS = 15  # the path's fec_ids draw from 1..15: the header carries 4 bits of them (ops/header.py)
+
+
+@contextlib.contextmanager
+def plain_gather():
+    """``decode`` and ``decode_bank`` on their plain version on CUDA tensors
+    too (what the port ran before K8): for comparisons only."""
+    orig = ldpc._decode_gather
+    ldpc._decode_gather = lambda llr, src, max_iters, code_idx=None: ldpc._bp_gather(
+        llr, *ldpc._gather_tables(src, code_idx), max_iters)
+    GATHER.plain = True
+    try:
+        yield
+    finally:
+        ldpc._decode_gather = orig
+        GATHER.plain = False
+
+
+def k8_against_plain(what: str, llr, src, code_idx=None, max_iters: int = 15) -> dict:
+    """K8 against ``_bp_gather`` (:func:`against_plain`) on the code ``src``
+    or, with ``code_idx``, the bank ``src``, each row its own code."""
+    graph = src.graph if code_idx is None else src.graphs
+    return against_plain("K8", what, lambda: ldpc_cuda.bp_gather_cuda(llr, graph, max_iters, code_idx=code_idx),
+                         lambda: ldpc._bp_gather(llr, *ldpc._gather_tables(src, code_idx), max_iters))
+
+
+SHIPPED_ALISTS = ("n_0100_k_0027.alist", "n_0100_k_0023.alist", "n_0300_k_0152.alist")
+
+
+def distinct_bank(n: int, dev, codewords: int, seed: int) -> tuple:
+    """A bank of n codes cycling through the three shipped alists (two rates
+    of n=100 and the n=300 code, in the bank's padded layout), so that a row
+    decodes only with its own code's tables, and noisy LLRs (seeded numpy,
+    mean 1.8, sigma 1.2) that take updates: (llr [codewords, bank.Nmax], bank)."""
+    bank = ldpc.bank_from_reference(ldpc.build_ldpc_bank(
+        [alist.load_alist(str(ROOT / "examples" / SHIPPED_ALISTS[i % 3])) for i in range(n)]), dev)
+    rng = np.random.RandomState(seed)
+    return torch.as_tensor((rng.randn(codewords, bank.Nmax) * 1.2 + 1.8).astype(np.float32), device=dev), bank
+
+
+def k8_path(dev, gen, card) -> dict:
+    """The coded receive step at B_FEC frames through a bank of
+    ``K8_BANK_CODES`` codes, which ``fec_frame_decode`` sends to
+    ``decode_bank``, at 25 and 11 dB: the counts set to 0 just before each
+    step and read just after (one K8 launch, no K3, the metric and four
+    equalizer launches); every frame decoded with what was sent at 25 dB,
+    and at 11 dB (where BP takes updates) the frames that pass their CRC the
+    same as through ``_bp_gather``; each step timed with K8 and with
+    ``_bp_gather`` in turns, and traced."""
+    alists = (BANK_ALISTS[1],) * K8_BANK_CODES
+    _, rcfg, txp, rxp = coded_params(alists, dev)
+    fec = rxp.fec
+    check(fec.bank.n_codes > fec_chain.BANK_MM_MAX_CODES,
+          f"a bank of {fec.bank.n_codes} codes would not reach decode_bank")
+    rng = np.random.RandomState(SEED + 30)
+    fec_id = rng.randint(1, K8_IDS + 1, B_FEC).astype(np.int32)
+    samples, sent = coded_tx(txp, np.full(B_FEC, 2, np.int32), fec_id)
+    path = {"bank": fec.bank, "counts": {}, "llr": {}, "code_idx": {}, "step_ms": {}}
+    for snr in SNRS_DB:
+        stream, _ = noisy(samples, snr, gen)
+        what = f"coded B={B_FEC} QPSK at {snr:g} dB through a {K8_BANK_CODES}-code bank"
+        BP.tag = "30 K8 path"
+        reset_counts()
+        out = rx_step(rxp, stream, B_FEC)
+        torch.cuda.synchronize()
+        counts = path["counts"][snr] = {
+            "K1": sync_cuda.timing_metric_cuda.LAUNCHES, "K2": equalizer_cuda.equalize_frame_cuda.LAUNCHES,
+            "K3": ldpc_cuda.bp_decode_cuda.LAUNCHES, "K8": ldpc_cuda.bp_gather_cuda.LAUNCHES}
+        EQ.counted(1, what)
+        print(f"[k8-path] {what} (fec_id 1..{K8_IDS}, {B_FEC * fec.max_ncws} codeword slots): launches in the step "
+              f"{counts}", flush=True)
+        check(counts["K8"] == 1 and counts["K3"] == 0 and counts["K1"] > 0,
+              f"{what}: launches {counts}, expected one K8 and no K3")
+        name, llr, args, _ = GATHER.last
+        check(name == "decode_bank" and args[1] is fec.bank, f"{what}: the BP call was {name}")
+        path["llr"][snr], path["code_idx"][snr] = llr.float().contiguous(), args[0].contiguous()
+        BP.tag = "30 K8"
+        if snr == 25.0:
+            check_decoded(out, sent, what)
+            print(f"[k8-path] every frame decoded with what was sent: crc_ok {int(out.crc_ok.sum())}/{B_FEC}, "
+                  f"mean BP iterations {out.avg_iters.mean().item():.4f}", flush=True)
+        else:
+            with plain_gather():
+                out_plain = rx_step(rxp, stream, B_FEC)
+            check(torch.equal(out.crc_ok, out_plain.crc_ok) and torch.equal(out.avg_iters, out_plain.avg_iters),
+                  f"{what}: crc_ok or BP iterations parted from the step through _bp_gather")
+            print(f"[k8-path] crc rate {out.crc_ok.float().mean().item():.4f} ({int(out.crc_ok.sum())}/{B_FEC}), "
+                  f"mean BP iterations {out.avg_iters.mean().item():.4f}: crc_ok and iterations the same through "
+                  f"_bp_gather", flush=True)
+
+        def step_plain(stream=stream):
+            with plain_gather():
+                return rx_step(rxp, stream, B_FEC)
+        t = bench_k3.in_turns({"plain": step_plain, "k8": lambda: rx_step(rxp, stream, B_FEC)}, STEPS_PER_WINDOW)
+        ms = path["step_ms"][snr] = {k: median(v["events"]) for k, v in t.items()}
+        api, device, busy = traced_step(lambda: rx_step(rxp, stream, B_FEC), "k8_step")
+        _, device_plain, busy_plain = traced_step(step_plain, "k8_step_plain")
+        n_k8 = sum(v for k, v in device.items() if "bp_gather_kernel" in k)
+        print(f"[k8-path] {snr:g} dB: the step with K8 {ms['k8']:.3f} ms (windows "
+              f"{[round(v, 3) for v in t['k8']['events']]}), with _bp_gather {ms['plain']:.3f} ms "
+              f"({[round(v, 3) for v in t['plain']['events']]}); traced: {sum(device.values())} device kernels and "
+              f"copies, busy {busy:.3f} ms, idle share {1 - busy / ms['k8']:.4f} (with _bp_gather "
+              f"{sum(device_plain.values())}, busy {busy_plain:.3f} ms, idle {1 - busy_plain / ms['plain']:.4f}); "
+              f"K8 in the trace {n_k8} ({card})", flush=True)
+        check(n_k8 == 1, f"the traced step at {snr:g} dB ran {n_k8} K8 kernels, expected one")
+    return path
+
+
+def k8_phase(dev, card, gen) -> dict:
+    """Phase 30.  Returns K8's entry for the ``kernels`` line."""
+    t_phase = time.perf_counter()
+    path = k8_path(dev, gen, card)
+    _, codes, h = h_llrs(dev)
+    code = codes["card"]
+    banks = bench_k3.bank_inputs(dev, K3_BANK_CW)
+
+    # ---- how K8 is compiled ----
+    lib = ldpc_cuda.library_path()
+    clock = bench_k3.sm_clock_mhz()
+    kernels = bench_k3.disassemble(lib)
+    counts = bench_k3.form_counts(kernels, "gather")
+    slots = code.graph.chk_edges.shape[1]
+    name = next(k for k in counts if f"bp_gather_kernelILi{slots}EE" in k)
+    c = counts[name]
+    resident = ldpc_cuda.resident_codewords(code.graph, gather=True)
+    per_edge = c["per_edge"]["instructions"]
+    print(f"[k8-sass] {name}: {c['kernel_instructions']} instructions; a message update issues {per_edge:.1f} an "
+          f"edge in the loops that evaluate the transcendentals ({c['per_edge']['mufu']:.1f} MUFU, "
+          f"{c['per_edge']['lds']:.1f} shared loads, {c['per_edge']['sts']:.1f} shared stores an edge; loops "
+          f"{c['loops']}), barriers in its loop of updates {c['update_loop_barriers']}; resident codewords an SM "
+          f"{resident} ({resident * bench_k3.SMS} on {bench_k3.SMS} SMs, {ldpc_cuda.warps_for(code.graph)} warps a "
+          f"codeword); K3's at the same slots: {sass_of(bench_k3.form_counts(kernels), False, slots)[1]['per_edge']} "
+          f"({card})", flush=True)
+
+    # ---- K8 against _bp_gather ----
+    cmp, inputs = {}, {}  # inputs: name -> (llr, src, code_idx)
+    for regime, x in h.items():
+        inputs[f"{H_CW} {regime}"] = (torch.as_tensor(x, device=dev), code, None)
+    for snr in SNRS_DB:
+        inputs[f"the {K8_BANK_CODES}-code step's {path['llr'][snr].shape[0]} codewords at {snr:g} dB"] = (
+            path["llr"][snr], path["bank"], path["code_idx"][snr])
+    for n, (x, idx, bank) in banks.items():
+        if n > 1:
+            inputs[f"bank of {n} copies, {K3_BANK_CW} codewords"] = (x, bank, idx)
+    distinct = {n: distinct_bank(n, dev, K3_BANK_CW, SEED + 30 + n) for n in (2, 8, 32)}
+    for n, (x, bank) in distinct.items():
+        idx = torch.as_tensor(np.random.RandomState(n).randint(1, n + 1, x.shape[0]).astype(np.int32), device=dev)
+        inputs[f"bank of {n} distinct codes, noisy, {K3_BANK_CW} codewords"] = (x, bank, idx)
+    for what, (x, src, idx) in inputs.items():
+        cmp[what] = k8_against_plain(what, x, src, idx)
+    # decode_bank's id rule: ids past the bank and negative ones, on distinct codes with updates
+    x8, bank8 = distinct[8]
+    C = bank8.n_codes
+    wild = torch.as_tensor(np.random.RandomState(30).randint(-C - 3, C + 4, x8.shape[0]).astype(np.int64),
+                           device=dev)
+    wild[:2 * C + 7] = torch.arange(-C - 3, C + 4, device=dev)  # every id of [-C-3, C+3]
+    what = f"bank of {C} distinct codes, noisy, ids in [{-C - 3}, {C + 3}]"
+    cmp[what] = k8_against_plain(what, x8, bank8, wild)
+    # the check tells the rules apart: decode_bank_mm's clamp to [1, C] decodes other rows otherwise
+    mm_rule = ldpc._bp_gather(x8, *ldpc._gather_tables(bank8, torch.clamp(wild, 1, C)), 15)
+    k8 = ldpc_cuda.bp_gather_cuda(x8, bank8.graphs, 15, code_idx=wild)
+    differ = (k8[0] != mm_rule[0]).any(1) | (k8[1] != mm_rule[1]) | (k8[2] != mm_rule[2])
+    check(bool(differ.any()), f"{what}: decode_bank_mm's id rule gives the same rows, so the check tells nothing")
+    print(f"[k8] {what}: decode_bank_mm's clamp to [1, {C}] would part on {int(differ.sum())} rows", flush=True)
+    what = f"{H_CW} knee, max_iters 0"
+    cmp[what] = k8_against_plain(what, inputs[f"{H_CW} knee"][0], code, max_iters=0)
+    cw = torch.as_tensor(h["clean"] > 0, device=dev)  # the clean regime's codewords, with no noise
+    noiseless = torch.where(cw, 4.0, -4.0).float().contiguous()
+    got = cmp["noiseless"] = k8_against_plain(f"{H_CW} noiseless (done at entry)", noiseless, code)
+    check(int(got["iters"].max()) == 0, "the noiseless batch took updates")
+    rows = sum(v["rows"] for v in cmp.values())
+    parted = sum(v["parted"] for v in cmp.values())
+
+    # ---- times: _bp_gather, K8, K8, _bp_gather ----
+    times = {}
+    for what, (x, src, idx) in inputs.items():
+        graphs = (src.graph,) if idx is None else src.graphs
+        it = cmp[what]["iters"]
+        if idx is None:
+            sel = torch.zeros_like(it, dtype=torch.long)
+        else:
+            sel = torch.clamp(ldpc._bank_rows(idx, src.n_codes), min=1) - 1
+        ops = sum(ldpc_cuda.bp_ops(it[sel == ci], g, ldpc_cuda.GATHER_UPDATE_OPS_PER_EDGE)
+                  for ci, g in enumerate(graphs))
+        updates = sum(int(it[sel == ci].sum()) * g.n_edge for ci, g in enumerate(graphs))
+        nbytes = ldpc_cuda.bp_bytes(*x.shape) + (0 if idx is None else idx.element_size() * idx.numel())
+        times[what] = time_against_plain(
+            "K8", what, {"plain": lambda: ldpc._bp_gather(x, *ldpc._gather_tables(src, idx), 15),
+                         "kernel": lambda: ldpc._decode_gather(x, src, 15, idx)},
+            nbytes, ops, updates, per_edge, clock, card, it)
+
+    # ---- one decode_bank of the path's bank traced: one kernel, no host read ----
+    x, idx = path["llr"][11.0][:K3_BANK_CW].contiguous(), path["code_idx"][11.0][:K3_BANK_CW].contiguous()
+    bank = path["bank"]
+    what = f"decode_bank of {bank.n_codes} codes at {x.shape[0]} codewords (11 dB)"
+    api, device, busy = traced_step(lambda: ldpc.decode_bank(x, idx, bank), "k8_traced", sacrifice=64)
+    print(f"[k8] one {what} traced: CUDA runtime calls "
+          + (", ".join(f"{k} {v}" for k, v in sorted(api.items())) or "none seen")
+          + "; on the device's timeline " + ", ".join(f"{k} {v}" for k, v in sorted(device.items()))
+          + f", busy {busy:.4f} ms ({card})", flush=True)
+    check(sum(device.values()) == 1 and "bp_gather_kernel" in next(iter(device)),
+          f"a traced {what}: device work {device}, expected the one K8 kernel")
+    waits = [k for k in list(api) + list(device) if "Synchronize" in k or "DtoH" in k or "Memcpy" in k]
+    check(not waits, f"a traced {what}: synchronising calls or copies {waits}")
+
+    # ---- launches on the paths ----
+    print("[k8] launches a phase (gather-form calls / K8 launches): "
+          + ", ".join(f"{k} {c} / {n}" for k, (c, n) in GATHER.by_tag.items()), flush=True)
+    for tag in ("27 slice H", "30 K8 path"):
+        check(GATHER.by_tag.get(tag, [0, 0])[1] > 0, f"phase {tag} launched no K8")
+    calls, launches = GATHER.totals()
+    check(launches == calls, f"the paths made {calls} gather-form calls and {launches} K8 launches, not one a call")
+    print(f"[k8] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    # the main path: the coded steps through the large bank, each run with the counts set to 0 just before
+    path_launches = sum(c["K8"] for c in path["counts"].values())
+    main = times[f"the {K8_BANK_CODES}-code step's {path['llr'][11.0].shape[0]} codewords at 11 dB"]
+    return {"name": "ldpc_bp_gather", "route": "cuda", "source": "gr_dtl_tpu_torch/csrc/ldpc_bp.cu",
+            "replaces": "gr_dtl_tpu/ops/ldpc.py:154-246", "launches": path_launches,
+            # a step: a coded receive step through the large bank (it makes one decode_bank call)
+            "launches_per_step": path_launches / len(path["counts"]),
+            "max_abs_err": max(v["max_abs_err"] for v in cmp.values()), "rows_compared": rows,
+            "parted_rows": parted, "ms": main["ms"], "ms_by": "events", "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+            "device_ms": main["device_ms"], "issue_floor_ms": main["issue_floor_ms"],
+            "instructions_per_edge": per_edge, "resident_codewords_per_sm": resident,
+            "also_replaces": "gr_dtl_tpu/ops/ldpc.py:574-645",
+            # every path's gather-form calls on the card (phases 27 and 30), booked by the ledger
+            "ledger_calls": calls, "ledger_launches": launches,
+            "at": f"the {K8_BANK_CODES}-code coded step's {path['llr'][11.0].shape[0]} codewords of n={code.N} "
+                  f"at 11 dB", "step_ms": path["step_ms"], "ms_at": times}
 
 
 def meshmod_cpu():

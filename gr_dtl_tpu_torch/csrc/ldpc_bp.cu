@@ -1,5 +1,6 @@
 // K3: the log/sign-domain sum-product BP decoder as one CUDA launch, for one
-// code or for a bank of codes with a code id a codeword.
+// code or for a bank of codes with a code id a codeword; and K8, the gather
+// form's tanh-product decoder in the same frame (below).
 //
 // What it replaces.  The JAX package decodes with
 // gr_dtl_tpu/ops/ldpc.py::decode_mm (:249-353): a lax.scan of max_iters
@@ -78,6 +79,34 @@
 // --use_fast_math).  With kBf16 (GR_DTL_TPU_BP_BF16) the operands _bp rounds
 // to bfloat16 are rounded here at the same places, to nearest even.
 //
+// K8: the gather form, the same frame with a tanh-product check update.
+// It replaces gr_dtl_tpu/ops/ldpc.py::decode (:154-246) and decode_bank
+// (:574-645): a lax.scan of message updates over [B, M, R] check messages
+// (M checks of up to R slots), the tables one code's or a row of code ids'
+// each; their plain PyTorch version, ops/ldpc.py::_bp_gather, is a Python
+// loop of ~30 launches an update with a host read after each.  Step 4
+// becomes, per check and its slots r (a pad slot has t = 1):
+//      t_r = tanh(clamp(v2c_r, +-20) / 2), prod = the product of the t_r,
+//      t_safe = |t_r| < 1e-12 ? sign(t_r) 1e-12 + 1e-30 : t_r,
+//      c2v[e_r] = 2 atanh(clamp(prod / t_safe, +-0.999999)).
+// The gather form's slot [m, r] is K3's edge chk_edges[r, m], and a
+// variable's gather slots list its checks in increasing order, as
+// var_edges does (both come from a row-major np.nonzero of H; a bank's
+// padded layout keeps the order), so K8 reads K3's tables unchanged; where
+// the gather form adds more masked zeros than K3's tables hold pads, only
+// the sign of a zero total can differ, which no output sees.  The exit
+// argument above holds word for word (done is sticky, a converged row's
+// messages are frozen, and the converging iteration skips the update).  A
+// bank row takes decode_bank's code: the id as jnp indexes the C + 1 table
+// rows (a negative id plus C + 1 once, then clamped to [0, C]; row 0 is code
+// 1), not decode_bank_mm's clamp to [1, C].  Its arithmetic follows
+// _bp_gather as K3's follows _bp: the product left to right from slot 0 as
+// _slot_prod takes it, each product, sum and the guard's two operations
+// rounded alone, the division the IEEE __fdiv_rn, the guard's and clamp's
+// constants the Python scalars rounded to float32, accurate tanhf and
+// atanhf.  What bounds it is what bounds K3, with fewer transcendentals an
+// edge (tanh and atanh, and a division, against tanh, log, exp and atanh).
+//
 // Limits (the wrapper raises above them): N, E <= kMaxIndex (int16 tables),
 // column and row degree <= kMaxDeg, the shared memory of bp_smem_bytes <=
 // kMaxSmem.
@@ -97,6 +126,10 @@ constexpr int kRegSlots = 8;       // row degree up to which a lane's slots are 
 constexpr int kMaxSmem = 232448;   // shared memory a block may use on sm_90 (227 KB)
 constexpr int kHeader = 7;         // ints a code in the header: M, E, dv, dc, and the offsets of
                                    // var_edges, chk_edges and chk_vars in the tables
+// K8's guard and clamp: the gather form's Python scalars, each rounded to float32 as PyTorch rounds them
+constexpr float kTiny = (float)1e-12;     // |t| below it is replaced by sign(t) kTiny + kTinier
+constexpr float kTinier = (float)1e-30;
+constexpr float kLooMax = (float)0.999999;
 
 template <bool kBf16>
 __device__ __forceinline__ float rnd(float x) {
@@ -156,8 +189,49 @@ __device__ __forceinline__ void check_update(int M, int E, int dc, const int16_t
     }
 }
 
-template <bool kBf16, int kSlots>
-__global__ void __launch_bounds__(kMaxThreads, kSlots <= kRegSlots ? kMinBlocks : 1) bp_kernel(
+// torch.sign: 1, -1, or 0 at +-0 (a NaN never reaches it: |NaN| < kTiny is false)
+__device__ __forceinline__ float sign_of(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
+
+// One check's tanh-product update (K8, the gather form's check_update): its
+// slots' v2c and t = tanh(clamp(v2c, +-20) / 2), 1 at a pad; their product
+// left to right from slot 0; then each edge's leave-one-out message
+// 2 atanh(clamp(prod / t_safe, +-0.999999)), t_safe the guarded t.  A pad
+// slot (edge E, variable N) reads total[N] = c2v[E] = 0, multiplies by 1.0
+// (exact) and stores nothing.  Slots as in check_update.
+template <int kSlots>
+__device__ __forceinline__ void check_update_tanh(int M, int E, int dc, const int16_t* __restrict__ ce,
+                                                  const int16_t* __restrict__ cv, const float* total, float* c2v,
+                                                  bool first) {
+    float t[kSlots];
+    int edge[kSlots];
+    float prod = 1.0f;
+#pragma unroll
+    for (int r = 0; r < kSlots; ++r) {
+        if (kSlots > kRegSlots && r >= dc) break;
+        const int e = ce[r * M];
+        const float old = first ? 0.0f : c2v[e];  // every message is 0 before the first update
+        const float v2c = __fsub_rn(total[cv[r * M]], old);
+        const float th = tanhf(__fmul_rn(clampf(v2c, -20.0f, 20.0f), 0.5f));  // taken at a pad too: no branch
+        const float tr = e < E ? th : 1.0f;
+        edge[r] = e;
+        t[r] = tr;
+        prod = r == 0 ? tr : __fmul_rn(prod, tr);
+    }
+#pragma unroll
+    for (int r = 0; r < kSlots; ++r) {
+        if (kSlots > kRegSlots && r >= dc) break;
+        const float tr = t[r];
+        const float safe = fabsf(tr) < kTiny ? __fadd_rn(__fmul_rn(sign_of(tr), kTiny), kTinier) : tr;
+        const float loo = clampf(__fdiv_rn(prod, safe), -kLooMax, kLooMax);
+        const float msg = __fmul_rn(2.0f, atanhf(loo));
+        if (edge[r] < E) c2v[edge[r]] = msg;
+    }
+}
+
+// One codeword of either form, a block: the frame K3 and K8 share.  kTanh
+// picks K8's check update (check_update_tanh) and decode_bank's id rule.
+template <bool kBf16, int kSlots, bool kTanh>
+__device__ __forceinline__ void decode_codeword(
     const float* __restrict__ llr, const uint8_t* __restrict__ done_in, const void* __restrict__ code_idx,
     int idx64, int n_codes, const int* __restrict__ header, const int16_t* __restrict__ tab, int N,
     int max_iters, int* __restrict__ hard, int* __restrict__ iters, uint8_t* __restrict__ ok_out,
@@ -168,7 +242,14 @@ __global__ void __launch_bounds__(kMaxThreads, kSlots <= kRegSlots ? kMinBlocks 
     int code = 0;
     if (code_idx != nullptr) {
         const long long id = idx64 ? ((const long long*)code_idx)[b] : ((const int*)code_idx)[b];
-        code = (int)(min(max(id, 1LL), (long long)n_codes) - 1);
+        if constexpr (kTanh) {
+            // decode_bank: jnp's index into the C + 1 table rows (a negative id counts from the
+            // end once, then clamps to [0, C]); row 0 is code 1
+            const long long row = min(max(id < 0 ? id + n_codes + 1 : id, 0LL), (long long)n_codes);
+            code = (int)max(row, 1LL) - 1;
+        } else {
+            code = (int)(min(max(id, 1LL), (long long)n_codes) - 1);
+        }
     }
     const int* h = header + code * kHeader;
     const int M = h[0], E = h[1], dv = h[2], dc = h[3];
@@ -210,8 +291,12 @@ __global__ void __launch_bounds__(kMaxThreads, kSlots <= kRegSlots ? kMinBlocks 
             ok = __syncthreads_and(odd == 0) != 0;
             if (ok || it == max_iters) break;
             // the check update (_check_update), a thread a check
-            for (int c = tid; c < M; c += nt)
-                check_update<kBf16, kSlots>(M, E, dc, chk_edges + c, chk_vars + c, total, c2v, it == 0);
+            for (int c = tid; c < M; c += nt) {
+                if constexpr (kTanh)
+                    check_update_tanh<kSlots>(M, E, dc, chk_edges + c, chk_vars + c, total, c2v, it == 0);
+                else
+                    check_update<kBf16, kSlots>(M, E, dc, chk_edges + c, chk_vars + c, total, c2v, it == 0);
+            }
             __syncthreads();
             ++it;
             // totals (_var_totals), a thread a variable, slots left to right
@@ -235,12 +320,35 @@ __global__ void __launch_bounds__(kMaxThreads, kSlots <= kRegSlots ? kMinBlocks 
     }
 }
 
+// K3: decode_mm's and decode_bank_mm's log/sign update.
+template <bool kBf16, int kSlots>
+__global__ void __launch_bounds__(kMaxThreads, kSlots <= kRegSlots ? kMinBlocks : 1) bp_kernel(
+    const float* __restrict__ llr, const uint8_t* __restrict__ done_in, const void* __restrict__ code_idx,
+    int idx64, int n_codes, const int* __restrict__ header, const int16_t* __restrict__ tab, int N,
+    int max_iters, int* __restrict__ hard, int* __restrict__ iters, uint8_t* __restrict__ ok_out,
+    float* __restrict__ total_out) {
+    decode_codeword<kBf16, kSlots, false>(llr, done_in, code_idx, idx64, n_codes, header, tab, N, max_iters, hard,
+                                          iters, ok_out, total_out);
+}
+
+// K8: decode's and decode_bank's tanh-product update.
+template <int kSlots>
+__global__ void __launch_bounds__(kMaxThreads, kSlots <= kRegSlots ? kMinBlocks : 1) bp_gather_kernel(
+    const float* __restrict__ llr, const void* __restrict__ code_idx, int idx64, int n_codes,
+    const int* __restrict__ header, const int16_t* __restrict__ tab, int N, int max_iters, int* __restrict__ hard,
+    int* __restrict__ iters, uint8_t* __restrict__ ok_out) {
+    decode_codeword<false, kSlots, true>(llr, nullptr, code_idx, idx64, n_codes, header, tab, N, max_iters, hard,
+                                         iters, ok_out, nullptr);
+}
+
 // Shared memory a block takes for codewords of N bits, codes of at most E
 // edges (ops/ldpc_cuda.py::smem_bytes).
 long long bp_smem_bytes(int N, int E) { return 4LL * (2LL * N + E + 2); }
 
 using Kernel = void (*)(const float*, const uint8_t*, const void*, int, int, const int*, const int16_t*, int,
                         int, int*, int*, uint8_t*, float*);
+using GatherKernel = void (*)(const float*, const void*, int, int, const int*, const int16_t*, int, int, int*,
+                              int*, uint8_t*);
 
 template <bool kBf16>
 Kernel pick_slots(int slots) {
@@ -261,18 +369,36 @@ Kernel pick_slots(int slots) {
 // the guarded kMaxDeg.
 Kernel pick(int bf16, int dc) { return bf16 ? pick_slots<true>(dc) : pick_slots<false>(dc); }
 
+GatherKernel pick_gather(int dc) {
+    switch (dc) {
+        case 1: return bp_gather_kernel<1>;
+        case 2: return bp_gather_kernel<2>;
+        case 3: return bp_gather_kernel<3>;
+        case 4: return bp_gather_kernel<4>;
+        case 5: return bp_gather_kernel<5>;
+        case 6: return bp_gather_kernel<6>;
+        case 7: return bp_gather_kernel<7>;
+        case 8: return bp_gather_kernel<8>;
+        default: return bp_gather_kernel<kMaxDeg>;
+    }
+}
+
 constexpr int kMaxDevices = 64;
-constexpr int kKernels = 2 * (kRegSlots + 1);
+constexpr int kForms = 3;  // K3, K3 with bf16, K8
+constexpr int kGatherForm = 2;  // K8
+constexpr int kKernels = kForms * (kRegSlots + 1);
 int prepared[kMaxDevices][kKernels];  // the dynamic shared memory each kernel was last allowed, a device
 
 // The attributes a launch needs, set once a kernel and device (and again
 // for more shared memory): its dynamic shared memory, and the carveout that
-// gives shared memory the most of an SM's 256 KB.
-cudaError_t prepare(Kernel kernel, int bf16, int dc, long long smem) {
+// gives shared memory the most of an SM's 256 KB.  form: 0 K3, 1 K3 with
+// bf16, 2 K8.
+template <typename K>
+cudaError_t prepare(K kernel, int form, int dc, long long smem) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
-    int* done = dev < kMaxDevices ? &prepared[dev][(bf16 ? kRegSlots + 1 : 0) + (dc <= kRegSlots ? dc : 0)] : nullptr;
+    int* done = dev < kMaxDevices ? &prepared[dev][form * (kRegSlots + 1) + (dc <= kRegSlots ? dc : 0)] : nullptr;
     if (done != nullptr && *done >= smem) return cudaSuccess;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess)
@@ -280,6 +406,23 @@ cudaError_t prepare(Kernel kernel, int bf16, int dc, long long smem) {
                                    cudaSharedmemCarveoutMaxShared);
     if (err == cudaSuccess && done != nullptr) *done = (int)smem;
     return err;
+}
+
+// The launch's limits (the wrappers raise above them first).
+bool bad_launch(int n_codes, int max_e, int dc, int warps, int B, int N, int max_iters) {
+    return B < 1 || N < 1 || N > kMaxIndex || max_e < 1 || max_e > kMaxIndex || dc < 1 || dc > kMaxDeg ||
+           warps < 1 || 32 * warps > kMaxThreads || n_codes < 1 || max_iters < 0 || bp_smem_bytes(N, max_e) > kMaxSmem;
+}
+
+// Blocks of `warps` warps a kernel keeps resident on an SM; negative on a
+// CUDA error.
+template <typename K>
+int resident(K kernel, int form, int dc, long long smem, int warps) {
+    int blocks = 0;
+    cudaError_t err = prepare(kernel, form, dc, smem);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * warps, (size_t)smem);
+    return err == cudaSuccess ? blocks : -(int)err;
 }
 
 }  // namespace
@@ -290,35 +433,43 @@ cudaError_t prepare(Kernel kernel, int bf16, int dc, long long smem) {
 // lays them out, every code's rows padded to dc slots, max_e the codes'
 // largest E; warps: a block's warps (1 to 8); all contiguous.  Writes hard
 // [B, N] int32, iters [B] int32, ok [B] bytes and, if total is not null,
-// total [B, N] float32.  bf16: the bfloat16 rounding of GR_DTL_TPU_BP_BF16.
-// Returns the CUDA error of the launch.
+// total [B, N] float32.  form: 0 K3, 1 K3 with the bfloat16 rounding of
+// GR_DTL_TPU_BP_BF16, 2 K8 (decode's and decode_bank's BP: done_in and
+// total must be null, and a code id picks its code by decode_bank's rule,
+// decode_codeword).  Returns the CUDA error of the launch.
 extern "C" int bp_decode_launch(const void* llr, const void* done_in, const void* code_idx, int idx64,
                                 int n_codes, const void* header, const void* tab, int max_e, int dc, int warps,
-                                int B, int N, int max_iters, int bf16, void* hard, void* iters, void* ok,
+                                int B, int N, int max_iters, int form, void* hard, void* iters, void* ok,
                                 void* total, void* stream) {
     const long long smem = bp_smem_bytes(N, max_e);
-    if (B < 1 || N < 1 || N > kMaxIndex || max_e < 1 || max_e > kMaxIndex || dc < 1 || dc > kMaxDeg ||
-        warps < 1 || 32 * warps > kMaxThreads || n_codes < 1 || max_iters < 0 || smem > kMaxSmem)
+    if (bad_launch(n_codes, max_e, dc, warps, B, N, max_iters) || form < 0 || form >= kForms ||
+        (form == kGatherForm && (done_in != nullptr || total != nullptr)))
         return (int)cudaErrorInvalidValue;
-    const Kernel kernel = pick(bf16, dc);
-    const cudaError_t err = prepare(kernel, bf16, dc, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<B, 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
-        (const float*)llr, (const uint8_t*)done_in, code_idx, idx64, n_codes, (const int*)header,
-        (const int16_t*)tab, N, max_iters, (int*)hard, (int*)iters, (uint8_t*)ok, (float*)total);
+    if (form == kGatherForm) {
+        const GatherKernel kernel = pick_gather(dc);
+        const cudaError_t err = prepare(kernel, form, dc, smem);
+        if (err != cudaSuccess) return (int)err;
+        kernel<<<B, 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
+            (const float*)llr, code_idx, idx64, n_codes, (const int*)header, (const int16_t*)tab, N, max_iters,
+            (int*)hard, (int*)iters, (uint8_t*)ok);
+    } else {
+        const Kernel kernel = pick(form, dc);
+        const cudaError_t err = prepare(kernel, form, dc, smem);
+        if (err != cudaSuccess) return (int)err;
+        kernel<<<B, 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
+            (const float*)llr, (const uint8_t*)done_in, code_idx, idx64, n_codes, (const int*)header,
+            (const int16_t*)tab, N, max_iters, (int*)hard, (int*)iters, (uint8_t*)ok, (float*)total);
+    }
     return (int)cudaGetLastError();
 }
 
 // Codewords an SM keeps resident at once (a codeword a block of `warps`
 // warps) for codewords of N bits and codes of at most max_e edges and dc
-// row slots: cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative on a
-// CUDA error.
-extern "C" int bp_resident_codewords(int N, int max_e, int dc, int warps, int bf16) {
+// row slots, in a form of bp_decode_launch's:
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative on a CUDA error.
+extern "C" int bp_resident_codewords(int N, int max_e, int dc, int warps, int form) {
+    if (form < 0 || form >= kForms) return -(int)cudaErrorInvalidValue;
     const long long smem = bp_smem_bytes(N, max_e);
-    const Kernel kernel = pick(bf16, dc);
-    int blocks = 0;
-    cudaError_t err = prepare(kernel, bf16, dc, smem);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * warps, (size_t)smem);
-    return err == cudaSuccess ? blocks : -(int)err;
+    return form == kGatherForm ? resident(pick_gather(dc), form, dc, smem, warps)
+                               : resident(pick(form, dc), form, dc, smem, warps);
 }

@@ -25,7 +25,7 @@ Device part:
   pass, then converged-last buckets decoded afresh with the full budget;
 - :func:`decode` / :func:`decode_bank`: the reference's gather form
   (tanh-product check update on ``[B, M, R]`` messages), for one code or
-  with per-codeword code selection (large banks).  Both run one loop.
+  with per-codeword code selection (large banks).
 
 Early exit: the reference scans a fixed 15 iterations and skips the
 message update once every codeword's syndrome passed; ``iters_used``
@@ -37,8 +37,10 @@ its own code): a block a codeword, each stopping at its own syndrome pass,
 with no host check; a failed build or launch raises.  On a CPU tensor they run the plain version ``_bp``,
 whose loop breaks once every row has converged (one host read an
 iteration; ``early_exit=False`` runs every iteration).  ``(hard,
-iters_used, ok)`` are the same either way.  ``decode`` and
-``decode_bank`` stay plain PyTorch on both devices.
+iters_used, ok)`` are the same either way.  ``decode`` and ``decode_bank``
+do the same with K8, ``ops/ldpc_cuda.bp_gather_cuda`` (K3's frame and
+tables with the gather form's tanh-product update), on a CUDA tensor, and
+with their plain version ``_bp_gather`` on a CPU one.
 
 Codeword layout ``[check bits | systematic bits]``; LLR > 0 <=> bit 0;
 shortened bits are pinned at ``+SHORTENED_LLR``.
@@ -373,16 +375,28 @@ def _gather(x: torch.Tensor, idx: torch.Tensor, fill: float) -> torch.Tensor:
     return xp[:, idx.reshape(-1)].reshape(x.shape[0], *idx.shape)
 
 
+def _fold(x: torch.Tensor, op) -> torch.Tensor:
+    """``op`` over x's last axis, left to right from slot 0:
+    ``op(op(x[..., 0], x[..., 1]), x[..., 2]) ...``, one rounding a slot.
+    A reduction kernel combines in an order of its own, another on the CPU
+    than on the card; this order is the one K3 and K8 (``csrc/ldpc_bp.cu``)
+    take."""
+    s = x[..., 0]
+    for d in range(1, x.shape[-1]):
+        s = op(s, x[..., d])
+    return s
+
+
 def _slot_sum(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [B, L] gathered at idx [R, D] (an index of L reads 0) and summed
-    over the D slots left to right: ``((x[i0] + x[i1]) + x[i2]) + ...``.
-    A reduction kernel adds in an order of its own, another on the CPU than
-    on the card; this order is the one K3 (``csrc/ldpc_bp.cu``) adds in."""
-    g = _gather(x, idx, 0.0)
-    s = g[..., 0]
-    for d in range(1, idx.shape[-1]):
-        s = s + g[..., d]
-    return s
+    over the D slots left to right: ``((x[i0] + x[i1]) + x[i2]) + ...``."""
+    return _fold(_gather(x, idx, 0.0), torch.add)
+
+
+def _slot_prod(t: torch.Tensor) -> torch.Tensor:
+    """t's product over its last axis, left to right from slot 0:
+    ``((t0 * t1) * t2) * ...``, the order K8 multiplies a check's slots in."""
+    return _fold(t, torch.mul)
 
 
 def _syndrome_ok(total: torch.Tensor, g: BpGraph) -> torch.Tensor:
@@ -534,9 +548,12 @@ def decode_bank_mm(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
 def _bp_gather(llr: torch.Tensor, chk_adj: torch.Tensor, var_edges: torch.Tensor,
                rev: torch.Tensor, max_iters: int):
     """The reference's gather-form BP (tanh-product check update on
-    ``[B, M, R]`` messages).  The tables are one code's (``chk_adj``
-    [M, R], ``var_edges`` [N, D, 2], ``rev`` [M, R, 2]) or one per
-    codeword (a leading [B] axis): the indexing broadcasts either."""
+    ``[B, M, R]`` messages), K8's plain version.  The tables are one code's
+    (``chk_adj`` [M, R], ``var_edges`` [N, D, 2], ``rev`` [M, R, 2]) or one
+    per codeword (a leading [B] axis): the indexing broadcasts either.  A
+    variable's slots add and a check's slots multiply left to right from
+    slot 0 (``_fold``), the order K8 takes.  On a CPU tensor the loop
+    breaks once every row has converged (one host read an iteration)."""
     llr = llr.float()
     B = llr.shape[0]
     dev = llr.device
@@ -552,7 +569,7 @@ def _bp_gather(llr: torch.Tensor, chk_adj: torch.Tensor, var_edges: torch.Tensor
     def check_update(v2c):
         t = torch.tanh(torch.clamp(v2c, -20.0, 20.0) / 2.0)
         t = torch.where(chk_mask, t, 1.0)
-        prod = t.prod(dim=-1, keepdim=True)
+        prod = _slot_prod(t)[..., None]
         # leave-one-out product; guard tiny values for the division
         t_safe = torch.where(t.abs() < 1e-12, torch.sign(t) * 1e-12 + 1e-30, t)
         loo = torch.clamp(prod / t_safe, -0.999999, 0.999999)
@@ -565,7 +582,7 @@ def _bp_gather(llr: torch.Tensor, chk_adj: torch.Tensor, var_edges: torch.Tensor
 
     def totals(c2v):
         inc = torch.where(var_mask, c2v[b_ix, ve_chk, ve_slot], 0.0)  # [B, N, D]
-        return inc, llr + inc.sum(-1)
+        return inc, llr + _fold(inc, torch.add)
 
     c2v = torch.zeros((B, M, R), dtype=torch.float32, device=dev)
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -582,6 +599,37 @@ def _bp_gather(llr: torch.Tensor, chk_adj: torch.Tensor, var_edges: torch.Tensor
     return (total < 0).int(), iters, done | syndrome_ok(total)
 
 
+def _bank_rows(code_idx: torch.Tensor, n_codes: int) -> torch.Tensor:
+    """The table row of each code id, as the reference's jnp indexing of
+    the ``n_codes + 1`` rows takes it: a negative id counts from the end
+    once, then the row clamps to ``[0, n_codes]`` (row 0 is code 1).  On
+    the ids' device, with no host read."""
+    idx = code_idx.long()
+    return torch.clamp(torch.where(idx < 0, idx + (n_codes + 1), idx), 0, n_codes)
+
+
+def _gather_tables(src, code_idx: torch.Tensor | None) -> tuple:
+    """The gather form's tables (``chk_adj``, ``var_edges``, ``rev``): a
+    code's own, or each codeword's row of a bank's by :func:`_bank_rows`."""
+    if code_idx is None:
+        return src.chk_adj, src.var_edges, src.rev
+    row = _bank_rows(code_idx, src.n_codes)
+    return src.chk_adj[row], src.var_edges[row], src.rev[row]
+
+
+def _decode_gather(llr: torch.Tensor, src, max_iters: int, code_idx: torch.Tensor | None = None):
+    """(hard, iters_used, ok) of the gather form over a code (``src`` an
+    :class:`LdpcCode`) or a bank with a code id a row: K8 on a CUDA tensor,
+    ``_bp_gather`` on a CPU one."""
+    if llr.is_cuda:
+        graph = src.graph if code_idx is None else src.graphs
+        if code_idx is not None and code_idx.dtype not in (torch.int32, torch.int64):
+            code_idx = code_idx.long()
+        return ldpc_cuda.bp_gather_cuda(llr.contiguous(), graph, max_iters,
+                                        code_idx=None if code_idx is None else code_idx.contiguous())
+    return _bp_gather(llr, *_gather_tables(src, code_idx), max_iters)
+
+
 def decode(llr: torch.Tensor, code: LdpcCode, max_iters: int = 15):
     """Batched sum-product BP of one code in the reference's gather form.
 
@@ -590,7 +638,7 @@ def decode(llr: torch.Tensor, code: LdpcCode, max_iters: int = 15):
     Returns (hard [B, N] int32, iters_used [B] int32, ok [B] bool), as
     :func:`decode_mm`.
     """
-    return _bp_gather(llr, code.chk_adj, code.var_edges, code.rev, max_iters)
+    return _decode_gather(llr.float(), code, max_iters)
 
 
 def decode_bank(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
@@ -601,8 +649,9 @@ def decode_bank(llr: torch.Tensor, code_idx: torch.Tensor, bank: LdpcBank,
     Args:
       llr: [B, Nmax] float32 in the padded layout (unused slots pinned to
            +SHORTENED_LLR); LLR > 0 <=> bit 0.
-      code_idx: [B] 1-based code ids.
+      code_idx: [B] 1-based code ids, taken as the reference indexes its
+           tables by them (:func:`_bank_rows`: a negative id counts from
+           the end once, then clamps; row 0 is code 1).
     Returns (hard [B, Nmax] int32, iters_used [B] int32, ok [B] bool).
     """
-    idx = code_idx.long()
-    return _bp_gather(llr, bank.chk_adj[idx], bank.var_edges[idx], bank.rev[idx], max_iters)
+    return _decode_gather(llr.float(), bank, max_iters, code_idx)

@@ -1,5 +1,5 @@
-"""Sum-product BP on the GPU: the CUDA kernel of ``csrc/ldpc_bp.cu`` (K3)
-and its wrapper.
+"""Sum-product BP on the GPU: the CUDA kernels of ``csrc/ldpc_bp.cu`` (K3
+and K8) and their wrappers.
 
 ``bp_decode_cuda`` stands for the ``lax.scan`` of
 ``gr_dtl_tpu/ops/ldpc.py::decode_mm`` (:249-353) and, given a bank's graphs
@@ -17,6 +17,13 @@ synchronises, reads nothing back, and counts its launches in
 index tables, slot-major, one array for all the codes of a call
 (:func:`bank_tables`), made on the graphs' device at their first call and
 kept.
+
+``bp_gather_cuda`` (K8) stands for the ``lax.scan`` of ``decode``
+(:154-246) and ``decode_bank`` (:574-645), the gather form: K3's frame and
+tables with a tanh-product check update and ``decode_bank``'s code-id rule.
+Its plain PyTorch version is ``ops/ldpc.py::_bp_gather``.  It launches,
+allocates and counts (``bp_gather_cuda.LAUNCHES``) as ``bp_decode_cuda``
+does, and shares its tables' cache.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch
 from gr_dtl_tpu_torch.ops import _cuda_build
 
 __all__ = ["build", "library_path", "BpTables", "bp_tables", "BankTables", "bank_tables", "smem_bytes",
-           "warps_for", "resident_codewords", "bp_bytes", "bp_ops", "bp_decode_cuda"]
+           "warps_for", "resident_codewords", "bp_bytes", "bp_ops", "bp_decode_cuda",
+           "bp_gather_cuda"]
 
 SOURCE = _cuda_build.PKG / "csrc" / "ldpc_bp.cu"
 NVCC_FLAGS = _cuda_build.NVCC_FLAGS
@@ -50,6 +58,11 @@ HEADER = 7  # ints a code in the header: M, E, dv, dc and the offsets of var_edg
 # the two check sums, two leave-one-out differences, parity, exp, sign,
 # clamp, atanh, double)
 UPDATE_OPS_PER_EDGE = 18
+# the gather form's (K8): v2c, clamp, halve, tanh, the pad's select, the
+# check product, abs, compare, sign, scale, offset, the guard's select,
+# divide, clamp, atanh, double
+GATHER_UPDATE_OPS_PER_EDGE = 16
+GATHER_FORM = 2  # bp_decode_launch's form for K8 (0 and 1: K3 without and with bf16)
 
 
 def library_path() -> Path:
@@ -169,12 +182,13 @@ def warps_for(graphs) -> int:
     return _cached(graphs)[1]
 
 
-def resident_codewords(graphs, bf16: bool = False) -> int:
+def resident_codewords(graphs, bf16: bool = False, gather: bool = False) -> int:
     """Codewords of these graphs' calls that one SM keeps resident at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; a codeword a block
-    of :func:`warps_for` warps)."""
+    of :func:`warps_for` warps), K3's or, with ``gather``, K8's."""
     tab, warps = _cached(graphs)
-    n = build().bp_resident_codewords(tab.n_var, tab.max_edges, tab.max_dc, warps, int(bool(bf16)))
+    form = GATHER_FORM if gather else int(bool(bf16))
+    n = build().bp_resident_codewords(tab.n_var, tab.max_edges, tab.max_dc, warps, form)
     if n < 0:
         raise RuntimeError(f"bp_resident_codewords failed: CUDA error {-n}")
     return n
@@ -187,17 +201,59 @@ def bp_bytes(B: int, N: int) -> int:
     return B * (8 * N + 5)
 
 
-def bp_ops(iters_used, graph) -> int:
+def bp_ops(iters_used, graph, per_edge: int = UPDATE_OPS_PER_EDGE) -> int:
     """Operations these inputs need, counted as the plain version's
     element-wise ops: every codeword takes ``iters_used + 1`` passes of
     totals and syndrome (E adds into the totals, N sign tests, E parity
-    adds: 2E + N) and ``iters_used`` message updates of
-    ``UPDATE_OPS_PER_EDGE`` an edge (a transcendental counts one).
-    ``iters_used``: the [B] counts this run returned."""
+    adds: 2E + N) and ``iters_used`` message updates of ``per_edge`` an
+    edge (a transcendental counts one): ``UPDATE_OPS_PER_EDGE`` for K3,
+    ``GATHER_UPDATE_OPS_PER_EDGE`` for K8.  ``iters_used``: the [B] counts
+    this run returned."""
     it = torch.as_tensor(iters_used)
     U, B = int(it.sum()), it.numel()
     E, N = graph.n_edge, graph.n_var
-    return (B + U) * (2 * E + N) + U * UPDATE_OPS_PER_EDGE * E
+    return (B + U) * (2 * E + N) + U * per_edge * E
+
+
+def _checked(fn: str, llr: torch.Tensor, graph, code_idx: torch.Tensor | None, max_iters: int) -> tuple:
+    """The checks both wrappers make: (graphs, tables, warps) for a launch
+    on ``llr``'s device, or a ValueError."""
+    bank = isinstance(graph, tuple)
+    if bank != (code_idx is not None):
+        raise ValueError("code_idx goes with a bank's graphs (a tuple), and a tuple of graphs with code_idx")
+    graphs = graph if bank else (graph,)
+    N = graphs[0].n_var
+    if llr.dtype != torch.float32 or llr.ndim != 2 or llr.shape[1] != N:
+        raise ValueError(f"llr must be float32 [B, {N}], got {llr.dtype} {tuple(llr.shape)}")
+    if not llr.is_contiguous():
+        raise ValueError(f"llr must be contiguous, got strides {llr.stride()}")
+    B = llr.shape[0]
+    if code_idx is not None and (code_idx.dtype not in (torch.int32, torch.int64) or tuple(code_idx.shape) != (B,)
+                                 or not code_idx.is_contiguous()):
+        raise ValueError(f"code_idx must be a contiguous int32 or int64 [{B}] tensor, got {code_idx.dtype} "
+                         f"{tuple(code_idx.shape)} with strides {code_idx.stride()}")
+    dev = llr.device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn} needs CUDA tensors, got one on {dev}")
+    tab, warps = _cached(graph)
+    if tab.tab.device != dev:
+        raise ValueError(f"the graph lies on {tab.tab.device}, the LLRs on {dev}")
+    if code_idx is not None and code_idx.device != dev:
+        raise ValueError(f"code_idx lies on {code_idx.device}, the LLRs on {dev}")
+    if max_iters < 0:
+        raise ValueError(f"max_iters must be >= 0, got {max_iters}")
+    return graphs, tab, warps
+
+
+def _launch(fn: str, entry, args: tuple, dev) -> None:
+    """Call a C entry point with ``dev`` current; raise on its CUDA error."""
+    if dev.index == torch.cuda.current_device():
+        rc = entry(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = entry(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {rc}")
 
 
 def bp_decode_cuda(llr: torch.Tensor, graph, max_iters: int = 15, done: torch.Tensor | None = None,
@@ -222,28 +278,9 @@ def bp_decode_cuda(llr: torch.Tensor, graph, max_iters: int = 15, done: torch.Te
         bank's graphs.
     Returns (hard [B, N] int32, iters_used [B] int32, ok [B] bool).
     """
-    bank = isinstance(graph, tuple)
-    if bank != (code_idx is not None):
-        raise ValueError("code_idx goes with a bank's graphs (a tuple), and a tuple of graphs with code_idx")
-    graphs = graph if bank else (graph,)
-    N = graphs[0].n_var
-    if llr.dtype != torch.float32 or llr.ndim != 2 or llr.shape[1] != N:
-        raise ValueError(f"llr must be float32 [B, {N}], got {llr.dtype} {tuple(llr.shape)}")
-    if not llr.is_contiguous():
-        raise ValueError(f"llr must be contiguous, got strides {llr.stride()}")
-    B = llr.shape[0]
-    if code_idx is not None and (code_idx.dtype not in (torch.int32, torch.int64) or tuple(code_idx.shape) != (B,)
-                                 or not code_idx.is_contiguous()):
-        raise ValueError(f"code_idx must be a contiguous int32 or int64 [{B}] tensor, got {code_idx.dtype} "
-                         f"{tuple(code_idx.shape)} with strides {code_idx.stride()}")
+    graphs, tab, warps = _checked("bp_decode_cuda", llr, graph, code_idx, max_iters)
+    B, N = llr.shape
     dev = llr.device
-    if dev.type != "cuda":
-        raise ValueError(f"bp_decode_cuda needs CUDA tensors, got one on {dev}")
-    tab, warps = _cached(graph)
-    if tab.tab.device != dev:
-        raise ValueError(f"the graph lies on {tab.tab.device}, the LLRs on {dev}")
-    if code_idx is not None and code_idx.device != dev:
-        raise ValueError(f"code_idx lies on {code_idx.device}, the LLRs on {dev}")
     if done is not None and (done.dtype != torch.bool or tuple(done.shape) != (B,)
                              or not done.is_contiguous() or done.device != dev):
         raise ValueError(f"done must be a contiguous bool [{B}] tensor on {dev}, got {done.dtype} "
@@ -251,8 +288,6 @@ def bp_decode_cuda(llr: torch.Tensor, graph, max_iters: int = 15, done: torch.Te
     if total_out is not None and (total_out.dtype != torch.float32 or tuple(total_out.shape) != (B, N)
                                   or not total_out.is_contiguous() or total_out.device != dev):
         raise ValueError(f"total_out must be a contiguous float32 [{B}, {N}] tensor on {dev}")
-    if max_iters < 0:
-        raise ValueError(f"max_iters must be >= 0, got {max_iters}")
     hard = torch.empty((B, N), dtype=torch.int32, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
@@ -263,15 +298,46 @@ def bp_decode_cuda(llr: torch.Tensor, graph, max_iters: int = 15, done: torch.Te
             len(graphs), tab.header.data_ptr(), tab.tab.data_ptr(), tab.max_edges, tab.max_dc,
             warps, B, N, int(max_iters), int(bool(bf16)), hard.data_ptr(), iters.data_ptr(),
             ok.data_ptr(), ptr(total_out), torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index == torch.cuda.current_device():
-        rc = build().bp_decode_launch(*args)
-    else:
-        with torch.cuda.device(dev):
-            rc = build().bp_decode_launch(*args)
-    if rc != 0:
-        raise RuntimeError(f"bp_decode_launch failed: CUDA error {rc}")
+    _launch("bp_decode_launch", build().bp_decode_launch, args, dev)
     bp_decode_cuda.LAUNCHES += 1
     return hard, iters, ok
 
 
 bp_decode_cuda.LAUNCHES = 0
+
+
+def bp_gather_cuda(llr: torch.Tensor, graph, max_iters: int = 15, code_idx: torch.Tensor | None = None):
+    """The gather form's sum-product BP in one launch (K8): ``_bp_gather``'s
+    contract, over one graph (``decode``) or a bank with a code a row
+    (``decode_bank``).
+
+    Args:
+      llr: [B, N] float32 CUDA tensor, contiguous, N = ``graph.n_var``; LLR
+        > 0 <=> bit 0.
+      graph: a ``BpGraph`` on the same device (``LdpcCode.graph``, whose
+        edges are the gather tables' slots); or, with ``code_idx``, a bank's
+        graphs (``LdpcBank.graphs``), row b decoded with ``decode_bank``'s
+        code: table row ``clamp(id + (C + 1 if id < 0 else 0), 0, C)``,
+        row 0 being code 1.
+      code_idx: [B] int32 or int64 1-based code ids, contiguous, with a
+        bank's graphs.
+    Returns (hard [B, N] int32, iters_used [B] int32, ok [B] bool).
+    """
+    graphs, tab, warps = _checked("bp_gather_cuda", llr, graph, code_idx, max_iters)
+    B, N = llr.shape
+    dev = llr.device
+    hard = torch.empty((B, N), dtype=torch.int32, device=dev)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:  # no codeword: nothing to launch
+        return hard, iters, ok
+    args = (llr.data_ptr(), None, None if code_idx is None else code_idx.data_ptr(),
+            int(code_idx is not None and code_idx.dtype == torch.int64), len(graphs), tab.header.data_ptr(),
+            tab.tab.data_ptr(), tab.max_edges, tab.max_dc, warps, B, N, int(max_iters), GATHER_FORM,
+            hard.data_ptr(), iters.data_ptr(), ok.data_ptr(), None, torch.cuda.current_stream(dev).cuda_stream)
+    _launch("bp_decode_launch", build().bp_decode_launch, args, dev)
+    bp_gather_cuda.LAUNCHES += 1
+    return hard, iters, ok
+
+
+bp_gather_cuda.LAUNCHES = 0

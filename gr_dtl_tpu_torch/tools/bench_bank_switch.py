@@ -3,12 +3,15 @@ tools/bench_bank_switch.py).
 
 ``fec_chain`` routes banks of up to ``BANK_MM_MAX_CODES`` codes
 (``GR_DTL_TPU_BANK_MM_MAX``, default 32) to ``ldpc.decode_bank_mm`` (the
-reference's whole-batch decode a code; on the card one K3 launch, every
-row with its own code) and larger banks to the gather form
-``ldpc.decode_bank`` (per-codeword tables).  This times both at each bank
-size of ``--sizes``.  A bank of n codes is n copies of the n=300/k=152
-demo code: the reference's matmul form costs more with the number of
-codes, not with their diversity.  Codewords, LLRs (amplitude 4, sigma 0.5) and code
+reference's whole-batch decode a code; on the card one launch of K3, the
+log/sign-domain BP kernel, every row with its own code) and larger banks
+to the gather form ``ldpc.decode_bank`` (the reference's per-codeword
+tables; on the card one launch of K8, the tanh-product BP kernel in K3's
+frame, every row with its own code).  On the CPU both are their plain
+PyTorch loops.  This times both at each bank size of ``--sizes``.  A bank
+of n codes is n copies of the n=300/k=152 demo code: the reference's
+matmul form costs more with the number of codes, not with their
+diversity.  Codewords, LLRs (amplitude 4, sigma 0.5) and code
 ids from ``numpy.random.RandomState(0)`` and a ``torch.Generator``
 seeded ``--seed``.  Prints a JSON line a bank size, then the crossover.
 
@@ -62,11 +65,12 @@ def main(argv: list[str] | None = None) -> dict:
 
     crossover = next((r["n_codes"] for r in rows if not r["mm_wins"]), None)
     max_probed = max(r["n_codes"] for r in rows)
+    forms = ("decode_bank_mm (K3 on the card, one launch a call) against decode_bank (K8 on the card, one "
+             "launch a call; both their plain loops on the CPU)")
     if crossover is not None:
-        note = ("the whole-batch form's cost grows with the bank size, the gather form's does not; "
-                f"the gather form first won at {crossover} codes")
+        note = f"{forms}: the gather form first won at {crossover} codes"
     else:
-        note = f"decode_bank_mm won at every probed bank size (max {max_probed}); no crossover measured"
+        note = f"{forms}: decode_bank_mm won at every probed bank size (max {max_probed}); no crossover measured"
     res = {"metric": "bank_decoder_crossover", "codewords_per_step": CW,
            "code": "n=300 k=152 (xN copies)", "platform": dev.type, "device": _timing.device_label(dev),
            "rows": rows, "max_probed_n_codes": max_probed, "measured_crossover_n_codes": crossover,

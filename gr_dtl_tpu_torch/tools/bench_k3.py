@@ -1,5 +1,5 @@
-"""K3, the sum-product BP kernel (csrc/ldpc_bp.cu): its SASS counts and
-issue floor as compiled, and the decoders' times on K3's inputs.
+"""K3 and K8, the sum-product BP kernels (csrc/ldpc_bp.cu): their SASS
+counts and issue floor as compiled, and the decoders' times on their inputs.
 
 What a message update issues an edge is read from the SASS of the built
 library (``cuobjdump -xelf`` then ``nvdisasm``, from the toolkit beside
@@ -8,7 +8,14 @@ an update evaluates tanhf and expf once, and each of them issues one
 ``MUFU.EX2`` (logf and atanhf issue none), so over the innermost loops that
 hold a MUFU instruction (the loops that evaluate the transcendentals) an
 edge issues ``2 x instructions / MUFU.EX2``; the same ratio gives MUFU,
-shared-memory loads and stores an edge.  That leaves out the passes that
+shared-memory loads and stores an edge.  ``--form gather`` reads K8
+(``bp_gather_kernel``), whose edge evaluates tanhf once and no expf (atanhf
+and the division issue no ``MUFU.EX2``): there an edge issues
+``instructions / MUFU.EX2``.  The compiler unswitches K8's first pass over
+a check's slots on the first update (which reads no message): the loop
+holds two copies of it, one jumped over by an unconditional branch, and
+the count leaves that copy out (:func:`skipped`), as an update that reads
+its messages never runs it.  K3's loop holds no such copy.  That leaves out the passes that
 only gather (the totals and the syndrome), so the floor below is a lower
 bound.  The issue floor of a run is ``instructions an edge x E x the
 updates the run took`` over ``132 SMs x 4 schedulers x 32 lanes x the SM
@@ -22,9 +29,12 @@ of the n=300 code clean, at the knee and in the waterfall, and
 device time.  It calls only the decoders' public functions, so the file
 run with another checkout's package first on the path times that
 checkout's decoders: two checkouts are compared by running each in turn
-(a, b, b, a), each its own process.
+(a, b, b, a), each its own process.  ``--form gather --time`` times K8
+(``ldpc.decode`` on the 2048-codeword regimes, ``ldpc.decode_bank`` on the
+banks) against its plain version ``_bp_gather`` on the same inputs, in
+turns.
 
-Run on the card:  python3 -m gr_dtl_tpu_torch.tools.bench_k3 [--time] [--out FILE]
+Run on the card:  python3 -m gr_dtl_tpu_torch.tools.bench_k3 [--form k3|gather] [--time] [--out FILE]
   or, for another checkout at DIR:
   PYTHONPATH=DIR python3 gr_dtl_tpu_torch/tools/bench_k3.py --time [--out FILE]
 """
@@ -45,7 +55,9 @@ from gr_dtl_tpu_torch.ops import _cuda_build, ldpc, ldpc_cuda
 from gr_dtl_tpu_torch.tools._timing import smi
 
 SMS, SCHEDULERS, LANES = 132, 4, 32  # an H100 SXM: SMs, warp schedulers an SM, lanes a warp
-EX2_PER_EDGE = 2  # tanhf's and expf's
+EX2_PER_EDGE = 2  # K3's: tanhf's and expf's
+# each form's kernel (a substring of its mangled name) and MUFU.EX2 an edge
+FORMS = {"k3": ("bp_kernel", EX2_PER_EDGE), "gather": ("bp_gather_kernel", 1)}
 
 _INSTR = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(.*?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -94,28 +106,47 @@ def loops(instrs: list) -> list[tuple[int, int]]:
     return sorted(found)
 
 
-def _count(instrs, lo: int, hi: int) -> dict:
-    ops = [op for op, _, _ in instrs[lo:hi + 1]]
+def _count(instrs, lo: int, hi: int, skip=frozenset()) -> dict:
+    ops = [instrs[i][0] for i in range(lo, hi + 1) if i not in skip]
     base = [op.split(".")[0] for op in ops]
     return {"instructions": len(ops), "mufu": base.count("MUFU"), "ex2": ops.count("MUFU.EX2"),
             "lds": base.count("LDS"), "sts": base.count("STS"), "bar": base.count("BAR"),
             "warpsync": base.count("WARPSYNC"), "vote": base.count("VOTE")}
 
 
-def edge_counts(instrs: list) -> dict:
+def skipped(instrs: list, lo: int, hi: int) -> set[int]:
+    """The instructions of [lo, hi] that an unconditional forward branch
+    inside it jumps over: a copy of the loop's body that the compiler
+    unswitched on a condition the loop does not change (K8's first update,
+    which reads no message, is such a copy), which an update that reads
+    its messages does not run."""
+    at = {lab: i for i, (_, _, labs) in enumerate(instrs) for lab in labs}
+    out = set()
+    for i in range(lo, hi + 1):
+        op, ins, _ = instrs[i]
+        if op == "BRA" and not ins.startswith("@") and (m := _TARGET.search(ins)) and i < at.get(m.group(1), i) <= hi:
+            out.update(range(i + 1, at[m.group(1)]))
+    return out
+
+
+def edge_counts(instrs: list, ex2_per_edge: int = EX2_PER_EDGE) -> dict:
     """What a message update issues an edge over the loops that evaluate the
     transcendentals (the innermost loops holding MUFU; the module's note),
-    and the barriers of the loop of updates that holds them."""
+    less the unswitched copies an update that reads its messages skips
+    (:func:`skipped`), an edge evaluating ``ex2_per_edge`` MUFU.EX2; and
+    the barriers of the loop of updates that holds them."""
     regions = [(lo, hi) for lo, hi in loops(instrs) if _count(instrs, lo, hi)["mufu"]]
     inner = [r for r in regions if not any(o != r and r[0] <= o[0] and o[1] <= r[1] for o in regions)]
-    tot = {k: sum(_count(instrs, lo, hi)[k] for lo, hi in inner) for k in _count(instrs, 0, 0)}
+    skips = {r: skipped(instrs, *r) for r in inner}
+    tot = {k: sum(_count(instrs, lo, hi, skips[(lo, hi)])[k] for lo, hi in inner) for k in _count(instrs, 0, 0)}
     if not tot["ex2"]:
-        raise ValueError("no loop evaluates MUFU.EX2: not K3's SASS")
-    per_edge = {k: EX2_PER_EDGE * tot[k] / tot["ex2"] for k in ("instructions", "mufu", "lds", "sts")}
+        raise ValueError("no loop evaluates MUFU.EX2: not a BP kernel's SASS")
+    per_edge = {k: ex2_per_edge * tot[k] / tot["ex2"] for k in ("instructions", "mufu", "lds", "sts")}
     outer = [r for r in loops(instrs) if r not in inner and any(r[0] <= i[0] and i[1] <= r[1] for i in inner)]
     lo, hi = max(outer, key=lambda r: r[1] - r[0]) if outer else (0, len(instrs) - 1)
     update = _count(instrs, lo, hi)
     return {"per_edge": per_edge, "loops": [[lo_, hi_] for lo_, hi_ in inner],
+            "skipped": sum(len(v) for v in skips.values()),
             "update_loop_barriers": {k: update[k] for k in ("bar", "warpsync", "vote")},
             "kernel_instructions": len(instrs)}
 
@@ -132,16 +163,23 @@ def issue_floor_ms(instr_per_edge: float, n_edges: int, updates: int, clock_mhz:
     return instr_per_edge * n_edges * updates / (SMS * SCHEDULERS * LANES * clock_mhz * 1e6) * 1e3
 
 
-def kernel_counts(lib: Path) -> dict:
-    """{kernel name: edge_counts} for every BP kernel of ``lib``."""
-    return {name: edge_counts(ins) for name, ins in disassemble(lib).items() if "bp_kernel" in name}
+def form_counts(kernels: dict, form: str = "k3") -> dict:
+    """{kernel name: edge_counts} for every kernel of ``form`` (``FORMS``)
+    among ``kernels`` (:func:`parse`'s)."""
+    tag, ex2 = FORMS[form]
+    return {name: edge_counts(ins, ex2) for name, ins in kernels.items() if f"{tag}I" in name}
+
+
+def kernel_counts(lib: Path, form: str = "k3") -> dict:
+    """:func:`form_counts` of the kernels of ``lib``."""
+    return form_counts(disassemble(lib), form)
 
 
 def ptxas_lines(lib: Path) -> list[str]:
     """The compiler's report of registers, barriers and spills, a kernel at a time."""
     log = Path(lib).with_suffix(".log")
     return [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
-            if "bp_kernel" in ln or "registers" in ln or "spill" in ln]
+            if "bp_kernel" in ln or "bp_gather_kernel" in ln or "registers" in ln or "spill" in ln]
 
 
 REGIMES = {"clean": (4.0, 0.5), "knee": (1.6, 1.0), "waterfall": (1.3, 1.0)}  # LLR amplitude, sigma
@@ -203,12 +241,14 @@ def device_ms(fn, per_call: int = 1, reps: int = 20, kernel: str = "bp_kernel") 
     raise RuntimeError(f"the profiler saw no {kernel} in three windows")
 
 
-def in_turns(fns: dict, reps: int | dict = 20, device: dict | None = None, rounds: int = 2) -> dict:
+def in_turns(fns: dict, reps: int | dict = 20, device: dict | None = None, rounds: int = 2,
+             kernel: str = "bp_kernel") -> dict:
     """ms a call of each fn, after a warm-up call each, the fns in turns (a,
     b, c, c, b, a every round): {name: {"events": [a window's ms a call by
     CUDA events], "device": [a window's by :func:`device_ms`]}}.  A window is
     ``reps`` calls (a number, or one a name).  Device time is taken for the
-    names in ``device`` ({name: its K3 launches a call}) and for no other."""
+    names in ``device`` ({name: its launches of ``kernel`` a call}) and for
+    no other."""
     from gr_dtl_tpu_torch.tools import _timing
     device = device or {}
     for fn in fns.values():
@@ -219,7 +259,7 @@ def in_turns(fns: dict, reps: int | dict = 20, device: dict | None = None, round
             n = reps[k] if isinstance(reps, dict) else reps
             out[k]["events"].append(_timing.window_ms(fns[k], n, "cuda"))
             if k in device:
-                out[k]["device"].append(device_ms(fns[k], device[k], n))
+                out[k]["device"].append(device_ms(fns[k], device[k], n, kernel))
     return out
 
 
@@ -285,22 +325,58 @@ def time_decoders(dev) -> dict:
     return rows
 
 
+def gather_calls(dev) -> dict:
+    """K8's inputs, each with K8's call and its plain version's: ``ldpc.decode``
+    on the 2048-codeword regimes, ``ldpc.decode_bank`` on the banks of
+    :func:`bank_inputs` ({input: (K8's call, _bp_gather's call)})."""
+    code, regimes = regime_inputs(dev)
+    calls = {f"2048 {k}": (lambda x=x: ldpc.decode(x, code),
+                           lambda x=x: ldpc._bp_gather(x, *ldpc._gather_tables(code, None), 15))
+             for k, x in regimes.items()}
+    calls.update({f"bank of {n} codes, 1024 codewords": (
+        lambda a=a: ldpc.decode_bank(*a), lambda a=a: ldpc._bp_gather(a[0], *ldpc._gather_tables(a[2], a[1]), 15))
+        for n, a in bank_inputs(dev).items()})
+    return calls
+
+
+def time_gather(dev) -> dict:
+    """``--form gather --time``: {input: K8's and _bp_gather's times, K8's
+    iterations and launches a call}."""
+    rows = {}
+    for k, (k8, plain) in gather_calls(dev).items():
+        n0 = ldpc_cuda.bp_gather_cuda.LAUNCHES
+        _, it, ok = k8()
+        launches = ldpc_cuda.bp_gather_cuda.LAUNCHES - n0
+        t = in_turns({"plain": plain, "k8": k8}, {"plain": 3, "k8": 20}, {"k8": launches},
+                     kernel=FORMS["gather"][0])
+        rows[k] = {"codewords": it.numel(), "mean_iters": it.float().mean().item(), "updates": int(it.sum()),
+                   "ok_rate": ok.float().mean().item(), "launches": launches,
+                   "ms": median(t["k8"]["events"]), "device_ms": median(t["k8"]["device"]),
+                   "plain_ms": median(t["plain"]["events"]), "ms_windows": t["k8"]["events"],
+                   "device_ms_windows": t["k8"]["device"], "plain_ms_windows": t["plain"]["events"]}
+        print(f"{k}: {rows[k]}", flush=True)
+    return rows
+
+
 def main(argv: list[str] | None = None) -> dict:
     p = argparse.ArgumentParser(prog="python3 -m gr_dtl_tpu_torch.tools.bench_k3")
+    p.add_argument("--form", choices=sorted(FORMS), default="k3",
+                   help="the kernel: K3 (decode_mm, decode_bank_mm) or K8, the gather form (decode, decode_bank)")
     p.add_argument("--time", action="store_true",
-                   help="time the decoders of the gr_dtl_tpu_torch on the path instead of counting K3's SASS")
+                   help="time the decoders instead of counting the kernel's SASS: K3's decoders of the "
+                        "gr_dtl_tpu_torch on the path, or K8 against _bp_gather")
     p.add_argument("--out", default=None, help="write the result as JSON")
     args = p.parse_args(argv)
     dev = torch.device("cuda")
-    res = {"device": smi("name,power.limit"), "package": str(Path(ldpc.__file__).parents[1])}
+    res = {"device": smi("name,power.limit"), "package": str(Path(ldpc.__file__).parents[1]), "form": args.form}
     if args.time:
-        res["ms"] = time_decoders(dev)
+        res["ms"] = time_gather(dev) if args.form == "gather" else time_decoders(dev)
     else:
         code, _ = regime_inputs(dev, n=1)
         ldpc_cuda.build()
         res.update(clocks_max_sm_mhz=sm_clock_mhz(), ptxas=ptxas_lines(ldpc_cuda.library_path()),
-                   sass=kernel_counts(ldpc_cuda.library_path()),
-                   resident_codewords_per_sm=ldpc_cuda.resident_codewords(code.graph),
+                   sass=kernel_counts(ldpc_cuda.library_path(), args.form),
+                   resident_codewords_per_sm=ldpc_cuda.resident_codewords(code.graph, gather=args.form == "gather"),
                    warps=ldpc_cuda.warps_for(code.graph))
     print(json.dumps(res, indent=1))
     if args.out:

@@ -1,10 +1,12 @@
 """K3 on the card: ``ops/ldpc_cuda.bp_decode_cuda`` (``csrc/ldpc_bp.cu``)
 against the plain BP ``ops/ldpc.py::_bp`` on the same CUDA tensors, and the
-decoders' route through it.
+decoders' route through it; and K8, ``bp_gather_cuda``, against the plain
+gather form ``_bp_gather`` (``decode``, ``decode_bank``).
 
 Every test is marked ``cuda`` and skips without a card (a CUDA kernel has
 no CPU mode); the CPU side of K3 (a numpy model of its schedule, its
-tables, bytes and operations, its refusals) is tests/test_torch_bp_plan.py.
+tables, bytes and operations, its refusals) is tests/test_torch_bp_plan.py,
+K8's tests/test_torch_bp_gather.py.
 This file imports no JAX.  On a machine with the card but without JAX or
 pytest-xdist:
 ``python3 -m pytest -o addopts= --noconftest -q tests/test_torch_ldpc_cuda.py``.
@@ -14,7 +16,9 @@ converged, the hard bits and the final totals bit for bit; a row that
 never converged may part only by an ulp of a transcendental, and at most
 ``PARTED_MAX`` of the rows may (the kernel calls the accurate tanhf, logf,
 expf and atanhf that PyTorch's CUDA kernels call and adds in _bp's order,
-so none is expected: on an NVIDIA H100 none parted).
+so none is expected: on an NVIDIA H100 none parted).  K8 is held to
+``_bp_gather`` in ``ok``, iterations and hard bits, to the same bar (it
+writes no totals).
 """
 
 import types
@@ -263,3 +267,161 @@ def test_wrapper_refuses_on_the_card(dev):
         ldpc_cuda.bp_decode_cuda(y, bank.graphs, code_idx=idx.float())
     with pytest.raises(ValueError, match="graph"):
         ldpc_cuda.bp_decode_cuda(y, _bank_of(2, "cpu").graphs, code_idx=idx)
+
+
+# ---------------------------------------------------------------------------
+# K8: the gather form (ldpc_cuda.bp_gather_cuda) against _bp_gather
+# ---------------------------------------------------------------------------
+
+def gather_tables_of(graph) -> tuple:
+    """The gather form's tables (chk_adj [M, R], var_edges [N, D, 2], rev
+    [M, R, 2]) of a graph, as build_ldpc lays them out for its H: a check's
+    variables in column order, a variable's (check, slot) pairs in check
+    order (tests/test_torch_bp_gather.py holds it to the shipped codes'
+    own tables)."""
+    E, N = graph.n_edge, graph.n_var
+    ce, cv = graph.chk_edges.cpu(), graph.chk_vars.cpu()
+    chk_adj = torch.where(ce < E, cv, -1)
+    slot_of = torch.full((E + 1, 2), -1, dtype=torch.int64)  # edge -> (check, slot)
+    m, r = torch.nonzero(ce < E, as_tuple=True)
+    slot_of[ce[m, r]] = torch.stack([m, r], 1)
+    var_edges = slot_of[graph.var_edges.cpu()]  # [N, D, 2], pads (-1, -1)
+    rev = torch.zeros(ce.shape + (2,), dtype=torch.int64)
+    v, d = torch.nonzero(graph.var_edges.cpu() < E, as_tuple=True)
+    rev[var_edges[v, d, 0], var_edges[v, d, 1]] = torch.stack([v, d], 1)
+    dev = graph.var_edges.device
+    return chk_adj.to(dev), var_edges.to(dev), rev.to(dev)
+
+
+def hold_gather_to_plain(llr, graph, tables, max_iters=15, code_idx=None) -> int:
+    """One K8 launch against _bp_gather on the same tensors (``tables``:
+    the gather tables, a row's each with code ids): ok and iterations equal
+    on every row, hard bits on every row that converged, at most
+    ``PARTED_MAX`` of the rows parted; returns the rows that parted."""
+    n0 = ldpc_cuda.bp_gather_cuda.LAUNCHES
+    hard, iters, ok = ldpc_cuda.bp_gather_cuda(llr, graph, max_iters, code_idx=code_idx)
+    assert ldpc_cuda.bp_gather_cuda.LAUNCHES == n0 + 1
+    hard0, iters0, ok0 = ldpc._bp_gather(llr, *tables, max_iters)
+    torch.cuda.synchronize()
+    assert hard.dtype == torch.int32 and iters.dtype == torch.int32 and ok.dtype == torch.bool
+    assert torch.equal(ok, ok0) and torch.equal(iters, iters0)
+    parted = (hard != hard0).any(1)
+    assert not parted[ok0].any(), f"converged rows parted: {torch.nonzero(parted & ok0).flatten().tolist()}"
+    assert int(parted.sum()) <= PARTED_MAX * llr.shape[0], torch.nonzero(parted).flatten().tolist()
+    return int(parted.sum())
+
+
+def _code_tables(code):
+    return code.chk_adj, code.var_edges, code.rev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", list(REGIMES))
+@pytest.mark.parametrize("name", ALISTS)
+def test_gather_against_plain(dev, name, regime):
+    code = _code(name, dev)
+    x = _llr(name, 2048, regime, dev, seed=5)
+    hold_gather_to_plain(x, code.graph, _code_tables(code))
+    if regime == "clean":  # the noiseless batch: every row done at entry, no update
+        clean = (x > 0).float() * 8.0 - 4.0
+        assert hold_gather_to_plain(clean, code.graph, _code_tables(code)) == 0
+        _, iters, ok = ldpc_cuda.bp_gather_cuda(clean, code.graph)
+        assert bool(ok.all()) and int(iters.max()) == 0
+
+
+@pytest.mark.cuda
+def test_gather_iterations_and_edge_sizes(dev):
+    code = _code("n_0300_k_0152.alist", dev)
+    x = _llr("n_0300_k_0152.alist", 2048, "knee", dev, seed=6)
+    for max_iters in (0, 1, 4):
+        hold_gather_to_plain(x, code.graph, _code_tables(code), max_iters=max_iters)
+    n0 = ldpc_cuda.bp_gather_cuda.LAUNCHES
+    hard, iters, ok = ldpc_cuda.bp_gather_cuda(torch.empty((0, code.N), device=dev), code.graph)
+    assert hard.shape == (0, code.N) and iters.shape == ok.shape == (0,)
+    assert ldpc_cuda.bp_gather_cuda.LAUNCHES == n0  # nothing to launch
+    for B in (1, 2, 129):
+        hold_gather_to_plain(x[:B].contiguous(), code.graph, _code_tables(code))
+    # NaN and infinite LLRs travel as they do through the plain version
+    y = x[:64].clone()
+    y[0, 3], y[1, 5], y[2, 7] = float("nan"), float("inf"), -float("inf")
+    for a, b in zip(ldpc_cuda.bp_gather_cuda(y, code.graph), ldpc._bp_gather(y, *_code_tables(code), 15)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_codes", [1, 2, 8, 32])
+def test_gather_bank_one_launch(dev, n_codes):
+    """decode_bank makes one K8 launch a call whatever the bank's size;
+    every row equals _bp_gather on its row of the bank's tables, ids in
+    [-C-3, C+3] taken as the reference's indexing takes them; int32 and
+    int64 ids alike."""
+    bank = _bank_of(n_codes, dev)
+    rng = np.random.RandomState(n_codes)
+    ids = rng.randint(1, n_codes + 1, 1024).astype(np.int64)
+    ids[:2 * n_codes + 7] = np.arange(-n_codes - 3, n_codes + 4)
+    x = torch.as_tensor((rng.randn(1024, bank.Nmax) * 1.2 + 1.8).astype(np.float32), device=dev)
+    for dtype in (torch.int32, torch.int64):
+        idx = torch.as_tensor(ids, dtype=dtype, device=dev)
+        hold_gather_to_plain(x, bank.graphs, ldpc._gather_tables(bank, idx), code_idx=idx)
+        n0 = ldpc_cuda.bp_gather_cuda.LAUNCHES
+        got = ldpc.decode_bank(x, idx, bank)
+        assert ldpc_cuda.bp_gather_cuda.LAUNCHES == n0 + 1
+        want = ldpc_cuda.bp_gather_cuda(x, bank.graphs, 15, code_idx=idx)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dc, z", [(12, 16), (64, 8)])
+def test_gather_wide_rows_against_plain(dev, dc, z):
+    """Rows wider than kRegSlots (8) take K8's guarded kMaxDeg instantiation."""
+    g = _qc(dc, z, dev)
+    x = torch.as_tensor(_ldpc_bench.zero_word_llrs(2048, g.n_var, dc), device=dev)
+    for max_iters in (15, 3):
+        hold_gather_to_plain(x, g, gather_tables_of(g), max_iters=max_iters)
+
+
+@pytest.mark.cuda
+def test_decoders_launch_k8_and_never_the_plain_loop(dev, monkeypatch):
+    code = _code("n_0300_k_0152.alist", dev)
+    x = _llr("n_0300_k_0152.alist", 2048, "waterfall", dev)
+    want = ldpc._bp_gather(x, *_code_tables(code), 15)
+    bank = _bank_of(33, dev)
+    idx = torch.as_tensor(np.random.RandomState(7).randint(-36, 37, 1024).astype(np.int32), device=dev)
+    xb = torch.as_tensor((np.random.RandomState(8).randn(1024, bank.Nmax) + 2.0).astype(np.float32), device=dev)
+    want_bank = ldpc._bp_gather(xb, *ldpc._gather_tables(bank, idx), 15)
+
+    def refuse(*a, **k):
+        raise AssertionError("_bp_gather ran on a CUDA tensor")
+
+    monkeypatch.setattr(ldpc, "_bp_gather", refuse)
+    n0 = ldpc_cuda.bp_gather_cuda.LAUNCHES
+    got = ldpc.decode(x, code)
+    assert ldpc_cuda.bp_gather_cuda.LAUNCHES == n0 + 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[0][want[2]], want[0][want[2]])
+    got = ldpc.decode_bank(xb, idx, bank)
+    assert ldpc_cuda.bp_gather_cuda.LAUNCHES == n0 + 2
+    assert torch.equal(got[1], want_bank[1]) and torch.equal(got[2], want_bank[2])
+    assert torch.equal(got[0][want_bank[2]], want_bank[0][want_bank[2]])
+
+
+@pytest.mark.cuda
+def test_gather_wrapper_refuses_on_the_card(dev):
+    code = _code("n_0100_k_0027.alist", dev)
+    x = torch.zeros((8, code.N), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        ldpc_cuda.bp_gather_cuda(torch.zeros((code.N, 8), device=dev).T, code.graph)
+    with pytest.raises(ValueError, match="float32"):
+        ldpc_cuda.bp_gather_cuda(x.half(), code.graph)
+    with pytest.raises(ValueError, match="graph"):
+        ldpc_cuda.bp_gather_cuda(x, _code("n_0100_k_0027.alist", "cpu").graph)
+    with pytest.raises(ValueError, match="max_iters"):
+        ldpc_cuda.bp_gather_cuda(x, code.graph, -1)
+    bank = _bank_of(2, dev)
+    y = torch.zeros((8, bank.Nmax), device=dev)
+    idx = torch.ones(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="code_idx lies on"):
+        ldpc_cuda.bp_gather_cuda(y, bank.graphs, code_idx=idx.cpu())
+    with pytest.raises(ValueError, match="graph"):
+        ldpc_cuda.bp_gather_cuda(y, _bank_of(2, "cpu").graphs, code_idx=idx)

@@ -39,6 +39,7 @@ assert len(rx.process(zeros(rx.block_samples, "complex64"))) == 3
 assert tb_cuda.tb_reassemble_cuda.LAUNCHES == 0 and sync_cuda.timing_metric_cuda.LAUNCHES == 0
 assert equalizer_cuda.equalize_frame_cuda.LAUNCHES == 0  # nor does the equalizer
 assert ldpc_cuda.bp_decode_cuda.LAUNCHES == 0  # nor BP (its plain version, _bp)
+assert ldpc_cuda.bp_gather_cuda.LAUNCHES == 0  # nor the gather form's (K8)
 # the telemetry (capture mode needs no pyzmq) and the wire-compat tables
 from gr_dtl_tpu_torch.testbed import monitor
 from gr_dtl_tpu_torch.utils import wire_compat
