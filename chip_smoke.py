@@ -137,7 +137,9 @@ passes; reset and counted at every run):
 20. a launch census: device kernels and copies a step by stage, for the
    uncoded and both coded steps, a link round, a stream block;
 21. times: the kernel alone at B = 1, 32, 1024, 2048 for both calls
-   (profiler, over a ring of inputs) against its bound and the plain loop.
+   (profiler, over a ring of inputs) against its bound and the plain loop;
+   the step's SASS (instructions a step, divisions, registers, no spill,
+   B = 2048 in one wave of blocks) and the payload call's issue floor.
 
 And the testbed's telemetry and the wire-compat mode:
 
@@ -2573,6 +2575,17 @@ def time_equalizer(dev, card: str) -> dict:
     bound = sum(timed[(B, call)]["bound_ms"] for call in eq_bench.CALLS) * 2
     print(f"[equalizer] a receive step at B={B}: {EQ_PER_STEP} launches, {step * 1e3:.2f} us of kernel time "
           f"against a bound of {bound * 1e3:.2f} us ({card})")
+    # what a step issues (the build's SASS) and the issue floor of the payload call
+    sass = eq_bench.sass_report()
+    check(all(v["spill_bytes"] == 0 for v in sass["ptxas"].values()), f"the equalizer kernel spills: {sass['ptxas']}")
+    check(all(sass["one_wave_at_2048"].values()), f"B=2048 does not fit one wave: {sass['blocks_per_sm']} blocks an SM")
+    floor = sass["issue_floor_ms"][f"{B}/payload"]
+    print(f"[equalizer] the step's SASS: {sass['closed']['mixed_ids_step']:.2f} instructions a step over the mixed "
+          f"ids (BPSK/QPSK, 8PSK, 16QAM: {[v['instructions'] for v in sass['closed']['slicers'].values()]}; "
+          f"MUFU.RCP {[v['mufu_rcp'] for v in sass['closed']['slicers'].values()]}), table mode's longest "
+          f"{sass['table']['longest']}; {sass['ptxas']}; {sass['blocks_per_sm']} blocks an SM; the payload "
+          f"call's issue floor at B={B} {floor * 1e3:.2f} us at {sass['clocks_max_sm_mhz']:.0f} MHz ({card})",
+          flush=True)
     t = timed[(B, "payload")]
     return {"name": "equalize_frame", "route": "cuda",
             "source": "gr_dtl_tpu_torch/csrc/equalizer.cu",
@@ -2582,7 +2595,10 @@ def time_equalizer(dev, card: str) -> dict:
             "ms": t["ms"], "ms_by": "profiler", "enqueue_ms": t["enqueue_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes", "bytes": t["bytes"], "library_ms": None,
             "at_B": B, "at_n_sym": t["n_sym"],
-            "ms_at_B": {f"{b}/{c}": timed[(b, c)]["ms"] for b, c in timed}}
+            "ms_at_B": {f"{b}/{c}": timed[(b, c)]["ms"] for b, c in timed},
+            "instructions_per_step": sass["closed"]["mixed_ids_step"],
+            "instructions_per_step_by_slicer": {k: v["instructions"] for k, v in sass["closed"]["slicers"].items()},
+            "issue_floor_ms": floor, "blocks_per_sm": sass["blocks_per_sm"]["closed"]}
 
 
 # ---------------------------------------------------------------------------

@@ -33,12 +33,13 @@ import torch
 from gr_dtl_tpu_torch.ops import _cuda_build
 from gr_dtl_tpu_torch.ops import constellation as cn
 
-__all__ = ["build", "library_path", "equalize_frame_cuda", "equalizer_bytes",
-           "compare_with_plain", "MAX_FFT_LEN", "FROZEN_ALPHA"]
+__all__ = ["build", "bind_launch", "library_path", "equalize_frame_cuda", "equalizer_bytes", "rows_per_block",
+           "resident_blocks", "compare_with_plain", "MAX_FFT_LEN", "FROZEN_ALPHA"]
 
 SOURCE = _cuda_build.PKG / "csrc" / "equalizer.cu"
 NVCC_FLAGS = _cuda_build.NVCC_FLAGS
 MAX_FFT_LEN = 256  # kMaxFftLen of the source: a thread a carrier, a row in one block
+BLOCK_THREADS = 128  # kBlockThreads of the source: a block holds 128 / fft_len rows, or one
 FROZEN_ALPHA = 0.9995  # from here on the reference freezes the taps
 
 
@@ -47,15 +48,37 @@ def library_path() -> Path:
     return _cuda_build.library_path(SOURCE, NVCC_FLAGS)
 
 
-@functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    lib = _cuda_build.load(SOURCE, NVCC_FLAGS)
+def bind_launch(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument types of its ``equalizer_launch``."""
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.equalizer_launch.argtypes = [p, ll, ll, p, p, p, p, p, i, i, i, i, f, f, i, f,
                                      p, p, p, p, p, p, p]
     lib.equalizer_launch.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    lib = bind_launch(_cuda_build.load(SOURCE, NVCC_FLAGS))
+    lib.equalizer_resident_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.equalizer_resident_blocks.restype = ctypes.c_int
+    return lib
+
+
+def rows_per_block(fft_len: int) -> int:
+    """Frame rows a block of the kernel holds at ``fft_len``."""
+    return max(1, BLOCK_THREADS // fft_len)
+
+
+def resident_blocks(fft_len: int = 64, table: bool = False) -> int:
+    """Blocks of a call at ``fft_len`` that one SM keeps resident at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), of the closed-form
+    instantiation or of table mode's; :func:`rows_per_block` rows each."""
+    n = build().equalizer_resident_blocks(fft_len, int(table))
+    if n < 0:
+        raise RuntimeError(f"equalizer_resident_blocks failed: CUDA error {-n}")
+    return n
 
 
 def equalizer_bytes(B: int, n_sym: int, fft_len: int) -> int:

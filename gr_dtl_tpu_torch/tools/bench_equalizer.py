@@ -12,8 +12,11 @@ For each shape:
 * the kernel's mean device duration in a ``torch.profiler`` window while the
   calls walk a ring of different inputs (over 50 MB of them where the shape
   allows, so that the spectra come from device memory and not from L2);
-  that is the kernel's time.  Between two CUDA events a call also holds the
-  host's enqueue (five allocations and a ctypes launch), named so beside it;
+  that is the kernel's time.  The window is warmed up by time inside the
+  profiler, as ``chip_smoke.py``'s are (``WARM_MS``), and counts only the
+  launches after a marker kernel.  Between two CUDA events a call also
+  holds the host's enqueue (five allocations and a ctypes launch), named so
+  beside it;
 * the plain loop's time by events, in turns plain, kernel, kernel, plain;
 * bytes (``equalizer_cuda.equalizer_bytes``), the bound at 3.35 TB/s, the
   share of it.
@@ -27,22 +30,62 @@ beside the normal build, both held against the plain loop on inputs whose
 equalized symbols sit within 2e-6 of decision boundaries (where one
 rounding decides) and on the B = 2048 payload inputs, and timed in turns.
 
-Run on the card:  python3 -m gr_dtl_tpu_torch.tools.bench_equalizer
+The step's SASS (``--sass``, and in the default run): the built library is
+disassembled with ``bench_k3``'s helpers.  A step loop is a loop closed by a
+conditional backward branch that writes the outputs (two STG or more) and
+holds no other such loop.  Through each, every way a warp can go from the
+head to the back-edge is followed (``step_paths``), leaving out the
+divisions' slow paths (a branch's fall-through that reaches a CALL before
+any other branch); a branch that splits the lanes (a pilot carrier and the
+others) is issued on both sides by the warp, so the longest way that passes
+through a slicer is its step: 8PSK's multiplies atan2f's angle by 4 / pi
+(``FOUR_OVER_PI``), 16QAM's holds FRND.FLOOR, the rest is BPSK's or
+QPSK's.  MUFU.RCP on that way counts its divisions: c10's scaled division
+issues two, its ratio's and its reciprocal's.  The issue floor of a call is its
+warps x n_sym x the step's instructions over 132 SMs x 4 schedulers x the
+SM clock (``clocks.max.sm``), the mixed ids 1..4 of these inputs a quarter
+each.  Registers and spills are ``ptxas``'s; blocks an SM the occupancy
+API's.
+
+``--time`` times the calls alone (both calls at every B in the closed
+form, the payload call at every B in table mode; three profiler windows
+each).  It calls only ``equalizer.equalize_frame``, ``build_equalizer`` and
+the wire-compat tables, so the file run with another checkout's package
+first on the path times that checkout's kernel: two checkouts are compared
+by running each in turn (a, b, b, a), each its own process.  ``--sass``
+likewise counts that checkout's build.
+
+``--same-as SOURCE`` holds this checkout's kernel bit for bit to the one
+built from another checkout's csrc/equalizer.cu (:func:`same_as`).
+``--variants`` builds the source with each alternative of ``VARIANTS``
+written in and times it against the source as it is, in turns, after
+holding it bit for bit to the source's kernel (:func:`variants`).
+
+Run on the card:  python3 -m gr_dtl_tpu_torch.tools.bench_equalizer [--time | --sass | --same-as SOURCE | --variants] [--out FILE]
+  or, for another checkout at DIR:
+  PYTHONPATH=DIR python3 gr_dtl_tpu_torch/tools/bench_equalizer.py --time|--sass [--out FILE]
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
+import re
 import sys
+import time
+from pathlib import Path
+from statistics import median
 
 import numpy as np
 import torch
 
 from gr_dtl_tpu_torch.ops import constellation as cn
 from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda
+from gr_dtl_tpu_torch.tools import bench_k3
 from gr_dtl_tpu_torch.tools._timing import smi
 from gr_dtl_tpu_torch.tools.bench_sync_metric import HBM_BYTES_PER_S
 from gr_dtl_tpu_torch.utils import config, wire_compat
@@ -155,28 +198,58 @@ def boundary_inputs(eq, B: int, n_sym: int, sym_offset: int, cnst: np.ndarray, s
     return spectra, taps0
 
 
+def input_ring(eq, B: int, call: str, dev) -> list:
+    """Input sets of one shape for a timed window, the calls walking them in
+    turn: over ``RING_BYTES`` of them where the shape allows (at most
+    ``MAX_SLOTS``), so that the spectra come from device memory, not L2."""
+    n_sym, sym_offset = CALLS[call]
+    cnst = mixed_ids(B)
+    slots = int(min(MAX_SLOTS, max(4, -(-RING_BYTES // (8 * 64 * B * (n_sym + 1))))))
+    return [on_device(frame_inputs(eq, B, n_sym, sym_offset, cnst, 100 * B + n_sym + s), cnst, dev)
+            for s in range(slots)]
+
+
 def on_device(arrays, cnst, dev):
     spectra, taps0 = arrays
     return (torch.as_tensor(spectra, device=dev), torch.as_tensor(taps0, device=dev),
             torch.as_tensor(cnst, device=dev))
 
 
+# a profiled window is warmed up by time, as chip_smoke.py's are: the profiler misses the
+# launches of its first milliseconds, more of them the more profiles the process has taken, and
+# a count of warm calls of a short call can end inside them (a chip_smoke.py run has come back
+# with an empty window that way); a window that saw none is taken again, warmed for longer
+WARM_MS = (50.0, 200.0, 800.0, 2000.0)
+MARK = "spin_kernel"  # what torch.cuda._sleep launches: a window counts the launches after it
+
+
 def profiler_ms(fn, reps: int):
     """Mean device duration (ms) of the equalizer kernel over reps calls of
-    fn(i), or None if the profiler saw none in three windows.  The first
-    launches after the profiler starts may be lost, late in a process with
-    many profiler sessions all of a short window: the mean is over those it
-    saw, and a window that saw none is taken again."""
+    fn(i), i walking on (fn(i) picks its inputs), after ``WARM_MS`` of
+    synchronised calls inside the profiler: only the launches that start
+    after a marker kernel count.  None if four windows saw none."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(reps):
-                fn(i)
+    i = 0
+    for warm_ms in WARM_MS:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0, n = time.perf_counter(), 0
+            while n == 0 or (time.perf_counter() - t0) * 1e3 < warm_ms:
+                fn(i + n)
+                torch.cuda.synchronize()
+                n += 1
+            i += n
+            torch.cuda._sleep(1)
+            for j in range(reps):
+                fn(i + j)
+            i += reps
             torch.cuda.synchronize()
-        found = [e for e in prof.key_averages() if KERNEL_NAME in e.key and e.self_device_time_total > 0]
-        count = sum(e.count for e in found)
-        if count:
-            return sum(e.self_device_time_total for e in found) / count / 1e3
+        dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        marks = [e.time_range.start for e in dev if MARK in e.name]
+        found = [e.time_range.elapsed_us() for e in dev
+                 if KERNEL_NAME in e.name and marks and e.time_range.start > max(marks)]
+        if found:
+            return sum(found) / len(found) / 1e3
     return None
 
 
@@ -218,12 +291,10 @@ def held_to_plain(eq, args, sym_offset: int, what: str) -> dict:
 def measure(eq, B: int, call: str, dev, card: str, reps: int = 48) -> dict:
     """Correctness and times of the kernel at one shape."""
     n_sym, sym_offset = CALLS[call]
-    cnst = mixed_ids(B)
     nbytes = equalizer_cuda.equalizer_bytes(B, n_sym, 64)
     in_bytes = 8 * 64 * B * (n_sym + 1)
-    slots = int(min(MAX_SLOTS, max(4, -(-RING_BYTES // in_bytes))))
-    ring = [on_device(frame_inputs(eq, B, n_sym, sym_offset, cnst, 100 * B + n_sym + s), cnst, dev)
-            for s in range(slots)]
+    ring = input_ring(eq, B, call, dev)
+    slots = len(ring)
     res = held_to_plain(eq, ring[0], sym_offset, f"B={B} {call}")
     check(res["boundary_rows"] <= max(1, B // 1000), f"B={B} {call}: {res}")
     kern = lambda i: equalizer.equalize_frame(*ring[i % slots], eq, sym_offset)
@@ -271,10 +342,8 @@ def table_mode(dev, card: str, reps: int = 48) -> list:
     out = []
     for B in BATCHES:
         r = measure(eq_t, B, "payload", dev, card, reps)
-        cnst = mixed_ids(B)
-        slots = r["ring_slots"]
-        ring = [on_device(frame_inputs(eq_t, B, n_sym, sym_offset, cnst, 100 * B + n_sym + s), cnst, dev)
-                for s in range(slots)]
+        ring = input_ring(eq_t, B, "payload", dev)
+        slots = len(ring)
         got_n = equalizer.equalize_frame(*ring[0], eq_n, sym_offset)
         got_c = equalizer.equalize_frame(*ring[0], eq_c, sym_offset)
         torch.cuda.synchronize()
@@ -350,22 +419,325 @@ def fmad_experiment(dev, card: str) -> dict:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# the step's SASS
+# ---------------------------------------------------------------------------
+
+SMS, SCHEDULERS = bench_k3.SMS, bench_k3.SCHEDULERS  # an H100 SXM: a warp issues on one scheduler
+FOUR_OVER_PI = "1.2732394933700561523"  # kFourOverPi as nvdisasm prints it: 8PSK's slicer
+INSTANTIATIONS = {"closed": "ILb0E", "table": "ILb1E"}  # equalizer_kernel<false>, <true>
+
+
+def step_loops(instrs: list) -> list[tuple[int, int]]:
+    """(first, last) instruction of each step loop: a loop closed by a
+    conditional backward branch that writes the outputs (two STG or more)
+    and holds no other such loop."""
+    cand = [(lo, hi) for lo, hi in bench_k3.loops(instrs) if instrs[hi][1].startswith("@")
+            and sum(instrs[i][0].startswith("STG") for i in range(lo, hi + 1)) >= 2]
+    return [r for r in cand if not any(o != r and r[0] <= o[0] and o[1] <= r[1] for o in cand)]
+
+
+def _slow_path(instrs: list, lo: int, hi: int) -> bool:
+    """Whether [lo, hi) reaches a CALL before any branch: a division's slow path."""
+    for op, _, _ in instrs[lo:hi]:
+        if op.startswith("CALL"):
+            return True
+        if op.startswith("BRA"):
+            return False
+    return False
+
+
+def step_paths(instrs: list, lo: int, hi: int) -> list[dict]:
+    """Every way from the loop's head ``lo`` to its back-edge ``hi``: at a
+    conditional forward branch both sides, unless one is a division's slow
+    path (:func:`_slow_path`), which is left out; a branch out of the loop,
+    or back to an inner loop's head, falls through.  Each way's
+    ``instructions``, ``mufu_rcp`` and slicer: 8PSK where it multiplies by
+    4 / pi (``FOUR_OVER_PI``), 16QAM where it holds FRND.FLOOR, else
+    BPSK/QPSK."""
+    at = {lab: i for i, (_, _, labs) in enumerate(instrs) for lab in labs}
+    out, stack = [], [(lo, 0, 0, "BPSK/QPSK")]
+    while stack:
+        i, n, rcp, slicer = stack.pop()
+        while True:
+            op, ins, _ = instrs[i]
+            n, rcp = n + 1, rcp + (op == "MUFU.RCP")
+            if FOUR_OVER_PI in ins:
+                slicer = "8PSK"
+            elif op == "FRND.FLOOR":
+                slicer = "16QAM"
+            if i == hi:
+                out.append({"instructions": n, "mufu_rcp": rcp, "slicer": slicer})
+                break
+            if op == "EXIT" or op == "RET":
+                break
+            m = bench_k3._TARGET.search(ins) if op == "BRA" else None
+            t = at.get(m.group(1)) if m else None
+            if m and not ins.startswith("@"):  # unconditional
+                if t is None or not i < t <= hi:
+                    break  # out of the loop
+                i = t
+                continue
+            if t is not None and i < t <= hi:
+                if _slow_path(instrs, i + 1, t):
+                    i = t
+                    continue
+                stack.append((t, n, rcp, slicer))
+            i += 1
+    return out
+
+
+def step_counts(instrs: list) -> dict:
+    """What a step issues a warp, over the kernel's step loops: for each
+    slicer the longest way through a step that decides with it (its
+    ``instructions`` and ``mufu_rcp``), the loops' own sizes and their
+    division sites (CALLs of a slow path)."""
+    loops = step_loops(instrs)
+    best: dict = {}
+    for lo, hi in loops:
+        for path in step_paths(instrs, lo, hi):
+            if path["instructions"] > best.get(path["slicer"], {"instructions": -1})["instructions"]:
+                best[path["slicer"]] = {k: path[k] for k in ("instructions", "mufu_rcp")}
+    return {"slicers": best, "loops": [[lo, hi, hi - lo + 1] for lo, hi in loops],
+            "slow_path_calls": sum(instrs[i][0].startswith("CALL") for lo, hi in loops for i in range(lo, hi + 1)),
+            "longest": max(v["instructions"] for v in best.values())}
+
+
+def mixed_step(counts: dict) -> float:
+    """Instructions a step over the mixed ids 1..4, a quarter each (BPSK's
+    step counted as QPSK's, the longer of the two)."""
+    s = counts["slicers"]
+    return (2 * s["BPSK/QPSK"]["instructions"] + s["8PSK"]["instructions"] + s["16QAM"]["instructions"]) / 4
+
+
+def issue_floor_ms(instr_per_step: float, B: int, n_sym: int, clock_mhz: float, fft_len: int = 64) -> float:
+    """Least time the card takes to issue a call's steps: B x fft_len / 32
+    warps, n_sym steps each, every scheduler issuing an instruction of one
+    warp every cycle."""
+    return instr_per_step * B * (fft_len // 32) * n_sym / (SMS * SCHEDULERS * clock_mhz * 1e6) * 1e3
+
+
+def ptxas_report(lib: Path) -> dict:
+    """{instantiation: {"registers", "spill_bytes"}} from the build's ptxas
+    log (``-Xptxas=-v``)."""
+    out, name = {}, None
+    log = Path(lib).with_suffix(".log")
+    for ln in log.read_text().splitlines() if log.exists() else []:
+        if m := re.search(r"Function properties for (\S+)", ln):
+            name = next((k for k, tag in INSTANTIATIONS.items() if tag in m.group(1)), None)
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            out.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def sass_report() -> dict:
+    """The build on the path: its step's SASS counts an instantiation, its
+    registers and spills, and the closed form's issue floor at the paths'
+    shapes at the SM's top clock (``clocks.max.sm``)."""
+    lib = equalizer_cuda.library_path()
+    equalizer_cuda.build()
+    kernels = bench_k3.disassemble(lib)
+    clock = bench_k3.sm_clock_mhz()
+    out = {"library": lib.name, "clocks_max_sm_mhz": clock, "ptxas": ptxas_report(lib)}
+    # blocks an SM, where the build reports them (an older checkout's may not)
+    resident = getattr(equalizer_cuda, "resident_blocks", None)
+    if resident is not None:
+        out["blocks_per_sm"] = {inst: resident(64, inst == "table") for inst in INSTANTIATIONS}
+        out["one_wave_at_2048"] = {inst: -(-2048 // equalizer_cuda.rows_per_block(64)) <= SMS * n
+                                   for inst, n in out["blocks_per_sm"].items()}
+    for inst, tag in INSTANTIATIONS.items():
+        name = next(k for k in kernels if KERNEL_NAME in k and tag in k)
+        out[inst] = step_counts(kernels[name])
+    step = mixed_step(out["closed"])
+    out["closed"]["mixed_ids_step"] = step
+    out["issue_floor_ms"] = {f"{B}/{call}": issue_floor_ms(step, B, n_sym, clock)
+                             for B in BATCHES for call, (n_sym, _) in CALLS.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# --time: the calls alone, by the public functions
+# ---------------------------------------------------------------------------
+
+def time_calls(dev, windows: int = 3, reps: int = 48) -> dict:
+    """{"<B>/<call>[/table]": {"ms": median, "windows": [...]}}: the device
+    time of each call over a ring of inputs, ``windows`` profiler windows
+    each; the closed form at every B for both calls, table mode (the
+    foreign tables) for the payload call."""
+    eq_c, eq_t = eq_tables(dev), eq_tables(dev, tab=wire_tables(dev))
+    shapes = [(B, call, eq_c) for B in BATCHES for call in CALLS] + [(B, "payload", eq_t) for B in BATCHES]
+    out = {}
+    for B, call, eq in shapes:
+        sym_offset = CALLS[call][1]
+        ring = input_ring(eq, B, call, dev)
+        fn = lambda i: equalizer.equalize_frame(*ring[i % len(ring)], eq, sym_offset)
+        ms = [profiler_ms(fn, reps) for _ in range(windows)]
+        check(all(x is not None for x in ms), f"the profiler saw no {KERNEL_NAME}")
+        key = f"{B}/{call}" + ("/table" if eq.tab.table_mode else "")
+        out[key] = {"ms": median(ms), "windows": ms}
+        print(f"[time] {key}: {median(ms) * 1e3:.2f} us (windows {[round(x * 1e3, 2) for x in ms]})", flush=True)
+        del ring
+    return out
+
+
+# ---------------------------------------------------------------------------
+# --same-as: bit for bit against another checkout's kernel
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def launching(lib):
+    """The wrapper launching the kernel of ``lib`` (a library with
+    ``equalizer_launch``, bound by ``equalizer_cuda.bind_launch``)."""
+    saved = equalizer_cuda.build
+    equalizer_cuda.build = lambda: lib
+    try:
+        yield
+    finally:
+        equalizer_cuda.build = saved
+
+
+def same_as(dev, other_source: Path) -> dict:
+    """The kernel of this checkout against the one built from
+    ``other_source`` (another checkout's csrc/equalizer.cu, the same C
+    interface), through this checkout's wrapper, on phase 21's inputs at B =
+    1024 and 2048 (both calls; the payload call also in table mode on the
+    foreign tables) and on the B = 2048 payload inputs at the decision
+    boundaries, updating and frozen: {case: rows whose hard, soft, taps,
+    SNR or noise variance differ in any bit (a NaN equals a NaN)}."""
+    from gr_dtl_tpu_torch.ops import _cuda_build
+    other = equalizer_cuda.bind_launch(_cuda_build.load(Path(other_source), equalizer_cuda.NVCC_FLAGS))
+    eq_c, eq_t = eq_tables(dev), eq_tables(dev, tab=wire_tables(dev))
+    cases = {}
+    for B in (1024, 2048):
+        cnst = mixed_ids(B)
+        for call, (n_sym, off) in CALLS.items():
+            cases[f"{B}/{call}"] = (eq_c, off, frame_inputs(eq_c, B, n_sym, off, cnst, 100 * B + n_sym))
+        n_sym, off = CALLS["payload"]
+        cases[f"{B}/payload/table"] = (eq_t, off, frame_inputs(eq_t, B, n_sym, off, cnst, 100 * B + n_sym))
+    n_sym, off = CALLS["payload"]
+    for alpha in (0.1, 1.0):
+        eq = eq_tables(dev, alpha)
+        cases[f"2048/payload/boundaries/alpha={alpha}"] = (
+            eq, off, boundary_inputs(eq, 2048, n_sym, off, mixed_ids(2048), 7))
+
+    def rows_differ(a, b) -> int:
+        same = lambda x, y: ((x == y) | (x.isnan() & y.isnan())).reshape(x.shape[0], -1).all(dim=1)
+        return int((~torch.stack([same(x, y) for x, y in zip(a, b)]).all(dim=0)).sum())
+
+    out = {}
+    for name, (eq, off, arrays) in cases.items():
+        args = on_device(arrays, mixed_ids(arrays[0].shape[0]), dev)
+        mine = equalizer.equalize_frame(*args, eq, off)
+        with launching(other):
+            theirs = equalizer.equalize_frame(*args, eq, off)
+        torch.cuda.synchronize()
+        out[name] = rows_differ(mine, theirs)
+        print(f"[same-as] {name}: {out[name]} of {args[0].shape[0]} rows differ from {other_source} in any bit",
+              flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# --variants: the design's choices, each against the alternative it beat
+# ---------------------------------------------------------------------------
+
+# name: the source's text and what the alternative writes in its place
+VARIANTS = {
+    "symbols copied 3 ahead": (("constexpr int kAhead = 2;", "constexpr int kAhead = 3;"),),
+    "symbols copied 6 ahead, a ring of 8": (("constexpr int kAhead = 2;", "constexpr int kAhead = 6;"),
+                                            ("constexpr int kRing = 4;", "constexpr int kRing = 8;")),
+    "table mode's groups of four one at a time": (("            Candidate best;\n#pragma unroll\n",
+                                                   "            Candidate best;\n#pragma unroll 1\n"),),
+    "outputs by 64-bit pointers stepped a symbol": (
+        ("            hard_row[out] = ref;\n            soft_row[out] = eqd;\n            out += fft_len;",
+         "            *hard_row = ref;\n            *soft_row = eqd;\n            hard_row += fft_len;\n"
+         "            soft_row += fft_len;"),),
+}
+VARIANT_SHAPES = [(1, "payload", False), (1024, "payload", False), (2048, "payload", False),
+                  (2048, "header", False), (2048, "payload", True)]
+
+
+def variant_library(name: str):
+    """The kernel library of the source with ``VARIANTS[name]`` written in
+    (built into ``_build/`` beside the others), bound for the wrapper."""
+    from gr_dtl_tpu_torch.ops import _cuda_build
+    text = equalizer_cuda.SOURCE.read_text()
+    for old, new in VARIANTS[name]:
+        check(old in text, f"variant {name!r}: the source no longer holds {old!r}")
+        text = text.replace(old, new)
+    src = _cuda_build.BUILD_DIR / f"equalizer_variant_{hashlib.sha256(text.encode()).hexdigest()[:16]}.cu"
+    _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(text)
+    return equalizer_cuda.bind_launch(_cuda_build.load(src, equalizer_cuda.NVCC_FLAGS))
+
+
+def variants(dev, reps: int = 48) -> dict:
+    """Each variant of ``VARIANTS`` against the source as it is, at
+    ``VARIANT_SHAPES``: rows not bit-equal to the source's kernel (must be
+    0), and device times in turns (the source, each variant, each variant
+    again in the reverse order, the source): {shape: {name: [ms, ms]}}."""
+    libs = {"as built": equalizer_cuda.build(), **{name: variant_library(name) for name in VARIANTS}}
+    eq_c, eq_t = eq_tables(dev), eq_tables(dev, tab=wire_tables(dev))
+    out = {}
+    for B, call, table in VARIANT_SHAPES:
+        eq = eq_t if table else eq_c
+        off = CALLS[call][1]
+        ring = input_ring(eq, B, call, dev)
+        want = equalizer.equalize_frame(*ring[0], eq, off)
+        key = f"{B}/{call}" + ("/table" if table else "")
+        out[key] = {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            with launching(libs[name]):
+                got = equalizer.equalize_frame(*ring[0], eq, off)
+                torch.cuda.synchronize()
+                check(rows_not_bit_equal(got, want) == 0, f"variant {name!r} at {key}: not bit-equal")
+                ms = profiler_ms(lambda i: equalizer.equalize_frame(*ring[i % len(ring)], eq, off), reps)
+            check(ms is not None, f"the profiler saw no {KERNEL_NAME}")
+            out[key][name].append(ms)
+        print(f"[variants] {key}: " + "; ".join(f"{n} {[round(x * 1e3, 2) for x in v]} us"
+                                                for n, v in out[key].items()), flush=True)
+        del ring
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(prog="python3 -m gr_dtl_tpu_torch.tools.bench_equalizer")
+    p.add_argument("--time", action="store_true", help="time the calls alone (public functions only)")
+    p.add_argument("--sass", action="store_true", help="count the step's SASS of the build only")
+    p.add_argument("--same-as", default=None, metavar="SOURCE",
+                   help="hold this checkout's kernel bit for bit to the one built from SOURCE "
+                        "(another checkout's csrc/equalizer.cu)")
+    p.add_argument("--variants", action="store_true",
+                   help="time the design's choices against the alternatives of VARIANTS, in turns")
+    p.add_argument("--out", default=None, help="write the result as JSON")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_equalizer: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     card = smi("name,power.limit")
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    equalizer_cuda.build()
-    print("[build] " + " | ".join(
-        ln.strip() for ln in equalizer_cuda.library_path().with_suffix(".log").read_text().splitlines()
-        if ln.strip() and ("registers" in ln or "spill" in ln)))
-    eq = eq_tables(dev)
-    results = [measure(eq, B, call, dev, card) for B in BATCHES for call in CALLS]
-    table = table_mode(dev, card)
-    fmad = fmad_experiment(dev, card)
-    print(json.dumps({"device": card, "results": results, "table_mode": table, "fmad": fmad}))
+    res = {"device": card, "package": str(Path(equalizer.__file__).parents[1])}
+    if args.time:
+        res["time"] = time_calls(dev)
+    elif args.sass:
+        res["sass"] = sass_report()
+    elif args.same_as:
+        res["same_as"] = same_as(dev, Path(args.same_as))
+    elif args.variants:
+        res["variants"] = variants(dev)
+    else:
+        res["sass"] = sass_report()
+        print("[sass] " + json.dumps(res["sass"]), flush=True)
+        eq = eq_tables(dev)
+        res["results"] = [measure(eq, B, call, dev, card) for B in BATCHES for call in CALLS]
+        res["table_mode"] = table_mode(dev, card)
+        res["fmad"] = fmad_experiment(dev, card)
+    print(json.dumps(res))
+    if args.out:
+        Path(args.out).write_text(json.dumps(res, indent=1))
     print(card)
     return 0
 

@@ -444,3 +444,106 @@ def test_table_mode_on_native_tables_decides_as_the_closed_form(gpu, B):
     torch.cuda.synchronize()
     res = equalizer_cuda.compare_with_plain(got, want, args[2], eq_c, 1, decision_atol=1e-6)
     assert res["fault_rows"] == 0 and res["boundary_rows"] <= max(1, B // 1000), res
+
+
+# ---------------------------------------------------------------------------
+# the card: the redesigned step (tables of the update's divisors, a warp's
+# pilot entries refilled a chunk at a time, header-only calls dividing in
+# the step) at the widths, batches and views the other tests do not reach
+# ---------------------------------------------------------------------------
+
+from test_torch_equalizer_plan import IDS, PILOTS, custom_eq, frames  # noqa: E402
+
+PILOTS_WIDE = {**PILOTS, 256: [c for c in range(-93, 94, 12) if c]}  # two or three a warp of 32
+MANY_PILOTS = list(range(-32, -6, 2)) + [9]  # 13 in one warp: its entries refilled every other symbol
+
+
+def _custom_args(gpu, fft_len, B, alpha, table, pilots=None, n_sym=21, off=0, seed=0):
+    tab = bench_equalizer.wire_tables(gpu) if table else None
+    eq = custom_eq(fft_len, PILOTS_WIDE[fft_len] if pilots is None else pilots, alpha, tab=tab, seed=fft_len)
+    eq = dataclasses.replace(eq, occ_mask=eq.occ_mask.to(gpu), pilot_mask=eq.pilot_mask.to(gpu),
+                             pilot_vals=eq.pilot_vals.to(gpu))
+    ids = np.resize(np.where(IDS < cn.N_TYPES, IDS, 0) if table else IDS, B).astype(np.int32)
+    eq_cpu = custom_eq(fft_len, PILOTS_WIDE[fft_len] if pilots is None else pilots, alpha, seed=fft_len)
+    data, taps0 = frames(eq_cpu, B, n_sym, off, ids, seed=seed + B)
+    return eq, (torch.as_tensor(data, device=gpu), torch.as_tensor(taps0, device=gpu),
+                torch.as_tensor(ids, device=gpu))
+
+
+def _held(eq, args, off, table):
+    got = equalizer.equalize_frame(*args, eq, off)
+    want = equalizer._equalize_frame_torch(*args, eq, off)
+    if table:
+        hold_bit_equal(got, want)
+    else:
+        hold_to_the_bar(got, want, args[2], eq, off)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [False, True], ids=["closed", "table"])
+@pytest.mark.parametrize("alpha", [0.1, 1.0])
+@pytest.mark.parametrize("fft_len, B", [(32, 5), (32, 2047), (64, 33), (128, 7), (128, 1025), (256, 3)])
+def test_kernel_at_other_widths_and_ragged_batches(gpu, fft_len, B, alpha, table):
+    """fft_len 32 (four rows a block) to 256 (a row of eight warps), B not a
+    multiple of a block's rows, ids 0-5 (0-4 in table mode), updating and
+    frozen taps: the header-only call, the payload call from its taps and a
+    call that holds both, one launch each; the closed form to the plain
+    loop's bar, table mode bit-equal."""
+    eq, (data, taps0, ids) = _custom_args(gpu, fft_len, B, alpha, table)
+    before = equalizer_cuda.equalize_frame_cuda.LAUNCHES
+    hdr = _held(eq, (data[:, :1], taps0, torch.ones_like(ids)), 0, table)
+    _held(eq, (data[:, 1:], hdr.taps, ids), 1, table)
+    _held(eq, (data, taps0, ids), 0, table)
+    assert equalizer_cuda.equalize_frame_cuda.LAUNCHES == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [False, True], ids=["closed", "table"])
+@pytest.mark.parametrize("B", [1, 65, 2048])
+def test_kernel_refills_a_warps_pilot_entries(gpu, B, table):
+    """Thirteen pilots in one warp (two symbols' entries a fill, refilled
+    every other symbol of 20) and one in the other: pilot carriers decide
+    their own symbol's value and update by it."""
+    eq, (data, taps0, ids) = _custom_args(gpu, 64, B, 0.1, table, pilots=MANY_PILOTS, n_sym=20, off=1)
+    got = _held(eq, (data, taps0, ids), 1, table)
+    pil = eq.pilot_mask
+    assert torch.equal(got.hard[:, :, pil], eq.pilot_vals[1:21, pil][None].expand(B, -1, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [False, True], ids=["closed", "table"])
+@pytest.mark.parametrize("B", [3, 1025])
+def test_kernel_takes_strided_views_at_fft_len_128(gpu, B, table):
+    """Header and payload as slices of [B, 23, 128] spectra (row stride
+    2944, symbol stride 128), the payload from the header pass's taps."""
+    eq, (data, taps0, ids) = _custom_args(gpu, 128, B, 0.1, table)
+    frame = torch.zeros((B, 2 + data.shape[1], 128), dtype=torch.complex64, device=gpu)
+    frame[:, 2:] = data
+    hdr = _held(eq, (frame[:, 2:3], taps0, torch.ones_like(ids)), 0, table)
+    assert not frame[:, 3:].is_contiguous()
+    _held(eq, (frame[:, 3:], hdr.taps, ids), 1, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.8, 1.0])
+def test_closed_form_at_the_decision_boundaries(gpu, alpha):
+    """Symbols placed within 2e-6 of a boundary, every constellation, B =
+    2048: no fault row (a row may part from the plain loop only where its
+    equalized value lies within 1e-5 of a boundary)."""
+    eq = eq_tables(gpu, alpha)
+    cnst = bench_equalizer.mixed_ids(2048)
+    args = bench_equalizer.on_device(bench_equalizer.boundary_inputs(eq, 2048, 20, 1, cnst, 7), cnst, gpu)
+    got, want = equalizer.equalize_frame(*args, eq, 1), equalizer._equalize_frame_torch(*args, eq, 1)
+    torch.cuda.synchronize()
+    assert equalizer_cuda.compare_with_plain(got, want, args[2], eq, 1)["fault_rows"] == 0
+
+
+@pytest.mark.cuda
+def test_b2048_fits_one_wave_of_blocks(gpu):
+    """Every block of a B = 2048 call is resident at once, in both
+    instantiations (the design counts on it)."""
+    rows = equalizer_cuda.rows_per_block(64)
+    for table in (False, True):
+        assert -(-2048 // rows) <= torch.cuda.get_device_properties(gpu).multi_processor_count * \
+            equalizer_cuda.resident_blocks(64, table)
