@@ -323,13 +323,18 @@ with no host check:
    tensors: phase 27's 2048 codewords clean, at the knee and in the
    waterfall, the 33-code step's own codewords, banks of 2, 8 and 32 codes
    at 1024 codewords, the 8-code bank with ids in [-11, 11], max_iters = 0
-   and a noiseless batch (ok and iterations equal on every row, hard bits
-   on every converged row, parted rows counted and named, at most 1%); K8
+   and a noiseless batch, batches of the knee's codewords below, at and
+   past one and four waves of resident blocks (where K8's blocks start to
+   walk codewords), rows that do not start on 16 bytes and neighbouring
+   rows of other codes (ok and iterations equal on every row, hard bits
+   on every converged row, parted rows counted and named, at most 1%), and
+   the stream's walk counters back at 0; K8
    and ``_bp_gather`` timed in turns (events, and K8's device time) beside
    the bound and the issue floor; one ``decode_bank`` of 33 codes at 1024
-   codewords traced (one device kernel, no synchronising call, no copy);
-   the K8 launches of phases 27 and 30 (one a call).  The kernels line's
-   ninth entry is K8's.
+   codewords traced (one device kernel, no synchronising call, copy or
+   memset); the K8 launches of phases 27 and 30 (one a call).  The kernels
+   line's ninth entry is K8's, with the grid of the 11 dB step's K8 launch
+   as the profiler recorded it (held to the launch rule's).
 
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
@@ -939,11 +944,9 @@ def median(xs):
 # first milliseconds, more of them the more profiler sessions the process has had (2 of 18
 # launches in a fresh process, 12 of 18 after some sixty sessions), and a count of warm calls of
 # a short fn can end inside them (64 calls of a 32-code decode_bank_mm, ~3 ms, left a window
-# empty); a window that comes back empty is taken again, warmed for longer
-WARM_MS = (50.0, 200.0, 800.0, 2000.0)
-
-
-MARK = "spin_kernel"  # the kernel torch.cuda._sleep launches: nothing else in the script does
+# empty); a window that comes back empty is taken again, warmed for longer.  MARK is the kernel
+# torch.cuda._sleep launches: nothing else in the script does
+WARM_MS, MARK = _timing.WARM_MS, _timing.MARK
 
 
 def mark() -> None:
@@ -967,6 +970,23 @@ def window_events(events, span: str) -> list:
     print(f"[trace] no marker kernel in the trace of {span}: its window opens with the host span", flush=True)
     start = host_span(events, span).start
     return [e for e in dev if e.time_range.start >= start]
+
+
+def launch_grids(prof, kernel: str) -> list:
+    """The grid ([x, y, z] blocks) of every launch of the kernel named so
+    in a traced window (launched after its marker, ``mark``), as the
+    profiler's trace records it: the ``grid`` of a kernel event in the
+    trace exported as JSON (None where an event holds none).  A launch's
+    place is its CUDA correlation id, which grows with each launch (the
+    exported events' times have read 0 on the card)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text()).get("traceEvents", [])
+    kernels = [(e.get("args", {}).get("correlation", -1), e) for e in events if e.get("cat") == "kernel"]
+    start = max((c for c, e in kernels if MARK in e.get("name", "")), default=None)
+    return [e.get("args", {}).get("grid") for c, e in kernels
+            if kernel in e.get("name", "") and (start is None or c > start)]
 
 
 def warm(fn, warm_ms: float, at_least: int = 1) -> None:
@@ -1176,17 +1196,14 @@ def earlier_note(name: str, S: int, n: int) -> str:
 
 
 def library_ms(fn, reps: int = 50) -> float:
-    """Device ms a call of a PyTorch function: every CUDA kernel in the
-    profiler window, summed, over the calls."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
-    return total / reps / 1e3
+    """Device ms a call of a PyTorch function: every CUDA kernel and copy of
+    ``reps`` calls in a profiler window, summed, over the calls.  The window
+    opens after warm calls inside the profiler, at a marker kernel
+    (``_timing.profiled_windows``); four windows that saw nothing fail the run."""
+    for events in _timing.profiled_windows(fn, reps):
+        if events:
+            return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+    check(False, f"the profiler saw no device work in {len(WARM_MS)} windows of {reps} calls")
 
 
 def cummax_ms(S: int, T: int, dev, ok=None) -> float:
@@ -4208,13 +4225,14 @@ BENCH_CHAIN = (16, 3)         # card against CPU: frames a step, chained steps
 BENCH_INTS = ("payload", "payload_len", "crc_ok", "header_ok", "frame_no", "cnst_id", "carr_offset")
 
 
-def traced_step(fn, name: str, sacrifice: int = 1) -> tuple:
+def traced_step(fn, name: str, sacrifice: int = 1, on_trace=None) -> tuple:
     """One fn() traced by the profiler, after ``sacrifice`` sacrificed calls
     and more until ``WARM_MS`` have passed (``warm``): the CUDA runtime
     calls the host makes inside it and the device's kernels and copies that
     start after the warm calls' (``mark``), by name, and their busy ms.  A
     trace whose window holds no device work is taken again, warmed for
-    longer."""
+    longer.  ``on_trace``, if given, is called with the profiler of the
+    window returned."""
     from torch.profiler import ProfilerActivity, profile, record_function
     for warm_ms in WARM_MS:
         torch.cuda.synchronize()
@@ -4236,6 +4254,8 @@ def traced_step(fn, name: str, sacrifice: int = 1) -> tuple:
                     and not e.name.startswith(("cudaGet", "cudaDeviceGet", "cudaOccupancy", "cudaFuncGet"))):
                 api[e.name] = api.get(e.name, 0) + 1
         if device:
+            if on_trace is not None:
+                on_trace(prof)
             break
         print(f"[trace] {name} traced after {warm_ms:g} ms of warm calls: the profiler saw no device work in "
               f"the span (runtime calls {api}); taken again", flush=True)
@@ -4667,8 +4687,7 @@ def k3_phase(dev, card, paths: dict) -> dict:
 # phase 30: slice K, K8 (the gather form, csrc/ldpc_bp.cu's bp_gather_kernel)
 # ---------------------------------------------------------------------------
 
-K8_BANK_CODES = 33  # copies of the n=300 code: one more than BANK_MM_MAX_CODES, so decode_bank decodes
-K8_IDS = 15  # the path's fec_ids draw from 1..15: the header carries 4 bits of them (ops/header.py)
+K8_BANK_CODES, K8_IDS = bench_k3.K8_BANK_CODES, bench_k3.K8_IDS  # 33 copies of n=300, fec_ids 1..15
 
 
 @contextlib.contextmanager
@@ -4694,20 +4713,6 @@ def k8_against_plain(what: str, llr, src, code_idx=None, max_iters: int = 15) ->
                          lambda: ldpc._bp_gather(llr, *ldpc._gather_tables(src, code_idx), max_iters))
 
 
-SHIPPED_ALISTS = ("n_0100_k_0027.alist", "n_0100_k_0023.alist", "n_0300_k_0152.alist")
-
-
-def distinct_bank(n: int, dev, codewords: int, seed: int) -> tuple:
-    """A bank of n codes cycling through the three shipped alists (two rates
-    of n=100 and the n=300 code, in the bank's padded layout), so that a row
-    decodes only with its own code's tables, and noisy LLRs (seeded numpy,
-    mean 1.8, sigma 1.2) that take updates: (llr [codewords, bank.Nmax], bank)."""
-    bank = ldpc.bank_from_reference(ldpc.build_ldpc_bank(
-        [alist.load_alist(str(ROOT / "examples" / SHIPPED_ALISTS[i % 3])) for i in range(n)]), dev)
-    rng = np.random.RandomState(seed)
-    return torch.as_tensor((rng.randn(codewords, bank.Nmax) * 1.2 + 1.8).astype(np.float32), device=dev), bank
-
-
 def k8_path(dev, gen, card) -> dict:
     """The coded receive step at B_FEC frames through a bank of
     ``K8_BANK_CODES`` codes, which ``fec_frame_decode`` sends to
@@ -4725,7 +4730,11 @@ def k8_path(dev, gen, card) -> dict:
     rng = np.random.RandomState(SEED + 30)
     fec_id = rng.randint(1, K8_IDS + 1, B_FEC).astype(np.int32)
     samples, sent = coded_tx(txp, np.full(B_FEC, 2, np.int32), fec_id)
-    path = {"bank": fec.bank, "counts": {}, "llr": {}, "code_idx": {}, "step_ms": {}}
+    path = {"bank": fec.bank, "counts": {}, "llr": {}, "code_idx": {}, "step_ms": {}, "grid": {}}
+    # the launch's grid by its rule (bp_gather_launch): a wave of the blocks the card keeps resident for
+    # this bank, where the step's codewords fill WALK_WAVES waves, else a block a codeword
+    wave = (ldpc_cuda.resident_codewords(fec.bank.graphs, gather=True)
+            * torch.cuda.get_device_properties(dev).multi_processor_count)
     for snr in SNRS_DB:
         stream, _ = noisy(samples, snr, gen)
         what = f"coded B={B_FEC} QPSK at {snr:g} dB through a {K8_BANK_CODES}-code bank"
@@ -4763,9 +4772,18 @@ def k8_path(dev, gen, card) -> dict:
                 return rx_step(rxp, stream, B_FEC)
         t = bench_k3.in_turns({"plain": step_plain, "k8": lambda: rx_step(rxp, stream, B_FEC)}, STEPS_PER_WINDOW)
         ms = path["step_ms"][snr] = {k: median(v["events"]) for k, v in t.items()}
-        api, device, busy = traced_step(lambda: rx_step(rxp, stream, B_FEC), "k8_step")
+        traced = []
+        api, device, busy = traced_step(lambda: rx_step(rxp, stream, B_FEC), "k8_step", on_trace=traced.append)
         _, device_plain, busy_plain = traced_step(step_plain, "k8_step_plain")
         n_k8 = sum(v for k, v in device.items() if "bp_gather_kernel" in k)
+        grids = launch_grids(traced[0], "bp_gather_kernel")
+        rows = path["llr"][snr].shape[0]
+        want = wave if rows >= ldpc_cuda.WALK_WAVES * wave else rows
+        print(f"[k8-path] {snr:g} dB: the traced K8 launch's grid {grids} (the profiler's record) for {rows} "
+              f"codewords; the launch rule's {want} (a wave {wave})", flush=True)
+        check(len(grids) == 1 and grids[0] == [want, 1, 1],
+              f"the traced step at {snr:g} dB: K8's grids {grids}, expected one of [{want}, 1, 1]")
+        path["grid"][snr] = grids[0][0]
         print(f"[k8-path] {snr:g} dB: the step with K8 {ms['k8']:.3f} ms (windows "
               f"{[round(v, 3) for v in t['k8']['events']]}), with _bp_gather {ms['plain']:.3f} ms "
               f"({[round(v, 3) for v in t['plain']['events']]}); traced: {sum(device.values())} device kernels and "
@@ -4812,7 +4830,7 @@ def k8_phase(dev, card, gen) -> dict:
     for n, (x, idx, bank) in banks.items():
         if n > 1:
             inputs[f"bank of {n} copies, {K3_BANK_CW} codewords"] = (x, bank, idx)
-    distinct = {n: distinct_bank(n, dev, K3_BANK_CW, SEED + 30 + n) for n in (2, 8, 32)}
+    distinct = {n: bench_k3.distinct_bank(n, dev, K3_BANK_CW, SEED + 30 + n) for n in (2, 8, 32)}
     for n, (x, bank) in distinct.items():
         idx = torch.as_tensor(np.random.RandomState(n).randint(1, n + 1, x.shape[0]).astype(np.int32), device=dev)
         inputs[f"bank of {n} distinct codes, noisy, {K3_BANK_CW} codewords"] = (x, bank, idx)
@@ -4834,6 +4852,24 @@ def k8_phase(dev, card, gen) -> dict:
     print(f"[k8] {what}: decode_bank_mm's clamp to [1, {C}] would part on {int(differ.sum())} rows", flush=True)
     what = f"{H_CW} knee, max_iters 0"
     cmp[what] = k8_against_plain(what, inputs[f"{H_CW} knee"][0], code, max_iters=0)
+    # batches below, at and past the grid (a wave of resident blocks), rows that do not start on 16 bytes
+    # (the row's 4-byte copies), and neighbouring rows of other codes; the stream's counters back at 0 after
+    wave = resident * torch.cuda.get_device_properties(dev).multi_processor_count
+    knee = torch.cat([inputs[f"{H_CW} knee"][0]] * 2)  # 4096 codewords: past four waves
+    for B in sorted({1, 7, 923, 925, wave - 1, wave, wave + 1, 4 * wave - 1, 4 * wave, 4 * wave + 1} - {0}):
+        cmp[f"{H_CW} knee, the first {B}"] = k8_against_plain(f"{H_CW} knee, the first {B} (a wave {wave})",
+                                                              knee[:B].contiguous(), code)
+    for what, x, src, idx in ((f"{H_CW} knee", knee, code, None),
+                              ("bank of 8 distinct codes", x8, bank8,
+                               torch.as_tensor(np.arange(x8.shape[0]) % 8 + 1, dtype=torch.int32, device=dev))):
+        off = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+        off.copy_(x)
+        check(off.is_contiguous() and off.data_ptr() % 16 == 4, "a view one float into its storage")
+        what = f"{what}, rows 4 bytes past 16" + ("" if idx is None else ", neighbouring rows of other codes")
+        cmp[what] = k8_against_plain(what, off, src, idx)
+    torch.cuda.synchronize()
+    work = ldpc_cuda._work(torch.cuda.current_stream(dev)).tolist()
+    check(work == [0] * ldpc_cuda.WORK_COUNTERS, f"K8's counters after the calls: {work}, expected all 0")
     cw = torch.as_tensor(h["clean"] > 0, device=dev)  # the clean regime's codewords, with no noise
     noiseless = torch.where(cw, 4.0, -4.0).float().contiguous()
     got = cmp["noiseless"] = k8_against_plain(f"{H_CW} noiseless (done at entry)", noiseless, code)
@@ -4870,7 +4906,7 @@ def k8_phase(dev, card, gen) -> dict:
           + f", busy {busy:.4f} ms ({card})", flush=True)
     check(sum(device.values()) == 1 and "bp_gather_kernel" in next(iter(device)),
           f"a traced {what}: device work {device}, expected the one K8 kernel")
-    waits = [k for k in list(api) + list(device) if "Synchronize" in k or "DtoH" in k or "Memcpy" in k]
+    waits = [k for k in list(api) + list(device) if any(w in k for w in ("Synchronize", "DtoH", "Memcpy", "Memset"))]
     check(not waits, f"a traced {what}: synchronising calls or copies {waits}")
 
     # ---- launches on the paths ----
@@ -4893,6 +4929,8 @@ def k8_phase(dev, card, gen) -> dict:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
             "device_ms": main["device_ms"], "issue_floor_ms": main["issue_floor_ms"],
             "instructions_per_edge": per_edge, "resident_codewords_per_sm": resident,
+            # the 11 dB step's K8 launch, as the profiler recorded it: a wave of resident blocks walking its codewords
+            "grid_blocks": path["grid"][11.0],
             "also_replaces": "gr_dtl_tpu/ops/ldpc.py:574-645",
             # every path's gather-form calls on the card (phases 27 and 30), booked by the ledger
             "ledger_calls": calls, "ledger_launches": launches,

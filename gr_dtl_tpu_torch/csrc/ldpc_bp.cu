@@ -107,9 +107,39 @@
 // atanhf.  What bounds it is what bounds K3, with fewer transcendentals an
 // edge (tanh and atanh, and a division, against tanh, log, exp and atanh).
 //
+// K8's frame.  K8 first ran K3's frame, a block a codeword: it waited on a
+// chain of dependent global reads before its first barrier (code id,
+// header, row), made a pass of first totals and a barrier before its first
+// syndrome pass, and read its code's int16 tables from global memory at
+// every pass, three an update (tools/bench_k3.py --timeline placed the
+// time; --variants times each choice below against its alternative).
+//   - Where B fills kWalkWaves waves of resident blocks, a wave of them
+//     walks the codewords (bp_gather_launch): block g starts at codeword g
+//     and takes each next one from a counter of the launching stream's
+//     (work; the last block to leave checks the counts, trapping on any
+//     but a clean walk's, and sets them back to 0, so a call is one kernel
+//     and no memset).  After a codeword that took no update, thread
+//     0 takes the next one at the current one's start, so its atomic hides
+//     behind the row's read and a block holds two codewords; after one that
+//     took updates, at its end, so a long codeword holds no other behind it.
+//     With fewer codewords a block, holding two costs more balance than the
+//     walk saves (2,048 codewords with updates), so there a block decodes
+//     one and takes no counter.
+//   - The row is in flight (cp.async, 16 bytes a copy where it starts on 16
+//     bytes, else 4) while the code id and header are read.
+//   - The first syndrome pass reads the LLRs themselves (llr + 0 has their
+//     signs) and chk_vars from global memory, each entry once, so a codeword
+//     that converges at entry makes no pass of totals, stages nothing and
+//     waits at two barriers.
+//   - A codeword that takes an update stages its code's three tables in
+//     shared memory (stage_table: 4-byte words, a table may start between
+//     words) and reads them there at every pass after.
+// The update is the first kernel's, at 56 registers a thread (7 blocks of 5
+// warps an SM), and so are the outputs, bit for bit.
+//
 // Limits (the wrapper raises above them): N, E <= kMaxIndex (int16 tables),
-// column and row degree <= kMaxDeg, the shared memory of bp_smem_bytes <=
-// kMaxSmem.
+// column and row degree <= kMaxDeg, the shared memory of bp_smem_bytes (K8:
+// gather_smem_bytes) <= kMaxSmem.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,6 +156,8 @@ constexpr int kRegSlots = 8;       // row degree up to which a lane's slots are 
 constexpr int kMaxSmem = 232448;   // shared memory a block may use on sm_90 (227 KB)
 constexpr int kHeader = 7;         // ints a code in the header: M, E, dv, dc, and the offsets of
                                    // var_edges, chk_edges and chk_vars in the tables
+constexpr int kGatherRegs = 56;    // K8's registers a thread (rows of up to kRegSlots): 7 blocks of 5 warps an SM
+constexpr int kWalkWaves = 4;      // K8's blocks walk codewords from B = kWalkWaves waves of resident blocks up
 // K8's guard and clamp: the gather form's Python scalars, each rounded to float32 as PyTorch rounds them
 constexpr float kTiny = (float)1e-12;     // |t| below it is replaced by sign(t) kTiny + kTinier
 constexpr float kTinier = (float)1e-30;
@@ -228,9 +260,8 @@ __device__ __forceinline__ void check_update_tanh(int M, int E, int dc, const in
     }
 }
 
-// One codeword of either form, a block: the frame K3 and K8 share.  kTanh
-// picks K8's check update (check_update_tanh) and decode_bank's id rule.
-template <bool kBf16, int kSlots, bool kTanh>
+// One codeword a block: K3's frame.
+template <bool kBf16, int kSlots>
 __device__ __forceinline__ void decode_codeword(
     const float* __restrict__ llr, const uint8_t* __restrict__ done_in, const void* __restrict__ code_idx,
     int idx64, int n_codes, const int* __restrict__ header, const int16_t* __restrict__ tab, int N,
@@ -242,14 +273,7 @@ __device__ __forceinline__ void decode_codeword(
     int code = 0;
     if (code_idx != nullptr) {
         const long long id = idx64 ? ((const long long*)code_idx)[b] : ((const int*)code_idx)[b];
-        if constexpr (kTanh) {
-            // decode_bank: jnp's index into the C + 1 table rows (a negative id counts from the
-            // end once, then clamps to [0, C]); row 0 is code 1
-            const long long row = min(max(id < 0 ? id + n_codes + 1 : id, 0LL), (long long)n_codes);
-            code = (int)max(row, 1LL) - 1;
-        } else {
-            code = (int)(min(max(id, 1LL), (long long)n_codes) - 1);
-        }
+        code = (int)(min(max(id, 1LL), (long long)n_codes) - 1);
     }
     const int* h = header + code * kHeader;
     const int M = h[0], E = h[1], dv = h[2], dc = h[3];
@@ -291,12 +315,8 @@ __device__ __forceinline__ void decode_codeword(
             ok = __syncthreads_and(odd == 0) != 0;
             if (ok || it == max_iters) break;
             // the check update (_check_update), a thread a check
-            for (int c = tid; c < M; c += nt) {
-                if constexpr (kTanh)
-                    check_update_tanh<kSlots>(M, E, dc, chk_edges + c, chk_vars + c, total, c2v, it == 0);
-                else
-                    check_update<kBf16, kSlots>(M, E, dc, chk_edges + c, chk_vars + c, total, c2v, it == 0);
-            }
+            for (int c = tid; c < M; c += nt)
+                check_update<kBf16, kSlots>(M, E, dc, chk_edges + c, chk_vars + c, total, c2v, it == 0);
             __syncthreads();
             ++it;
             // totals (_var_totals), a thread a variable, slots left to right
@@ -327,28 +347,212 @@ __global__ void __launch_bounds__(kMaxThreads, kSlots <= kRegSlots ? kMinBlocks 
     int idx64, int n_codes, const int* __restrict__ header, const int16_t* __restrict__ tab, int N,
     int max_iters, int* __restrict__ hard, int* __restrict__ iters, uint8_t* __restrict__ ok_out,
     float* __restrict__ total_out) {
-    decode_codeword<kBf16, kSlots, false>(llr, done_in, code_idx, idx64, n_codes, header, tab, N, max_iters, hard,
-                                          iters, ok_out, total_out);
+    decode_codeword<kBf16, kSlots>(llr, done_in, code_idx, idx64, n_codes, header, tab, N, max_iters, hard, iters,
+                                   ok_out, total_out);
 }
 
-// K8: decode's and decode_bank's tanh-product update.
+// K8's asynchronous copies from global to shared memory (LDGSTS: no
+// register holds the data), their group's commit, and a wait for them all.
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)),
+                 "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)),
+                 "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void copy_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// K8's row buffer, in floats: N and the pad's zero after them, rounded up
+// to 16 bytes.
+__host__ __device__ __forceinline__ int row_stride(int N) { return (N + 4) & ~3; }
+
+// The int16 words a staged table of n entries may take: n, one before it
+// and one past, rounded up to 4 bytes.
+__host__ __device__ __forceinline__ int staged_words(int n) { return (n + 3) & ~1; }
+
+// An LLR row into shared memory, in flight until copy_wait_all: 16 bytes a
+// copy where the row starts on 16 bytes and N is a multiple of 4, else 4
+// bytes a copy (a row of a slice that starts elsewhere, or of an N that 16
+// bytes do not divide).
+__device__ __forceinline__ void fetch_row(const float* __restrict__ src, int N, float* row, int tid, int nt) {
+    if ((N & 3) == 0 && ((uintptr_t)src & 15) == 0) {
+        for (int q = tid; q < N / 4; q += nt) copy16(row + 4 * q, src + 4 * q);
+    } else {
+        for (int v = tid; v < N; v += nt) copy4(row + v, src + v);
+    }
+}
+
+// n int16 entries of a code's table into shared memory at dst (on 4 bytes,
+// staged_words(n) of room), in flight until copy_wait_all: the 4-byte words
+// that hold them, from the one that holds the first (the entry before it
+// too, where the table starts between words) to the last whole one, and
+// an odd last entry copied alone.  Returns where the table starts in dst.
+__device__ __forceinline__ const int16_t* stage_table(int16_t* dst, const int16_t* __restrict__ src, int n,
+                                                      int tid, int nt) {
+    const int shift = (int)(((uintptr_t)src >> 1) & 1);  // 1 where src starts between words
+    const int16_t* from = src - shift;                    // on 4 bytes: src itself or the entry before it
+    const int words = (n + shift) >> 1;                   // whole words up to src[n - 1]
+    for (int w = tid; w < words; w += nt) copy4(dst + 2 * w, from + 2 * w);
+    if (((n + shift) & 1) && tid == nt - 1) dst[n + shift - 1] = src[n - 1];
+    return dst + shift;
+}
+
+// decode_bank's code of an id: jnp's index into the C + 1 table rows (a
+// negative id counts from the end once, then clamps to [0, C]); row 0 is
+// code 1.
+__device__ __forceinline__ int bank_code(long long id, int n_codes) {
+    const long long row = min(max(id < 0 ? id + n_codes + 1 : id, 0LL), (long long)n_codes);
+    return (int)max(row, 1LL) - 1;
+}
+
+// One syndrome pass of K8 (_syndrome_ok) over the values v (the LLRs at
+// entry, then the totals): a thread a check, a pad reading v[N] = 0, an
+// even bit; true where every check is even (a block-wide vote).
 template <int kSlots>
-__global__ void __launch_bounds__(kMaxThreads, kSlots <= kRegSlots ? kMinBlocks : 1) bp_gather_kernel(
+__device__ __forceinline__ bool syndrome_ok(int M, int dc, const int16_t* chk_vars, const float* v, int tid,
+                                            int nt) {
+    int odd = 0;
+    for (int c = tid; c < M; c += nt) {
+        int p = 0;
+#pragma unroll
+        for (int r = 0; r < kSlots; ++r) {
+            if (kSlots > kRegSlots && r >= dc) break;
+            p ^= v[chk_vars[r * M + c]] < 0.0f;
+        }
+        odd |= p;
+    }
+    return __syncthreads_and(odd == 0) != 0;
+}
+
+// The codeword a K8 block takes after its current one (thread 0): the next
+// of the stream's counter, past the grid's first codewords.
+__device__ __forceinline__ int take(unsigned* work) { return gridDim.x + (int)atomicAdd(work, 1u); }
+
+// K8: decode's and decode_bank's tanh-product update, blocks walking
+// codewords where the grid is below B (else a block a codeword).  cm: the
+// largest dc x M of the call's codes (the staged row tables' room); work:
+// the launching stream's three counters (codewords taken, blocks left,
+// codewords decoded), 0 at the launch and left at 0.
+template <int kSlots>
+__global__ void __maxnreg__(kSlots <= kRegSlots ? kGatherRegs : 255) bp_gather_kernel(
     const float* __restrict__ llr, const void* __restrict__ code_idx, int idx64, int n_codes,
-    const int* __restrict__ header, const int16_t* __restrict__ tab, int N, int max_iters, int* __restrict__ hard,
-    int* __restrict__ iters, uint8_t* __restrict__ ok_out) {
-    decode_codeword<false, kSlots, true>(llr, nullptr, code_idx, idx64, n_codes, header, tab, N, max_iters, hard,
-                                         iters, ok_out, nullptr);
+    const int* __restrict__ header, const int16_t* __restrict__ tab, int N, int B, int max_e, int cm,
+    int max_iters, int* __restrict__ hard, int* __restrict__ iters, uint8_t* __restrict__ ok_out,
+    unsigned* __restrict__ work) {
+    extern __shared__ float4 gather_smem[];
+    float* lr = reinterpret_cast<float*>(gather_smem);  // [row_stride(N)], lr[N] = 0
+    float* total = lr + row_stride(N);                   // [N + 1], total[N] = 0
+    float* c2v = total + N + 1;                          // [max_e + 1], c2v[E] = 0
+    int* next = reinterpret_cast<int*>(c2v + max_e + 1);  // [2]: the block's next codeword, by parity
+    // the code's tables: chk_vars and chk_edges ([dc, M] each) and var_edges ([dv, N])
+    int16_t* staged = reinterpret_cast<int16_t*>(next + 2);
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const bool walk = B > (int)gridDim.x;  // else a block a codeword, and no counter
+    bool early = true;  // the block's last codeword took no update: take the next one at this one's start
+
+    int k = 0;  // the codewords this block decoded
+    for (int b = blockIdx.x; b < B; ++k) {
+        int taken = B;  // thread 0: the block's next codeword, taken now, so a block holds two at most
+        if (tid == 0 && walk && early) taken = take(work);
+        fetch_row(llr + (long long)b * N, N, lr, tid, nt);  // in flight while the code's header is read
+        copy_commit();
+        int code = 0;
+        if (code_idx != nullptr) code = bank_code(idx64 ? ((const long long*)code_idx)[b] : ((const int*)code_idx)[b], n_codes);
+        const int* h = header + code * kHeader;
+        const int M = h[0], E = h[1], dv = h[2], dc = h[3];
+        if (tid == 0) {
+            lr[N] = 0.0f;
+            next[k & 1] = taken;
+        }
+        copy_wait_all();
+        __syncthreads();  // the row is in, and the block's next codeword
+
+        // The first syndrome pass reads the LLRs (every message is 0, so the
+        // first totals are llr + 0, of the same sign: only -0.0 becomes +0.0,
+        // and no test or output tells them apart) and chk_vars from global
+        // memory, each entry once; a codeword that takes an update stages
+        // its code's tables and makes its first totals.
+        int it = 0;
+        bool ok = syndrome_ok<kSlots>(M, dc, tab + h[6], lr, tid, nt);
+        if (!ok && max_iters > 0) {
+            const int rc = staged_words(cm);
+            const int16_t* chk_vars = stage_table(staged, tab + h[6], dc * M, tid, nt);         // [dc, M], pads N
+            const int16_t* chk_edges = stage_table(staged + rc, tab + h[5], dc * M, tid, nt);   // [dc, M], pads E
+            const int16_t* var_edges = stage_table(staged + 2 * rc, tab + h[4], dv * N, tid, nt);  // [dv, N], pads E
+            copy_commit();
+            for (int v = tid; v < N; v += nt) total[v] = __fadd_rn(lr[v], 0.0f);  // -0.0 + 0.0 is +0.0, as in _bp_gather
+            if (tid == 0) {
+                total[N] = 0.0f;
+                c2v[E] = 0.0f;  // another code's message may lie there
+            }
+            copy_wait_all();
+            __syncthreads();
+            do {
+                // the check update (_check_update), a thread a check; the first reads no message
+                for (int c = tid; c < M; c += nt)
+                    check_update_tanh<kSlots>(M, E, dc, chk_edges + c, chk_vars + c, total, c2v, it == 0);
+                __syncthreads();
+                ++it;
+                // totals (_var_totals), a thread a variable, slots left to right
+                for (int v = tid; v < N; v += nt) {
+                    float s = c2v[var_edges[v]];
+                    for (int d = 1; d < dv; ++d) s = __fadd_rn(s, c2v[var_edges[d * N + v]]);
+                    total[v] = __fadd_rn(lr[v], s);
+                }
+                __syncthreads();
+                ok = syndrome_ok<kSlots>(M, dc, chk_vars, total, tid, nt);
+            } while (!ok && it < max_iters);
+        }
+
+        const float* out = it == 0 ? lr : total;
+        int* hard_row = hard + (long long)b * N;
+        for (int v = tid; v < N; v += nt) hard_row[v] = out[v] < 0.0f;
+        if (tid == 0) {
+            iters[b] = it;
+            ok_out[b] = ok;
+            if (walk && !early) next[k & 1] = take(work);  // after a codeword with updates: taken at the end
+        }
+        early = it == 0;
+        __syncthreads();  // the next codeword is known, and every thread is done with this one's row and totals
+        b = next[k & 1];
+    }
+    // The last block to leave checks the counters and sets them back to 0
+    // for the stream's next launch.  A walk takes B codewords in all (one a
+    // codeword decoded, and one past B a block), so counters at 0 when the
+    // launch began end at B taken, B decoded and the grid's blocks left; any
+    // other count means a launch began on counters not at 0, skipped or
+    // repeated codewords and left outputs unwritten, and the kernel traps (the
+    // call's next synchronising read raises).
+    if (tid == 0 && walk) {
+        atomicAdd(work + 2, (unsigned)k);
+        __threadfence();
+        const unsigned left = atomicAdd(work + 1, 1u);
+        if (left >= gridDim.x) __trap();
+        if (left == gridDim.x - 1) {
+            if (atomicAdd(work, 0u) != (unsigned)B || atomicAdd(work + 2, 0u) != (unsigned)B) __trap();
+            work[0] = 0;
+            work[1] = 0;
+            work[2] = 0;
+            __threadfence();
+        }
+    }
 }
 
 // Shared memory a block takes for codewords of N bits, codes of at most E
-// edges (ops/ldpc_cuda.py::smem_bytes).
+// edges (ops/ldpc_cuda.py::smem_bytes and gather_smem_bytes): K3's, and
+// K8's with its row buffer on 16 bytes and its code's staged tables (cm,
+// vn: the largest dc x M and dv x N of the call's codes).
 long long bp_smem_bytes(int N, int E) { return 4LL * (2LL * N + E + 2); }
+long long gather_smem_bytes(int N, int E, int cm, int vn) {
+    return 4LL * (row_stride(N) + N + E + 4) + 2LL * (2LL * staged_words(cm) + staged_words(vn));
+}
 
 using Kernel = void (*)(const float*, const uint8_t*, const void*, int, int, const int*, const int16_t*, int,
                         int, int*, int*, uint8_t*, float*);
-using GatherKernel = void (*)(const float*, const void*, int, int, const int*, const int16_t*, int, int, int*,
-                              int*, uint8_t*);
+using GatherKernel = void (*)(const float*, const void*, int, int, const int*, const int16_t*, int, int, int, int,
+                              int, int*, int*, uint8_t*, unsigned*);
 
 template <bool kBf16>
 Kernel pick_slots(int slots) {
@@ -409,9 +613,9 @@ cudaError_t prepare(K kernel, int form, int dc, long long smem) {
 }
 
 // The launch's limits (the wrappers raise above them first).
-bool bad_launch(int n_codes, int max_e, int dc, int warps, int B, int N, int max_iters) {
+bool bad_launch(int n_codes, int max_e, int dc, int warps, int B, int N, int max_iters, long long smem) {
     return B < 1 || N < 1 || N > kMaxIndex || max_e < 1 || max_e > kMaxIndex || dc < 1 || dc > kMaxDeg ||
-           warps < 1 || 32 * warps > kMaxThreads || n_codes < 1 || max_iters < 0 || bp_smem_bytes(N, max_e) > kMaxSmem;
+           warps < 1 || 32 * warps > kMaxThreads || n_codes < 1 || max_iters < 0 || smem > kMaxSmem;
 }
 
 // Blocks of `warps` warps a kernel keeps resident on an SM; negative on a
@@ -425,6 +629,30 @@ int resident(K kernel, int form, int dc, long long smem, int warps) {
     return err == cudaSuccess ? blocks : -(int)err;
 }
 
+// K8's grid, found once a kernel, device, shared memory and block size:
+// the blocks the card keeps resident (resident() on every SM); negative on
+// a CUDA error.
+struct GatherGrid {
+    long long smem;
+    int warps, blocks;
+};
+GatherGrid gather_grids[kMaxDevices][kRegSlots + 1];
+
+int gather_grid(GatherKernel kernel, int dc, long long smem, int warps) {
+    int dev = 0;
+    const cudaError_t got = cudaGetDevice(&dev);
+    if (got != cudaSuccess) return -(int)got;
+    GatherGrid* done = dev < kMaxDevices ? &gather_grids[dev][dc <= kRegSlots ? dc : 0] : nullptr;
+    if (done != nullptr && done->smem == smem && done->warps == warps) return done->blocks;
+    int per_sm = resident(kernel, kGatherForm, dc, smem, warps), sms = 0;
+    if (per_sm < 0) return per_sm;
+    const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return -(int)err;
+    if (per_sm * sms < 1) return -(int)cudaErrorInvalidConfiguration;
+    if (done != nullptr) *done = GatherGrid{smem, warps, per_sm * sms};
+    return per_sm * sms;
+}
+
 }  // namespace
 
 // llr [B, N] float32; done_in [B] bytes or null; code_idx [B] 1-based code
@@ -434,42 +662,55 @@ int resident(K kernel, int form, int dc, long long smem, int warps) {
 // largest E; warps: a block's warps (1 to 8); all contiguous.  Writes hard
 // [B, N] int32, iters [B] int32, ok [B] bytes and, if total is not null,
 // total [B, N] float32.  form: 0 K3, 1 K3 with the bfloat16 rounding of
-// GR_DTL_TPU_BP_BF16, 2 K8 (decode's and decode_bank's BP: done_in and
-// total must be null, and a code id picks its code by decode_bank's rule,
-// decode_codeword).  Returns the CUDA error of the launch.
+// GR_DTL_TPU_BP_BF16.  Returns the CUDA error of the launch.
 extern "C" int bp_decode_launch(const void* llr, const void* done_in, const void* code_idx, int idx64,
                                 int n_codes, const void* header, const void* tab, int max_e, int dc, int warps,
                                 int B, int N, int max_iters, int form, void* hard, void* iters, void* ok,
                                 void* total, void* stream) {
     const long long smem = bp_smem_bytes(N, max_e);
-    if (bad_launch(n_codes, max_e, dc, warps, B, N, max_iters) || form < 0 || form >= kForms ||
-        (form == kGatherForm && (done_in != nullptr || total != nullptr)))
+    if (bad_launch(n_codes, max_e, dc, warps, B, N, max_iters, smem) || form < 0 || form >= kGatherForm)
         return (int)cudaErrorInvalidValue;
-    if (form == kGatherForm) {
-        const GatherKernel kernel = pick_gather(dc);
-        const cudaError_t err = prepare(kernel, form, dc, smem);
-        if (err != cudaSuccess) return (int)err;
-        kernel<<<B, 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
-            (const float*)llr, code_idx, idx64, n_codes, (const int*)header, (const int16_t*)tab, N, max_iters,
-            (int*)hard, (int*)iters, (uint8_t*)ok);
-    } else {
-        const Kernel kernel = pick(form, dc);
-        const cudaError_t err = prepare(kernel, form, dc, smem);
-        if (err != cudaSuccess) return (int)err;
-        kernel<<<B, 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
-            (const float*)llr, (const uint8_t*)done_in, code_idx, idx64, n_codes, (const int*)header,
-            (const int16_t*)tab, N, max_iters, (int*)hard, (int*)iters, (uint8_t*)ok, (float*)total);
-    }
+    const Kernel kernel = pick(form, dc);
+    const cudaError_t err = prepare(kernel, form, dc, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<B, 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
+        (const float*)llr, (const uint8_t*)done_in, code_idx, idx64, n_codes, (const int*)header,
+        (const int16_t*)tab, N, max_iters, (int*)hard, (int*)iters, (uint8_t*)ok, (float*)total);
+    return (int)cudaGetLastError();
+}
+
+// K8 (decode's and decode_bank's BP): bp_decode_launch's arguments less
+// done_in, total and form (a code id picks its code by decode_bank's rule,
+// bank_code), and cm, vn, the largest dc x M and dv x N of the codes (the
+// room of the tables a block stages), and work, the launching stream's three
+// uint32 counters, 0 before its first launch (the kernel leaves them at 0,
+// and traps where a walk did not find them so).
+// The grid is a wave of the blocks the card keeps resident, walking the
+// codewords, where B fills kWalkWaves waves; below, a block a codeword (B
+// blocks, no counter).  Returns the CUDA error of the launch.
+extern "C" int bp_gather_launch(const void* llr, const void* code_idx, int idx64, int n_codes, const void* header,
+                                const void* tab, int max_e, int dc, int warps, int B, int N, int max_iters, int cm,
+                                int vn, void* hard, void* iters, void* ok, void* work, void* stream) {
+    const long long smem = gather_smem_bytes(N, max_e, cm, vn);
+    if (bad_launch(n_codes, max_e, dc, warps, B, N, max_iters, smem) || cm < 1 || vn < 1 || work == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const GatherKernel kernel = pick_gather(dc);
+    const int wave = gather_grid(kernel, dc, smem, warps);
+    if (wave < 0) return -wave;
+    const int grid = B < kWalkWaves * wave ? B : wave;
+    kernel<<<grid, 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
+        (const float*)llr, code_idx, idx64, n_codes, (const int*)header, (const int16_t*)tab, N, B, max_e, cm,
+        max_iters, (int*)hard, (int*)iters, (uint8_t*)ok, (unsigned*)work);
     return (int)cudaGetLastError();
 }
 
 // Codewords an SM keeps resident at once (a codeword a block of `warps`
 // warps) for codewords of N bits and codes of at most max_e edges and dc
-// row slots, in a form of bp_decode_launch's:
+// row slots, in a form (0 and 1 of bp_decode_launch's, 2 for
+// bp_gather_launch's K8, whose staged tables take cm + vn more entries):
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative on a CUDA error.
-extern "C" int bp_resident_codewords(int N, int max_e, int dc, int warps, int form) {
+extern "C" int bp_resident_codewords(int N, int max_e, int dc, int warps, int form, int cm, int vn) {
     if (form < 0 || form >= kForms) return -(int)cudaErrorInvalidValue;
-    const long long smem = bp_smem_bytes(N, max_e);
-    return form == kGatherForm ? resident(pick_gather(dc), form, dc, smem, warps)
-                               : resident(pick(form, dc), form, dc, smem, warps);
+    return form == kGatherForm ? resident(pick_gather(dc), form, dc, gather_smem_bytes(N, max_e, cm, vn), warps)
+                               : resident(pick(form, dc), form, dc, bp_smem_bytes(N, max_e), warps);
 }

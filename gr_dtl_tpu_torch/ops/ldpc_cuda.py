@@ -19,11 +19,15 @@ index tables, slot-major, one array for all the codes of a call
 kept.
 
 ``bp_gather_cuda`` (K8) stands for the ``lax.scan`` of ``decode``
-(:154-246) and ``decode_bank`` (:574-645), the gather form: K3's frame and
-tables with a tanh-product check update and ``decode_bank``'s code-id rule.
-Its plain PyTorch version is ``ops/ldpc.py::_bp_gather``.  It launches,
-allocates and counts (``bp_gather_cuda.LAUNCHES``) as ``bp_decode_cuda``
-does, and shares its tables' cache.
+(:154-246) and ``decode_bank`` (:574-645), the gather form: a wave of
+resident blocks walking codewords from a counter of the stream's
+(:func:`_work`) where B fills ``WALK_WAVES`` waves, else a block a
+codeword; K3's tables staged in shared memory for a codeword that takes
+updates, a tanh-product check update and ``decode_bank``'s code-id rule;
+its own C entry point, ``bp_gather_launch``.  Its plain PyTorch version is
+``ops/ldpc.py::_bp_gather``.  It launches, allocates and counts
+(``bp_gather_cuda.LAUNCHES``) as ``bp_decode_cuda`` does, and shares its
+tables' cache.
 """
 
 from __future__ import annotations
@@ -62,7 +66,8 @@ UPDATE_OPS_PER_EDGE = 18
 # check product, abs, compare, sign, scale, offset, the guard's select,
 # divide, clamp, atanh, double
 GATHER_UPDATE_OPS_PER_EDGE = 16
-GATHER_FORM = 2  # bp_decode_launch's form for K8 (0 and 1: K3 without and with bf16)
+GATHER_FORM = 2  # bp_resident_codewords' form for K8 (0 and 1: K3 without and with bf16)
+WALK_WAVES = 4  # K8's blocks walk codewords where B fills this many waves of resident blocks (kWalkWaves)
 
 
 def library_path() -> Path:
@@ -77,7 +82,9 @@ def build() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bp_decode_launch.argtypes = [p, p, p, i, i, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
     lib.bp_decode_launch.restype = i
-    lib.bp_resident_codewords.argtypes = [i, i, i, i, i]
+    lib.bp_gather_launch.argtypes = [p, p, i, i, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p]
+    lib.bp_gather_launch.restype = i
+    lib.bp_resident_codewords.argtypes = [i, i, i, i, i, i, i]
     lib.bp_resident_codewords.restype = i
     return lib
 
@@ -107,15 +114,40 @@ class BankTables:
     max_chk: int  # the largest M
     max_edges: int  # the largest E
     max_dc: int  # the largest row degree: every code's row slots in the tables
+    max_chk_slots: int  # the largest max_dc x M: entries of a code's chk_edges, or chk_vars
+    max_var_slots: int  # the largest dv x N: entries of a code's var_edges
     header: torch.Tensor  # [C, HEADER] int32: M, E, dv, max_dc, offset of var_edges, chk_edges, chk_vars
     tab: torch.Tensor  # int16, every code's three tables flattened one after another
 
 
 def smem_bytes(N: int, E: int) -> int:
-    """Shared memory a block of the kernel takes (the source's
-    ``bp_smem_bytes``) for codewords of N bits and codes of at most E edges:
-    the LLRs [N], totals [N + 1] and messages [E + 1], 4 bytes each."""
+    """Shared memory a block of K3 takes (the source's ``bp_smem_bytes``)
+    for codewords of N bits and codes of at most E edges: the LLRs [N],
+    totals [N + 1] and messages [E + 1], 4 bytes each."""
     return 4 * (2 * N + E + 2)
+
+
+def row_stride(N: int) -> int:
+    """Floats K8's row buffer takes (the source's ``row_stride``): N and the
+    pad's zero after them, rounded up to 16 bytes."""
+    return (N + 4) & ~3
+
+
+def staged_words(n: int) -> int:
+    """int16 entries of room a table of n entries takes staged in K8's
+    shared memory (the source's ``staged_words``): n, one before it and
+    one past, rounded up to 4 bytes."""
+    return (n + 3) & ~1
+
+
+def gather_smem_bytes(N: int, E: int, cm: int, vn: int) -> int:
+    """Shared memory a block of K8 takes (the source's
+    ``gather_smem_bytes``): the row buffer (``row_stride``), totals [N + 1],
+    messages [E + 1] and the block's next codeword by parity [2], 4 bytes
+    each, and the code's staged tables, int16: chk_vars and chk_edges (cm
+    entries each, the largest dc x M) and var_edges (vn, the largest dv x
+    N)."""
+    return 4 * (row_stride(N) + N + E + 4) + 2 * (2 * staged_words(cm) + staged_words(vn))
 
 
 def _check_limits(graph) -> None:
@@ -160,7 +192,9 @@ def bank_tables(graphs) -> BankTables:
         header.append(row)
     dev = graphs[0].var_edges.device
     return BankTables(n_var=N, max_chk=max(g.n_chk for g in graphs), max_edges=max(g.n_edge for g in graphs),
-                      max_dc=dc, header=torch.tensor(header, dtype=torch.int32, device=dev), tab=torch.cat(parts))
+                      max_dc=dc, max_chk_slots=max(dc * r[0] for r in header),
+                      max_var_slots=max(r[2] * N for r in header),
+                      header=torch.tensor(header, dtype=torch.int32, device=dev), tab=torch.cat(parts))
 
 
 _TABLES: dict[int, tuple] = {}  # id(graphs) -> (graphs, their BankTables, warps); held so the id stays theirs
@@ -188,7 +222,8 @@ def resident_codewords(graphs, bf16: bool = False, gather: bool = False) -> int:
     of :func:`warps_for` warps), K3's or, with ``gather``, K8's."""
     tab, warps = _cached(graphs)
     form = GATHER_FORM if gather else int(bool(bf16))
-    n = build().bp_resident_codewords(tab.n_var, tab.max_edges, tab.max_dc, warps, form)
+    n = build().bp_resident_codewords(tab.n_var, tab.max_edges, tab.max_dc, warps, form, tab.max_chk_slots,
+                                      tab.max_var_slots)
     if n < 0:
         raise RuntimeError(f"bp_resident_codewords failed: CUDA error {-n}")
     return n
@@ -321,23 +356,51 @@ def bp_gather_cuda(llr: torch.Tensor, graph, max_iters: int = 15, code_idx: torc
         row 0 being code 1.
       code_idx: [B] int32 or int64 1-based code ids, contiguous, with a
         bank's graphs.
-    Returns (hard [B, N] int32, iters_used [B] int32, ok [B] bool).
+    Returns (hard [B, N] int32, iters_used [B] int32, ok [B] bool).  A walk
+    that finds the stream's counters (:func:`_work`) other than 0 traps,
+    and the next synchronising call raises.
     """
     graphs, tab, warps = _checked("bp_gather_cuda", llr, graph, code_idx, max_iters)
     B, N = llr.shape
+    smem = gather_smem_bytes(N, tab.max_edges, tab.max_chk_slots, tab.max_var_slots)
+    if smem > MAX_SMEM:
+        raise ValueError(f"K8 takes {MAX_SMEM} bytes of shared memory; these graphs need {smem}")
     dev = llr.device
     hard = torch.empty((B, N), dtype=torch.int32, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:  # no codeword: nothing to launch
         return hard, iters, ok
-    args = (llr.data_ptr(), None, None if code_idx is None else code_idx.data_ptr(),
+    stream = torch.cuda.current_stream(dev)
+    args = (llr.data_ptr(), None if code_idx is None else code_idx.data_ptr(),
             int(code_idx is not None and code_idx.dtype == torch.int64), len(graphs), tab.header.data_ptr(),
-            tab.tab.data_ptr(), tab.max_edges, tab.max_dc, warps, B, N, int(max_iters), GATHER_FORM,
-            hard.data_ptr(), iters.data_ptr(), ok.data_ptr(), None, torch.cuda.current_stream(dev).cuda_stream)
-    _launch("bp_decode_launch", build().bp_decode_launch, args, dev)
+            tab.tab.data_ptr(), tab.max_edges, tab.max_dc, warps, B, N, int(max_iters), tab.max_chk_slots,
+            tab.max_var_slots, hard.data_ptr(), iters.data_ptr(), ok.data_ptr(), _work(stream).data_ptr(),
+            stream.cuda_stream)
+    _launch("bp_gather_launch", build().bp_gather_launch, args, dev)
     bp_gather_cuda.LAUNCHES += 1
     return hard, iters, ok
 
 
 bp_gather_cuda.LAUNCHES = 0
+
+_WORK: dict[tuple, torch.Tensor] = {}  # (device, stream) -> K8's counters on that stream
+WORK_COUNTERS = 3  # codewords taken, blocks left, codewords decoded (the source's work[0..2])
+
+
+def _work(stream) -> torch.Tensor:
+    """K8's uint32 counters for launches on ``stream`` (codewords taken,
+    blocks left, codewords decoded): zeroed on the stream at its first
+    launch, then left at 0 by every launch, so that a call enqueues the
+    kernel alone.  A stream of its own keeps launches on two streams from
+    sharing a count.  The first launch on a stream must not be captured into
+    a CUDA graph: the zeroing would run only when the graph does, and a
+    launch before it would walk from whatever the memory held (the kernel
+    traps on counts that did not start at 0)."""
+    key = (stream.device.index, stream.cuda_stream)
+    if key not in _WORK:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("bp_gather_cuda: the first launch on a stream makes its counters, and cannot be "
+                               "captured; call it once on the capturing stream before the capture")
+        _WORK[key] = torch.zeros(WORK_COUNTERS, dtype=torch.int32, device=stream.device)  # on the current stream
+    return _WORK[key]

@@ -19,7 +19,8 @@ import time
 
 import torch
 
-__all__ = ["sync", "window_ms", "measure", "interleaved", "describe", "smi", "device_label"]
+__all__ = ["sync", "window_ms", "measure", "interleaved", "describe", "smi", "device_label", "WARM_MS", "MARK",
+           "profiled_windows"]
 
 
 def sync(dev) -> None:
@@ -43,6 +44,39 @@ def window_ms(fn, n: int, dev="cuda") -> float:
     for _ in range(n):
         fn()
     return (time.perf_counter() - t0) * 1e3 / n
+
+
+# a profiled window is warmed up by time: the profiler misses the launches of its first
+# milliseconds, more of them the more profiles the process has taken, and a count of warm calls of
+# a short call can end inside them (chip_smoke.py runs have come back with an empty window that
+# way); a window that saw none is taken again, warmed for longer
+WARM_MS = (50.0, 200.0, 800.0, 2000.0)
+MARK = "spin_kernel"  # what torch.cuda._sleep launches: a window counts the launches after it
+
+
+def profiled_windows(fn, reps: int):
+    """Windows of ``reps`` back-to-back calls of ``fn()`` under
+    ``torch.profiler``, one for each warm-up of ``WARM_MS`` in turn, until
+    the caller stops asking: each yields the device's kernels and copies
+    (profiler events) that started after a marker kernel, launched after
+    that long of calls of fn inside the profiler, each call synchronised.
+    A window whose marker the profiler missed yields nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    for warm_ms in WARM_MS:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0, n = time.perf_counter(), 0
+            while n == 0 or (time.perf_counter() - t0) * 1e3 < warm_ms:
+                fn()
+                torch.cuda.synchronize()
+                n += 1
+            torch.cuda._sleep(1)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        marks = [e.time_range.start for e in dev if MARK in e.name]
+        yield [e for e in dev if marks and e.time_range.start > max(marks)]
 
 
 def measure(fn, dev, iters: int = 8, reps: int = 5, warmup: int = 1) -> dict:

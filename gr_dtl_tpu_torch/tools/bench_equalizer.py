@@ -13,7 +13,7 @@ For each shape:
   calls walk a ring of different inputs (over 50 MB of them where the shape
   allows, so that the spectra come from device memory and not from L2);
   that is the kernel's time.  The window is warmed up by time inside the
-  profiler, as ``chip_smoke.py``'s are (``WARM_MS``), and counts only the
+  profiler, as ``chip_smoke.py``'s are (``_timing.WARM_MS``), and counts only the
   launches after a marker kernel.  Between two CUDA events a call also
   holds the host's enqueue (five allocations and a ctypes launch), named so
   beside it;
@@ -72,11 +72,11 @@ import argparse
 import contextlib
 import dataclasses
 import hashlib
+import itertools
 import json
 import math
 import re
 import sys
-import time
 from pathlib import Path
 from statistics import median
 
@@ -86,7 +86,7 @@ import torch
 from gr_dtl_tpu_torch.ops import constellation as cn
 from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda
 from gr_dtl_tpu_torch.tools import bench_k3
-from gr_dtl_tpu_torch.tools._timing import smi
+from gr_dtl_tpu_torch.tools._timing import profiled_windows, smi
 from gr_dtl_tpu_torch.tools.bench_sync_metric import HBM_BYTES_PER_S
 from gr_dtl_tpu_torch.utils import config, wire_compat
 
@@ -215,39 +215,17 @@ def on_device(arrays, cnst, dev):
             torch.as_tensor(cnst, device=dev))
 
 
-# a profiled window is warmed up by time, as chip_smoke.py's are: the profiler misses the
-# launches of its first milliseconds, more of them the more profiles the process has taken, and
-# a count of warm calls of a short call can end inside them (a chip_smoke.py run has come back
-# with an empty window that way); a window that saw none is taken again, warmed for longer
-WARM_MS = (50.0, 200.0, 800.0, 2000.0)
-MARK = "spin_kernel"  # what torch.cuda._sleep launches: a window counts the launches after it
 
 
 def profiler_ms(fn, reps: int):
     """Mean device duration (ms) of the equalizer kernel over reps calls of
     fn(i), i walking on (fn(i) picks its inputs), after ``WARM_MS`` of
     synchronised calls inside the profiler: only the launches that start
-    after a marker kernel count.  None if four windows saw none."""
-    from torch.profiler import ProfilerActivity, profile
-    i = 0
-    for warm_ms in WARM_MS:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0, n = time.perf_counter(), 0
-            while n == 0 or (time.perf_counter() - t0) * 1e3 < warm_ms:
-                fn(i + n)
-                torch.cuda.synchronize()
-                n += 1
-            i += n
-            torch.cuda._sleep(1)
-            for j in range(reps):
-                fn(i + j)
-            i += reps
-            torch.cuda.synchronize()
-        dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-        marks = [e.time_range.start for e in dev if MARK in e.name]
-        found = [e.time_range.elapsed_us() for e in dev
-                 if KERNEL_NAME in e.name and marks and e.time_range.start > max(marks)]
+    after a marker kernel count (``_timing.profiled_windows``).  None if
+    four windows saw none."""
+    i = itertools.count()
+    for events in profiled_windows(lambda: fn(next(i)), reps):
+        found = [e.time_range.elapsed_us() for e in events if KERNEL_NAME in e.name]
         if found:
             return sum(found) / len(found) / 1e3
     return None

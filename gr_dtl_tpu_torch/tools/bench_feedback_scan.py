@@ -47,6 +47,7 @@ import torch
 
 from gr_dtl_tpu_torch.models import adaptive
 from gr_dtl_tpu_torch.ops import _cuda_build, feedback_cuda
+from gr_dtl_tpu_torch.tools import _timing
 from gr_dtl_tpu_torch.tools._timing import smi
 from gr_dtl_tpu_torch.utils import config
 
@@ -320,17 +321,12 @@ def launcher(name: str, state, snr, mask, tables):
 
 
 def profiler_ms(fn, kernel: str, reps: int = REPS) -> float:
-    """Mean device duration (ms) of the kernel named so over reps calls."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):  # a window that saw no launch is taken again
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        found = [e for e in prof.key_averages() if kernel in e.key and e.self_device_time_total > 0]
-        count = sum(e.count for e in found)
-        if count:
-            return sum(e.self_device_time_total for e in found) / count / 1e3
+    """Mean device duration (ms) of the kernel named so over reps calls,
+    after warm calls inside the profiler (``_timing.profiled_windows``)."""
+    for events in _timing.profiled_windows(fn, reps):
+        found = [e.time_range.elapsed_us() for e in events if kernel in e.name]
+        if found:
+            return sum(found) / len(found) / 1e3
     check(False, f"the profiler saw no {kernel}")
 
 

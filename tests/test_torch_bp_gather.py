@@ -8,8 +8,9 @@ The model decodes as the kernel does: a codeword at a time, on its code's
 slot-major int16 tables found through the header of
 ``ldpc_cuda.bank_tables`` (K3's tables: the gather form's slot [m, r] is
 the edge ``chk_edges[r, m]``), pads reading a zero kept at index E or N.
-The first totals are the LLRs plus 0, with no gather, and the first update
-reads no message.  A check's slots give t = tanh(clamp(v2c, +-20) / 2), 1
+The first syndrome pass reads the LLRs themselves (llr + 0 differs from
+them only at -0.0, where no sign test does), the first totals are the LLRs
+plus 0, with no gather, and the first update reads no message.  A check's slots give t = tanh(clamp(v2c, +-20) / 2), 1
 at a pad, multiplied left to right from slot 0; each edge's message is
 2 atanh(clamp(prod / t_safe, +-0.999999)); the totals add a variable's
 slots left to right.  A codeword's loop ends at its own syndrome pass (or
@@ -35,6 +36,7 @@ import functools
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -102,13 +104,15 @@ def gather_model(llr: np.ndarray, graph, max_iters: int = 15, code_idx=None):
             return fn(buf)[b, :M, :dc].numpy().T
 
         c2v = np.zeros(E + 1, f32)  # c2v[E]: the pad's zero
-        total = llr[b] + f32(0.0)  # the first totals: no gather
+        total = llr[b]  # the first pass reads the LLRs: llr + 0 has their signs
         it = 0
         while True:
             hb = np.append(total < 0, False).astype(np.int64)  # hb[N]: total[N] = 0
             ok = bool((hb[cv].sum(0) % 2 == 0).all())
             if ok or it == max_iters:
                 break
+            if it == 0:
+                total = llr[b] + f32(0.0)  # the first totals: no gather
             old = np.zeros(ce.shape, f32) if it == 0 else c2v[ce]  # the first update reads no message
             v2c = np.where(real, np.append(total, f32(0.0))[cv] - old, f32(0.0))
             t = np.where(real, at_slots(torch.tanh, np.clip(v2c, f32(-20.0), f32(20.0)) * f32(0.5)), f32(1.0))
@@ -343,17 +347,225 @@ def test_bytes_and_ops_by_hand():
 
 
 def test_source_matches_the_wrapper():
-    """K8 goes through K3's C entry points, picked by their form argument
-    (the wrapper's ``GATHER_FORM``), and the guard's and clamp's constants
-    are the plain version's scalars."""
+    """K8 has its own C entry point (``bp_gather_launch``: the wrapper's 19
+    arguments, the staged tables' room and the stream's counters among them)
+    beside K3's, shares ``bp_resident_codewords`` by its form (the wrapper's
+    ``GATHER_FORM``), launches a wave of resident blocks that walk the
+    codewords where B fills ``WALK_WAVES`` waves (else B blocks, no
+    counter), takes the shared memory the wrapper's ``gather_smem_bytes`` counts (a
+    row buffer of ``row_stride`` floats, the totals, messages and next
+    codeword, and the code's tables staged in rooms of ``staged_words``), and
+    the guard's and clamp's constants are the plain version's scalars."""
     src = ldpc_cuda.SOURCE.read_text()
     sig = re.search(r'extern "C" int bp_decode_launch\(([^)]*)\)', src).group(1)
     assert len(sig.split(",")) == 19 and "int form" in sig
+    sig = [a.split()[-1] for a in re.search(r'extern "C" int bp_gather_launch\(([^)]*)\)', src).group(1).split(",")]
+    assert len(sig) == 19 and sig[12:14] == ["cm", "vn"] and sig[-2:] == ["work", "stream"]
+    sig = re.search(r'extern "C" int bp_resident_codewords\(([^)]*)\)', src).group(1).split(",")
+    assert [a.split()[-1] for a in sig] == ["N", "max_e", "dc", "warps", "form", "cm", "vn"]
     assert f"constexpr int kGatherForm = {ldpc_cuda.GATHER_FORM};" in src
+    assert "const int grid = B < kWalkWaves * wave ? B : wave;" in src
+    assert f"constexpr int kWalkWaves = {ldpc_cuda.WALK_WAVES};" in src
+    assert "return gridDim.x + (int)atomicAdd(work, 1u);" in src and "const bool walk = B > (int)gridDim.x;" in src
+    assert "int row_stride(int N) { return (N + 4) & ~3; }" in src
+    assert "int staged_words(int n) { return (n + 3) & ~1; }" in src
+    assert all(ldpc_cuda.row_stride(n) == (n + 4) // 4 * 4 and ldpc_cuda.staged_words(n) == n + 3 - (n + 3) % 2
+               for n in range(1, 40))
+    assert "4LL * (row_stride(N) + N + E + 4) + 2LL * (2LL * staged_words(cm) + staged_words(vn))" in src
+    # n = 300: a row buffer of 304 floats, 301 totals, 901 messages, 2 next codewords; 2 x 1,038 and 902 int16
+    assert ldpc_cuda.gather_smem_bytes(300, 900, 7 * 148, 3 * 300) == 4 * (304 + 301 + 901 + 2) + 2 * (2 * 1038 + 902)
+    banked = ldpc_cuda.bank_tables((_code("n_0300_k_0152.alist")[1].graph,))
+    assert (banked.max_chk_slots, banked.max_var_slots) == (7 * 148, 3 * 300)
+    assert "constexpr int kGatherRegs = 56;" in src  # 7 blocks of 5 warps an SM: 65,536 / (7 x 160) = 58.5
     for const, value in (("kTiny", "1e-12"), ("kTinier", "1e-30"), ("kLooMax", "0.999999")):
         assert re.search(rf"constexpr float {const} = \(float\){re.escape(value)};", src), const
     assert "template <int kSlots>\n__global__" in src and "bp_gather_kernel(" in src
-    assert re.search(r"extern \"C\" int bp_resident_codewords\(int N, int max_e, int dc, int warps, int form\)", src)
+
+
+class Trapped(Exception):
+    """The model's ``__trap()``: the walk's counts at the end were not a
+    clean walk's."""
+
+
+def block_walk(B: int, grid: int, rng: np.random.RandomState, static: bool = False, work=None) -> tuple:
+    """A numpy model of K8's walk over codewords: ``min(B, grid)`` blocks,
+    block g starting at codeword g, each taking its next one from the
+    counter past the grid (``take``: grid + counter, counter + 1; with
+    ``static``, the codeword a grid further on) at a codeword's start, or,
+    after a codeword that took updates (drawn from ``rng``), at its end; a
+    block leaves once its next is past B, adding the codewords it decoded
+    to the third counter and then one to the second; the blocks run in an
+    order drawn from ``rng``, a step at a time (a codeword's start or its
+    end).  A block that leaves after the grid's blocks have, or the last
+    block to leave finding other than B taken and B decoded, traps
+    (:class:`Trapped`); else the last sets the counters back to 0.
+    ``work``: the counters at the launch (0 unless given).  Returns (every
+    codeword each block decoded, in order; the counters at the end)."""
+    G = min(B, grid)
+    work = list(work or [0, 0, 0])
+
+    def take(b):
+        if static:
+            return b + G
+        work[0] += 1
+        return G + work[0] - 1
+
+    cur = list(range(G))
+    done = [[] for _ in range(G)]
+    early = [True] * G  # the block's last codeword took no update
+    started = [None] * G  # the next taken at the current codeword's start, or None
+    running = list(range(G))
+    while running:
+        i = rng.randint(len(running))
+        g = running[i]
+        if started[g] is None and early[g]:  # the codeword's start: take now
+            started[g] = take(cur[g])
+            continue
+        nb = started[g] if early[g] else take(cur[g])  # else at its end
+        done[g].append(cur[g])
+        early[g], started[g] = bool(rng.randint(2)), None
+        if nb >= B:  # the block leaves
+            running[i] = running[-1]
+            running.pop()
+            if static:
+                continue
+            work[2] += len(done[g])
+            left, work[1] = work[1], work[1] + 1
+            if left >= G:
+                raise Trapped(f"block {g} left as the {left + 1}th of {G}")
+            if left == G - 1:
+                if work[0] != B or work[2] != B:
+                    raise Trapped(f"taken {work[0]}, decoded {work[2]}, of {B}")
+                work = [0, 0, 0]
+        else:
+            cur[g] = nb
+    return done, work
+
+
+@pytest.mark.parametrize("B, grid", [(1, 924), (7, 924), (923, 924), (924, 924), (925, 924), (13312, 924),
+                                     (5000, 1), (300, 37)])
+def test_block_walk_decodes_every_codeword_once(B, grid):
+    """Whatever order the blocks run in, every codeword is decoded exactly
+    once, by blocks that walk upward from their own first codeword, and the
+    counters end at 0 for the stream's next launch; the same holds for a
+    static stride."""
+    for seed in range(3):
+        for static in (False, True):
+            walks, work = block_walk(B, grid, np.random.RandomState(seed), static)
+            assert sorted(b for w in walks for b in w) == list(range(B)), (seed, static)
+            assert all(w[0] == g and w == sorted(w) for g, w in enumerate(walks))
+            assert work == [0, 0, 0]
+            if static:
+                assert all(w == list(range(g, B, min(B, grid))) for g, w in enumerate(walks))
+
+
+@pytest.mark.parametrize("work", [[1, 0, 0], [5, 0, 0], [0, 1, 0], [0, 36, 0], [0, 37, 0], [0, 0, 1],
+                                  [0, 0, 299]])
+def test_block_walk_traps_on_counters_not_at_zero(work):
+    """A walk launched on counters left other than 0 (say, zeroed only
+    inside a CUDA graph that never ran) skips codewords or finds its last
+    block early; whichever counter it is, and whatever order the blocks run
+    in, the walk traps instead of returning unwritten outputs.  Counters
+    that a walk past the grid's first codewords takes (a count of taken
+    codewords) leave the taken and decoded counts equal at B, so it is the
+    third count, of codewords decoded, that sees them."""
+    for seed in range(4):
+        with pytest.raises(Trapped):
+            block_walk(300, 37, np.random.RandomState(seed), work=work)
+
+
+def test_walk_counters_match_the_source():
+    """The wrapper's counters are the source's three (taken, blocks left,
+    decoded), and the source's last block checks them against B before it
+    sets them back to 0."""
+    src = ldpc_cuda.SOURCE.read_text()
+    assert ldpc_cuda.WORK_COUNTERS == 3
+    assert "atomicAdd(work + 2, (unsigned)k);" in src and "if (left >= gridDim.x) __trap();" in src
+    assert "if (atomicAdd(work, 0u) != (unsigned)B || atomicAdd(work + 2, 0u) != (unsigned)B) __trap();" in src
+    assert "work[0] = 0;\n            work[1] = 0;\n            work[2] = 0;" in src
+
+
+def test_walk_counters_refuse_a_capture(monkeypatch):
+    """A stream's counters are made (and zeroed) by its first launch, which
+    may not be captured into a CUDA graph: the wrapper raises rather than
+    let the zeroing run only inside the graph; a stream that has its
+    counters takes them, captured or not."""
+    stream = types.SimpleNamespace(device=torch.device("cpu"), cuda_stream=0x5EED)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        ldpc_cuda._work(stream)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    work = ldpc_cuda._work(stream)
+    try:
+        assert work.tolist() == [0] * ldpc_cuda.WORK_COUNTERS and work.dtype == torch.int32
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+        assert ldpc_cuda._work(stream) is work
+    finally:
+        del ldpc_cuda._WORK[(None, 0x5EED)]
+
+
+def stage_table(src: np.ndarray, off: int, n: int, room: int) -> tuple:
+    """A numpy model of K8's ``stage_table``: the n int16 entries of a table
+    at ``off`` in the int16 array ``src`` into a room of ``room`` entries
+    (on 4 bytes), as the kernel copies them: the 4-byte words from the one
+    that holds the first entry (the one before it too, where ``off`` is odd)
+    to the last whole one, and an odd last entry alone.  Returns (the room,
+    where the table starts in it, every index of ``src`` read)."""
+    shift = off & 1
+    dst = np.full(room, -7, np.int64)
+    read = []
+    for w in range((n + shift) >> 1):  # a copy4 a word
+        dst[2 * w:2 * w + 2] = src[off - shift + 2 * w:off - shift + 2 * w + 2]
+        read += [off - shift + 2 * w, off - shift + 2 * w + 1]
+    if (n + shift) & 1:  # the odd last entry
+        dst[n + shift - 1] = src[off + n - 1]
+        read.append(off + n - 1)
+    return dst, shift, read
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 148 * 7, 300 * 3])
+def test_staged_table_copies_every_entry_once(n):
+    """Every entry of a table reaches the room once, at either parity of its
+    offset, within ``staged_words(n)`` of room; the copy reads nothing past
+    the table's last entry and, before its first, only the entry that
+    shares its word (never before the array)."""
+    room = ldpc_cuda.staged_words(n)
+    src = np.arange(2 * n + 9)
+    for off in (0, 1, 2, 3, n + 5):
+        dst, shift, read = stage_table(src, off, n, room)
+        assert n + shift <= room
+        np.testing.assert_array_equal(dst[shift:shift + n], src[off:off + n])
+        assert sorted(read) == list(range(off - shift, off + n)) and min(read) >= 0
+
+
+def test_staged_tables_of_the_shipped_codes():
+    """The shipped codes' tables, alone and in the two-code bank, staged by
+    the model, equal the tables the kernel would read from global memory,
+    in rooms of the sizes the wrapper gives the launch (``max_chk_slots``,
+    ``max_var_slots``); their offsets take both parities."""
+    _, bank = _bank()
+    parities = set()
+    for graphs in [(_code(name)[1].graph,) for name in ALISTS] + [bank.graphs]:
+        banked = ldpc_cuda.bank_tables(graphs)
+        parities |= {o & 1 for row in banked.header.tolist() for o in row[4:]}
+        tab, N = banked.tab.numpy().astype(np.int64), banked.n_var
+        for M, E, dv, dc, o_ve, o_ce, o_cv in banked.header.tolist():
+            for off, n, room in ((o_cv, dc * M, banked.max_chk_slots), (o_ce, dc * M, banked.max_chk_slots),
+                                 (o_ve, dv * N, banked.max_var_slots)):
+                assert n <= room
+                dst, shift, _ = stage_table(tab, off, n, ldpc_cuda.staged_words(room))
+                np.testing.assert_array_equal(dst[shift:shift + n], tab[off:off + n])
+    assert parities == {0, 1}
+
+
+def test_no_codeword_no_walk():
+    """B = 0: the model has no block, and the wrapper launches nothing (held
+    on the card by tests/test_torch_ldpc_cuda.py); its checks still run here
+    and refuse a CPU tensor before any launch."""
+    assert block_walk(0, 924, np.random.RandomState(0)) == ([], [0, 0, 0])
+    code = _code("n_0100_k_0027.alist")[1]
+    with pytest.raises(ValueError, match="needs CUDA"):
+        ldpc_cuda.bp_gather_cuda(torch.zeros((0, code.N)), code.graph)
 
 
 def test_wrapper_refuses():

@@ -348,6 +348,138 @@ def test_gather_iterations_and_edge_sizes(dev):
         assert torch.equal(a, b)
 
 
+def _wave(graph) -> int:
+    """The blocks of K8 the card keeps resident at once: its grid's most."""
+    return ldpc_cuda.resident_codewords(graph, gather=True) * torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+def test_gather_batches_around_a_wave(dev):
+    """B below, at and past one wave of resident blocks and four (where the
+    blocks start to walk codewords), and many waves' worth: every codeword
+    decoded once, bit-equal to _bp_gather; the stream's counters back at 0
+    after every call."""
+    code = _code("n_0300_k_0152.alist", dev)
+    wave = _wave(code.graph)
+    x = _llr("n_0300_k_0152.alist", 13312, "knee", dev, seed=9)
+    for B in sorted({1, 7, 923, 925, wave - 1, wave, wave + 1, 4 * wave - 1, 4 * wave, 4 * wave + 1, 13312}):
+        hold_gather_to_plain(x[:B].contiguous(), code.graph, _code_tables(code))
+        torch.cuda.synchronize()
+        assert ldpc_cuda._work(torch.cuda.current_stream(dev)).tolist() == [0] * ldpc_cuda.WORK_COUNTERS, B
+
+
+@pytest.mark.cuda
+def test_gather_rows_off_16_bytes(dev):
+    """A batch whose rows do not start on 16 bytes (a view one float into
+    its storage) takes the kernel's copy of 4 bytes at a time: bit-equal to
+    _bp_gather, and to the same rows on 16 bytes.  The n=100 codes' tables
+    start on odd entries too (the staged copy's shifted words)."""
+    for name in ("n_0300_k_0152.alist", "n_0100_k_0027.alist"):
+        code = _code(name, dev)
+        x = _llr(name, 2048, "moderate", dev, seed=10)
+        off = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+        off.copy_(x)
+        assert off.is_contiguous() and off.data_ptr() % 16 == 4
+        hold_gather_to_plain(off, code.graph, _code_tables(code))
+        for a, b in zip(ldpc_cuda.bp_gather_cuda(off, code.graph), ldpc_cuda.bp_gather_cuda(x, code.graph)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gather_bank_alternating_codes(dev):
+    """Neighbouring rows of different codes (1, 2, 3, 1, 2, 3, ... of the
+    three shipped codes, and a second order): neighbouring blocks stage
+    other codes' tables."""
+    bank = _bank_of(3, dev)
+    rng = np.random.RandomState(11)
+    x = torch.as_tensor((rng.randn(3000, bank.Nmax) * 1.2 + 1.8).astype(np.float32), device=dev)
+    for ids in (np.arange(3000) % 3 + 1, (np.arange(3000) * 2) % 3 + 1):
+        idx = torch.as_tensor(ids.astype(np.int32), device=dev)
+        hold_gather_to_plain(x, bank.graphs, ldpc._gather_tables(bank, idx), code_idx=idx)
+
+
+@pytest.mark.cuda
+def test_gather_two_streams(dev):
+    """Calls on two streams at once keep their own counters: both
+    bit-equal to the one stream's result, both streams' counters at 0."""
+    code = _code("n_0300_k_0152.alist", dev)
+    x = _llr("n_0300_k_0152.alist", 13312, "waterfall", dev, seed=12)
+    want = ldpc_cuda.bp_gather_cuda(x, code.graph)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got_side = ldpc_cuda.bp_gather_cuda(x, code.graph)
+    got = ldpc_cuda.bp_gather_cuda(x, code.graph)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, got_side, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    for stream in (side, torch.cuda.current_stream(dev)):
+        assert ldpc_cuda._work(stream).tolist() == [0] * ldpc_cuda.WORK_COUNTERS
+
+
+TRAP_SCRIPT = """
+import sys
+import torch
+sys.path.insert(0, {tests!r})
+from test_torch_ldpc_cuda import _code, _llr
+from gr_dtl_tpu_torch.ops import ldpc_cuda
+dev = torch.device("cuda", 0)
+code = _code("n_0300_k_0152.alist", dev)
+x = _llr("n_0300_k_0152.alist", 13312, "knee", dev, seed=13)
+ldpc_cuda.bp_gather_cuda(x, code.graph)
+torch.cuda.synchronize()
+ldpc_cuda._work(torch.cuda.current_stream(dev))[{which}] = {value}
+try:
+    ldpc_cuda.bp_gather_cuda(x, code.graph)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+print("no error")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which, value", [(0, 5), (1, 1), (2, 7)])
+def test_gather_traps_on_counters_not_at_zero(dev, which, value):
+    """A walk launched on counters left other than 0 traps, and the call's
+    next synchronising read raises: in a process of its own, since a trap
+    ends the process's CUDA context."""
+    import subprocess
+    import sys
+    tests = str(Path(__file__).resolve().parent)
+    proc = subprocess.run([sys.executable, "-c", TRAP_SCRIPT.format(tests=tests, which=which, value=value)],
+                          capture_output=True, text=True, timeout=300, cwd=str(Path(tests).parent))
+    assert proc.returncode == 3 and "raised:" in proc.stdout, (proc.returncode, proc.stdout, proc.stderr[-2000:])
+
+
+@pytest.mark.cuda
+def test_gather_capture_after_a_launch_on_the_stream(dev):
+    """The first launch on a stream may not be captured (it makes the
+    stream's counters); after one launch on the capturing stream, a
+    captured call replays bit-equal to the call, and the counters stay 0."""
+    code = _code("n_0300_k_0152.alist", dev)
+    x = _llr("n_0300_k_0152.alist", 13312, "knee", dev, seed=14)
+    want = ldpc_cuda.bp_gather_cuda(x, code.graph)
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        with torch.cuda.graph(graph, stream=side):
+            ldpc_cuda.bp_gather_cuda(x, code.graph)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        ldpc_cuda.bp_gather_cuda(x, code.graph)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = ldpc_cuda.bp_gather_cuda(x, code.graph)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert ldpc_cuda._work(side).tolist() == [0] * ldpc_cuda.WORK_COUNTERS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_codes", [1, 2, 8, 32])
 def test_gather_bank_one_launch(dev, n_codes):
