@@ -214,20 +214,25 @@ round checked), each mode's JSON, wall ms and counts printed:
    ShardedStreamRx) and the loopback's and replay's device work alone.
 
 And slice G, the live-I/O tools, with K7 (csrc/feedback_scan.cu), the MCS
-decision over a block's frames as one launch.  K7 is checked where the
-paths call it: in phase 11's StreamDuplex and phase 17's StreamSimplex runs
-(``FeedbackCheck`` swaps ``adaptive.feedback_scan_masked`` for a function
-that counts one K7 launch a call and, after the run, holds every call to
-the plain loop on the same tensors) and in every link node below (each
-node a ``python -m`` process started through ``checked_node``):
+decision over a block's frames as one launch of one of its two kernels
+(the walk below 64 frames or past 256 columns, the map otherwise;
+``feedback_cuda.design``).
+K7 is checked where the paths call it: in phase 11's StreamDuplex and
+phase 17's StreamSimplex runs (``FeedbackCheck`` swaps
+``adaptive.feedback_scan_masked`` for a function that counts one K7 launch
+a call, and which kernel, and, after the run, holds every call to the
+plain loop on the same tensors) and in every link node below (each node a
+``python -m`` process started through ``checked_node``):
 
-26. live I/O: K7 against its plain loop on synthetic inputs (T = 1, 8, 16,
-   37, 256, 1024; batch () and [64]; random, all-False, per-frame and null
-   masks; SNRs on the thresholds, on threshold + hysteresis and one ulp
-   either side, NaN and +-inf; two ladders), ids and state equal; K7's
-   times (profiler) at those T beside its bound and the plain loop's time,
-   the floor of its walk (a launch and T steps of its chain, from the
-   probes of tools/bench_feedback_scan),
+26. live I/O: both K7 kernels against the plain loop on synthetic inputs
+   (T = 1, 8, 16, 37, 256, 1024 and three tiles, 2100; batch () and [64];
+   random, all-False, per-frame and null masks; SNRs on the thresholds, on
+   threshold + hysteresis and one ulp either side, NaN and +-inf, inside a
+   hysteresis band where ids 0 and 1 both stay; carries outside the map's
+   canonical states; two ladders), ids and state equal; K7's times
+   (profiler) at those T beside its bound and the plain loop's time, the
+   walk's time at F = 1024 in turns with the map's, the floors of both
+   chains (from the probes of tools/bench_feedback_scan),
    and the plain loop's device kernels on one F = 8 and one F = 1024 block;
    sample_link --loopback-test and --duplex-test with both nodes as
    processes on the card, first at the JAX package's slow tests' settings,
@@ -1756,7 +1761,7 @@ def tx_rx_and_duplex(dev, gen, card) -> tuple:
             res = [dpx.step() for _ in range(12)]
             torch.cuda.synchronize()
             runs[serialize] = (dpx, res, (time.perf_counter() - t0) * 1e3 / 12)
-        K7.add(fc.what, fc.calls, fc.launches, fc.frames, fc.err)
+        K7.add(fc.what, fc.calls, fc.launches, fc.frames, fc.err, fc.by_kernel)
         check(read_counts() == (24, 24, 24), f"duplex: kernel launches {read_counts()} in 12 steps of "
               "two receivers, expected 2 of each a step")
         EQ.counted(24, "StreamDuplex, two receivers a step")
@@ -2382,7 +2387,7 @@ def links_phase(dev, card) -> tuple:
             check(r is not None, "StreamSimplex stopped")
             history.append((r["want"], r["applied"], spx.tx.constellation))
         ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    K7.add(fc.what, fc.calls, fc.launches, fc.frames, fc.err)
+    K7.add(fc.what, fc.calls, fc.launches, fc.frames, fc.err, fc.by_kernel)
     counts = read_counts()
     check(counts == (n_steps,) * 3, f"StreamSimplex: kernel launches {counts} in {n_steps} steps")
     EQ.counted(n_steps, "StreamSimplex")
@@ -3658,6 +3663,7 @@ def app_two_processes(d: Path, dev, card) -> None:
 # ---------------------------------------------------------------------------
 
 K7_T = (1, 8, 16, 37, 256, 1024)  # frames a call: the links' blocks, a part chunk and a long run
+K7_TILES_T = 2100                 # three of the map's tiles, the last one part
 K7_BATCH = 64                    # columns of the batched cases
 K7_LADDERS = {"default": None,   # the default ladder, and one whose threshold + hysteresis round
               "fractional": [[0.0, ["bpsk", "no_fec"]], [7.3, ["qpsk", "no_fec"]],
@@ -3683,10 +3689,14 @@ class FeedbackLedger:
 
     def __init__(self):
         self.launches = self.calls = self.frames = self.max_err = 0
+        self.by_kernel = dict.fromkeys(feedback_cuda.DESIGNS, 0)
         self.paths = []
 
-    def add(self, what: str, calls: int, launches: int, frames: int, err: int) -> None:
-        check(launches == calls, f"{what}: {launches} K7 launches in {calls} calls, expected one a call")
+    def add(self, what: str, calls: int, launches: int, frames: int, err: int, by_kernel: dict) -> None:
+        check(launches == calls == sum(by_kernel.values()),
+              f"{what}: {launches} K7 launches ({by_kernel}) in {calls} calls, expected one a call")
+        for k, v in by_kernel.items():
+            self.by_kernel[k] += v
         self.launches += launches
         self.calls += calls
         self.frames += frames
@@ -3700,15 +3710,22 @@ class FeedbackLedger:
 K7 = FeedbackLedger()
 
 
-def k7_against_plain(state, snrs, mask, tables, got_state, got) -> int:
-    """The plain loop on the same inputs, copied to the CPU (on the card it
-    costs ~35 launches a frame; its decisions are the same integers there);
-    returns the largest id or state difference (0 when equal)."""
+def k7_plain(state, snrs, mask, tables) -> tuple:
+    """The plain loop on the inputs, copied to the CPU (on the card it costs
+    ~35 launches a frame; its decisions are the same integers there)."""
     cpu = lambda t: None if t is None else t.cpu()
-    want_state, want = adaptive._feedback_scan_masked_torch(
-        adaptive.FeedbackState(*map(cpu, state)), cpu(snrs), cpu(mask),
-        dict(tables, snr_th=cpu(tables["snr_th"])))
+    return adaptive._feedback_scan_masked_torch(adaptive.FeedbackState(*map(cpu, state)), cpu(snrs), cpu(mask),
+                                                dict(tables, snr_th=cpu(tables["snr_th"])))
+
+
+def k7_err(got_state, got, want_state, want) -> int:
+    """The largest id or state difference (0 when equal)."""
     return int_err([(got.cpu(), want)] + [(a.cpu(), b) for a, b in zip(got_state, want_state)])
+
+
+def k7_against_plain(state, snrs, mask, tables, got_state, got) -> int:
+    """K7's result against the plain loop on the same inputs."""
+    return k7_err(got_state, got, *k7_plain(state, snrs, mask, tables))
 
 
 class FeedbackCheck:
@@ -3721,15 +3738,19 @@ class FeedbackCheck:
     def __init__(self, what: str, required: bool = True):
         self.what, self.required = what, required
         self.kept, self.launches, self.err = [], 0, 0
+        self.by_kernel = dict.fromkeys(feedback_cuda.DESIGNS, 0)
 
     def __enter__(self):
         self._orig = adaptive.feedback_scan_masked
 
         def both(state, snrs_db, mask, tables):
             n0 = feedback_cuda.feedback_scan_masked_cuda.LAUNCHES
+            k0 = dict(feedback_cuda.feedback_scan_masked_cuda.KERNEL_LAUNCHES)
             got_state, got = self._orig(state, snrs_db, mask, tables)
             n = feedback_cuda.feedback_scan_masked_cuda.LAUNCHES - n0
             check(n == 1, f"{self.what}: a feedback_scan_masked call made {n} K7 launches")
+            for k, v in feedback_cuda.feedback_scan_masked_cuda.KERNEL_LAUNCHES.items():
+                self.by_kernel[k] += v - k0[k]
             self.launches += n
             self.kept.append((state, snrs_db, mask, tables, got_state, got))
             return got_state, got
@@ -3745,7 +3766,8 @@ class FeedbackCheck:
             check(err == 0, f"{self.what}: K7 against the plain loop, largest difference {err}")
             self.frames = sum(k[1].shape[0] for k in self.kept)
             print(f"[k7] on the path's own tensors, {self.what}: {len(self.kept)} calls, {self.launches} K7 "
-                  f"launches, {self.frames} frames: ids and state equal to the plain loop", flush=True)
+                  f"launches ({self.by_kernel}), {self.frames} frames: ids and state equal to the plain loop",
+                  flush=True)
 
     @property
     def calls(self) -> int:
@@ -3763,7 +3785,8 @@ def checked_node(argv: list, ledger_dir: str) -> int:
     with FeedbackCheck(f"sample_link node {role}", required=role != "--tx") as fc:
         sample_link.main(argv)
     Path(ledger_dir, f"node_{os.getpid()}.json").write_text(json.dumps(
-        {"role": role, "calls": fc.calls, "launches": fc.launches, "frames": fc.frames, "err": fc.err}))
+        {"role": role, "calls": fc.calls, "launches": fc.launches, "frames": fc.frames, "err": fc.err,
+         "by_kernel": fc.by_kernel}))
     return 0
 
 
@@ -3778,12 +3801,18 @@ def k7_tables(ladder: str, dev) -> dict:
     return adaptive.tables_to(adaptive.build_mcs_tables(cfgmod.make_rx_config(None, **kw)), dev)
 
 
-def k7_inputs(T: int, batch: tuple, tables: dict, seed: int, mask_kind: str, dev) -> tuple:
-    """A carried-in state and T frames of each column: runs of 1-9 equal
-    SNRs (long enough to cross decision_th), each a threshold or threshold +
-    hysteresis (their float32 sum) or one ulp either side, NaN, +-inf, or a
-    point of the ladder's range; a random, all-False, per-frame ([T]) or
-    null mask."""
+def k7_inputs(T: int, batch: tuple, tables: dict, seed: int, mask_kind: str, dev, carry: str = "random",
+              snr_kind: str = "runs") -> tuple:
+    """A carried-in state and T frames of each column.  SNRs ("runs"): runs
+    of 1-9 equal SNRs (long enough to cross decision_th), each a threshold
+    or threshold + hysteresis (their float32 sum) or one ulp either side,
+    NaN, +-inf, or a point of the ladder's range; ("bistable") 13.5 dB +-
+    0.4, inside the band where ids 0 and 1 of the default ladder both stay.
+    A random, all-False, per-frame ([T]) or null mask.  The carry: "random"
+    ids, candidates and counters under 5; "odd", outside the map's
+    canonical states (a down or up candidate with its counter out of [0, 5),
+    INT32_MAX among them, or another candidate with a counter not 0);
+    "bistable", ids 0 and 1 in turn."""
     rng = np.random.RandomState(seed)
     th = tables["snr_th"].cpu().numpy()[1:]
     up = th + np.float32(tables["hysteresis"])
@@ -3800,47 +3829,85 @@ def k7_inputs(T: int, batch: tuple, tables: dict, seed: int, mask_kind: str, dev
             col += [v] * rng.randint(1, 10)
         cols.append(col[:T])
     snr = np.ascontiguousarray(np.array(cols, np.float32).T).reshape((T,) + batch)
+    if snr_kind == "bistable":
+        snr = (13.5 + rng.uniform(-0.4, 0.4, (T,) + batch)).astype(np.float32)
     mask = {"null": None, "all_false": np.zeros((T,) + batch, bool), "per_frame": rng.rand(T) > 0.3,
             "random": rng.rand(T, *batch) > 0.3}[mask_kind]
     n = tables["n_mcs"]
-    state = adaptive.FeedbackState(*(torch.as_tensor(rng.randint(0, hi, batch).astype(np.int32), device=dev)
-                                     for hi in (n, n, 5)))
+    state = [rng.randint(0, hi, batch).astype(np.int32) for hi in (n, n, 5)]
+    if carry == "bistable":
+        last = (np.arange(B) % 2).reshape(batch).astype(np.int32)
+        state = [last, last.copy(), np.zeros(batch, np.int32)]
+    elif carry == "odd":
+        cols = []
+        for j in range(B):
+            last = int(rng.randint(n))
+            if j % 2 == 0:
+                cols.append((last, int(rng.choice([max(last - 1, 0), last + 1])),
+                             int(rng.choice([5, 12, (1 << 31) - 1, -3]))))
+            else:
+                cols.append((last, int(rng.choice([n + 3, -2] + ([last] if last else []))),
+                             int(rng.choice([3, (1 << 31) - 1]))))
+        state = [np.array(c, np.int64).astype(np.int32).reshape(batch) for c in zip(*cols)]
+    state = adaptive.FeedbackState(*(torch.as_tensor(a, device=dev) for a in state))
     return (state, torch.as_tensor(snr, device=dev),
             None if mask is None else torch.as_tensor(mask, device=dev))
 
 
+def k7_cases() -> list:
+    """phase 26's synthetic cases: (ladder, T, batch, mask, carry, SNRs)."""
+    cases = [(ladder, T, batch, kind, "random", "runs") for ladder in K7_LADDERS for T in K7_T + (K7_TILES_T,)
+             for batch in ((), (K7_BATCH,)) for kind in ("random", "all_false", "null")
+             + (("per_frame",) if batch else ())]
+    cases += [("default", T, batch, kind, "odd", "runs") for T in (37, 1024, K7_TILES_T)
+              for batch in ((), (K7_BATCH,)) for kind in ("random", "all_false")]
+    cases += [("default", T, batch, "null", "bistable", "bistable") for T in (256, 1024)
+              for batch in ((2,), (K7_BATCH,))]
+    return cases
+
+
 def k7_vs_plain(dev) -> None:
-    """K7 against its plain loop on synthetic inputs: T = 1 .. 1024, batch
-    () and [64], both ladders, random / all-False / per-frame / null masks;
-    one launch a call, ids and state equal."""
+    """Both K7 kernels against the plain loop on synthetic inputs: T = 1 ..
+    1024 and three tiles, batch () and [64], both ladders, random /
+    all-False / per-frame / null masks, carries outside the map's canonical
+    states, the bistable band; the wrapper's kernel through
+    ``adaptive.feedback_scan_masked`` (one launch a call) and the other one
+    forced; ids and state equal."""
     n_cases = 0
-    for ladder in K7_LADDERS:
-        tables = k7_tables(ladder, dev)
-        for T in K7_T:
-            for batch in ((), (K7_BATCH,)):
-                for kind in ("random", "all_false", "null") + (("per_frame",) if batch else ()):
-                    seed = T + 7 * len(batch) + 13 * len(kind) + (100 if ladder == "fractional" else 0)
-                    state, snr, mask = k7_inputs(T, batch, tables, seed, kind, dev)
-                    n0 = feedback_cuda.feedback_scan_masked_cuda.LAUNCHES
-                    got_state, got = adaptive.feedback_scan_masked(state, snr, mask, tables)
-                    torch.cuda.synchronize()
-                    check(feedback_cuda.feedback_scan_masked_cuda.LAUNCHES == n0 + 1,
-                          f"K7 T={T} batch={batch}: not one launch")
-                    e = k7_against_plain(state, snr, mask, tables, got_state, got)
-                    K7.compared(e)
-                    check(e == 0, f"K7 against the plain loop, {ladder} T={T} batch={batch} mask {kind}: "
-                          f"largest difference {e}")
-                    n_cases += 1
-    print(f"[k7] kernel vs plain loop on {n_cases} synthetic cases (T = {K7_T}, batch () and [{K7_BATCH}], "
-          f"both ladders, random / all-False / per-frame / null masks, SNRs on the thresholds and "
-          f"threshold + hysteresis and one ulp either side, NaN, +-inf): ids and state equal, one launch "
-          f"a call", flush=True)
+    tables = {ladder: k7_tables(ladder, dev) for ladder in K7_LADDERS}
+    for ladder, T, batch, kind, carry, snr_kind in k7_cases():
+        tab = tables[ladder]
+        seed = T + 7 * len(batch) + 13 * len(kind) + (100 if ladder == "fractional" else 0) + 3 * len(carry)
+        state, snr, mask = k7_inputs(T, batch, tab, seed, kind, dev, carry, snr_kind)
+        n0 = feedback_cuda.feedback_scan_masked_cuda.LAUNCHES
+        got_state, got = adaptive.feedback_scan_masked(state, snr, mask, tab)
+        torch.cuda.synchronize()
+        check(feedback_cuda.feedback_scan_masked_cuda.LAUNCHES == n0 + 1, f"K7 T={T} batch={batch}: not one launch")
+        chosen = feedback_cuda.design(T, max(1, state.last.numel()), tab["n_mcs"], tab["decision_th"])
+        other = "walk" if chosen == "map" else "map"
+        o_state, o = feedback_cuda.feedback_scan_masked_cuda(
+            state.last, state.cand, state.counter, snr, mask, tab["snr_th"], tab["n_mcs"], tab["hysteresis"],
+            tab["decision_th"], kernel=other)
+        want = k7_plain(state, snr, mask, tab)
+        for what, gs, g in ((chosen, got_state, got), (other, o_state, o)):
+            e = k7_err(gs, g, *want)
+            K7.compared(e)
+            check(e == 0, f"K7's {what} against the plain loop, {ladder} T={T} batch={batch} mask {kind} carry "
+                  f"{carry} SNRs {snr_kind}: largest difference {e}")
+        n_cases += 1
+    print(f"[k7] both kernels vs the plain loop on {n_cases} synthetic cases (T = {K7_T + (K7_TILES_T,)}, batch "
+          f"() and [{K7_BATCH}], both ladders, random / all-False / per-frame / null masks, SNRs on the "
+          f"thresholds and threshold + hysteresis and one ulp either side, NaN, +-inf, inside a hysteresis "
+          f"band; carries outside the map's canonical states): ids and state equal, one launch a call",
+          flush=True)
 
 
 def time_k7(dev, card) -> dict:
-    """K7's device time (profiler) at T = 1 .. 1024, batch () and [64],
-    beside its bytes bound, the plain loop's time (events) and its device
-    kernels and copies a call at F = 8 and 1024 (profiler)."""
+    """K7's device time (profiler) at T = 1 .. 1024, batch () and [64], by
+    the wrapper's kernel, beside its bytes bound, the plain loop's time
+    (events) and its device kernels and copies a call at F = 8 and 1024
+    (profiler); at F = 1024 the walk and the map in turns (walk, map, map,
+    walk); the floors of both chains."""
     tables = k7_tables("default", dev)
     times = {}
     for batch in ((), (K7_BATCH,)):
@@ -3850,25 +3917,35 @@ def time_k7(dev, card) -> dict:
                 state.last, state.cand, state.counter, snr, mask, tables["snr_th"], tables["n_mcs"],
                 tables["hysteresis"], tables["decision_th"])
             fn()
-            ms = kernel_profiler_ms(fn, "feedback_scan_kernel", 50)
+            ms = kernel_profiler_ms(fn, "feedback_scan", 50)
             B = int(np.prod(batch, dtype=int))
             nbytes = feedback_cuda.feedback_bytes(T, B, tables["n_mcs"])
             bound = max(nbytes / HBM_BYTES_PER_S, K7_OPS_PER_FRAME * T * B / FP32_OPS_PER_S) * 1e3
             plain = lambda: adaptive._feedback_scan_masked_torch(state, snr, mask, tables)
             plain()
             plain_ms = cuda_ms(plain, 1 if T * max(B, 1) >= 1024 else 5)
-            times[(T, B)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bytes": nbytes}
-            print(f"[k7-timing] T={T} batch={list(batch)}: kernel {ms * 1e3:.2f} us (profiler), plain loop "
+            kernel = feedback_cuda.design(T, B, tables["n_mcs"], tables["decision_th"])
+            times[(T, B)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bytes": nbytes, "kernel": kernel}
+            print(f"[k7-timing] T={T} batch={list(batch)}: the {kernel} {ms * 1e3:.2f} us (profiler), plain loop "
                   f"{plain_ms:.3f} ms (events), bound {bound * 1e6:.2f} ns for {nbytes} bytes (bytes) ({card})",
                   flush=True)
-    t1, t16, t1024 = (times[(T, 1)]["ms"] for T in (1, 16, 1024))
+    state, snr, mask = k7_inputs(LINK_F, (), tables, 5, "random", dev)
+    turns = {"walk": [], "map": []}
+    for kernel in ("walk", "map", "map", "walk"):
+        fn = lambda: feedback_cuda.feedback_scan_masked_cuda(
+            state.last, state.cand, state.counter, snr, mask, tables["snr_th"], tables["n_mcs"],
+            tables["hysteresis"], tables["decision_th"], kernel=kernel)
+        fn()
+        turns[kernel].append(kernel_profiler_ms(fn, k7_bench.KERNELS[kernel], 50))
+    times["turns"] = turns
     floor = times["floor"] = k7_bench.step_floor(dev)
-    print(f"[k7-timing] the walk: {t1 * 1e3:.2f} us at T = 1 (a launch and one step), "
-          f"{(t1024 - t16) / 1008 * 1e6:.1f} ns a dependent step from T = 16 to 1024; its floor: a launch "
-          f"{floor['launch_us']:.2f} us (empty kernel) and a step's chain {floor['chain_ns']:.2f} ns "
-          f"(shared-memory load {floor['chase_ns']:.2f} ns, selects {floor['selects_ns']:.2f} ns; SM clock "
-          f"{floor['sm_ghz']:.3f} GHz), so {k7_bench.walk_bound_ms(1024, floor) * 1e3:.2f} us at T = 1024 "
-          f"({card})", flush=True)
+    print(f"[k7-timing] F={LINK_F}, batch (): the walk " + " / ".join(
+        f"{v * 1e3:.2f}" for v in turns["walk"]) + " us, the map " + " / ".join(f"{v * 1e3:.2f}" for v in turns["map"])
+          + f" us (profiler, in turns walk, map, map, walk); floors: the walk {k7_bench.walk_floor_ms(LINK_F, floor) * 1e3:.2f}"
+          f" us (a launch {floor['launch_us']:.2f} us and {LINK_F} steps of {floor['chain_ns']:.2f} ns: the rung's "
+          f"shared-memory load {floor['chase_ns']:.2f} ns, selects {floor['selects_ns']:.2f} ns), the map "
+          f"{k7_bench.map_floor_ms(LINK_F, floor) * 1e3:.2f} us (table steps of {floor['table_ns']:.2f} ns); SM clock "
+          f"{floor['sm_ghz']:.3f} GHz ({card})", flush=True)
     for T in (8, 1024):  # the plain loop's launches on one block, beside K7's one
         state, snr, mask = k7_inputs(T, (), tables, 6, "random", dev)
         _w, busy, n = profiled(lambda: adaptive._feedback_scan_masked_torch(state, snr, mask, tables),
@@ -3936,7 +4013,8 @@ def link_phase(dev, card) -> None:
                   f"sample_link {kind} F={F}: a node did not run on {dev}")
             calls = sum(n["calls"] for n in nodes)
             K7.add(f"sample_link {kind} F={F}", calls, sum(n["launches"] for n in nodes),
-                   sum(n["frames"] for n in nodes), max(n["err"] for n in nodes))
+                   sum(n["frames"] for n in nodes), max(n["err"] for n in nodes),
+                   {k: sum(n["by_kernel"][k] for n in nodes) for k in feedback_cuda.DESIGNS})
             check(len(nodes) == 2 and calls > 0, f"sample_link {kind} F={F}: node ledgers {nodes}")
             print(f"[link] sample_link --{kind}-test F={F}: " + "; ".join(
                 f"{k} {v['blocks']} blocks, {v['wall_ms_per_block']} ms a block wall, {v['work_ms_per_block']} "
@@ -4028,21 +4106,25 @@ def live_io_phase(dev, card) -> dict:
     soak_phase(dev, card)
     multihost_phase(dev, card)
     check(K7.launches > 0, "no path launched K7")
-    print(f"[k7] counted on the paths: {K7.launches} launches in {K7.calls} calls, {K7.frames} frames "
+    print(f"[k7] counted on the paths: {K7.launches} launches ({K7.by_kernel}) in {K7.calls} calls, {K7.frames} frames "
           f"({'; '.join(K7.paths)})", flush=True)
     print(f"[live-io] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
     main_t, floor = times[(LINK_F, 1)], times["floor"]
+    check(all(K7.by_kernel.values()), f"the paths did not launch both K7 kernels: {K7.by_kernel}")
     return {"name": "feedback_scan_masked", "route": "cuda", "source": "gr_dtl_tpu_torch/csrc/feedback_scan.cu",
             "replaces": "gr_dtl_tpu/models/adaptive.py:102 (lax.scan of feedback_step), "
                         "gr_dtl_tpu/models/session.py:673 (the masked scan)",
             "launches": K7.launches, "launches_per_step": K7.launches / max(1, K7.calls),
-            "max_abs_err": K7.max_err,
+            "launches_by_kernel": K7.by_kernel, "max_abs_err": K7.max_err,
             "ms": main_t["ms"], "ms_by": "profiler", "plain_ms": main_t["plain_ms"],
             "bound_ms": main_t["bound_ms"], "bound_by": "bytes", "library_ms": None,
-            "binds": "the walk: a launch and T dependent steps",
-            "walk_bound_ms": k7_bench.walk_bound_ms(LINK_F, floor), "launch_floor_ms": floor["launch_us"] / 1e3,
-            "step_floor_ns": floor["chain_ns"], "step_ns": (main_t["ms"] - times[(16, 1)]["ms"]) / (LINK_F - 16) * 1e6,
-            "at": {"T": LINK_F, "batch": []},
+            "design": main_t["kernel"], "at": {"T": LINK_F, "batch": []},
+            "binds": "the dependence: the map, a launch and ~2 x 32 + T / 32 dependent table steps a tile "
+                     f"beside its staging and barriers; the walk (T < {feedback_cuda.MAP_MIN_T}), a launch and T "
+                     "dependent steps",
+            "map_floor_ms": k7_bench.map_floor_ms(LINK_F, floor), "walk_floor_ms": k7_bench.walk_floor_ms(LINK_F, floor),
+            "launch_floor_ms": floor["launch_us"] / 1e3, "walk_step_floor_ns": floor["chain_ns"],
+            "table_step_ns": floor["table_ns"], "turns_ms": times["turns"],
             "times_us": {f"T={T},B={B}": round(v["ms"] * 1e3, 3) for (T, B), v in
                          ((k, v) for k, v in times.items() if isinstance(k[0], int))},
             "plain_launches": {str(T): times[("plain_launches", T)] for T in (8, 1024)}}
@@ -4182,7 +4264,7 @@ def slice_h_phase(dev, card) -> dict:
         res, _ = runs.run(f"bench_stream --sizes {sizes} --blocks {blocks} --readback --mega {mega} --ingest",
                           bench_stream, ["--sizes", sizes, "--blocks", blocks, "--readback", "--mega", mega,
                                          "--ingest", *on], stream_block_steps, per_block)
-    K7.add("bench_stream duplex", fc.calls, fc.launches, fc.frames, fc.err)
+    K7.add("bench_stream duplex", fc.calls, fc.launches, fc.frames, fc.err, fc.by_kernel)
     stream_rows, duplex_rows = res["stream_rx"] + res["stream_ingest"], res["stream_duplex"]
     res, _ = runs.run(f"bench_stream --device-stream --sizes {f_dev}", bench_stream,
                       ["--device-stream", "--sizes", f_dev, "--blocks", blocks, "--duplex-steps", 0, *on],

@@ -22,13 +22,14 @@ Run on the card:  python3 -m gr_dtl_tpu_torch.tools.bench_sync_metric
 
 from __future__ import annotations
 
+import itertools
 import json
 import sys
 
 import torch
 
 from gr_dtl_tpu_torch.ops import sync, sync_cuda
-from gr_dtl_tpu_torch.tools._timing import smi
+from gr_dtl_tpu_torch.tools._timing import profiled_windows, smi
 
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM data sheet, at the 700 W limit
 P_ATOL, M_ATOL = 2e-4, 2e-3
@@ -76,16 +77,16 @@ def event_ms(launch, ring, reps: int) -> float:
 
 
 def profiler_ms(ring, reps: int):
-    """Mean device duration (ms) of the kernel in a profiler window of reps
-    launches over the ring, or None if the profiler saw none."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            sync_cuda._launch_into(*ring[i % len(ring)])
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if KERNEL_NAME in e.key and e.self_device_time_total > 0]
-    count = sum(e.count for e in found)
-    return sum(e.self_device_time_total for e in found) / count / 1e3 if count else None
+    """Mean device duration (ms) of the kernel over reps launches walking
+    the ring, in a profiler window that opens after warm launches at a
+    marker kernel (``_timing.profiled_windows``), or None if four windows
+    saw none: the events' time then stands."""
+    i = itertools.count()
+    for events in profiled_windows(lambda: sync_cuda._launch_into(*ring[next(i) % len(ring)]), reps):
+        found = [e.time_range.elapsed_us() for e in events if KERNEL_NAME in e.name]
+        if found:
+            return sum(found) / len(found) / 1e3
+    return None
 
 
 def plain_launch(r, P, M):
