@@ -253,12 +253,11 @@ And slice H, the measuring tools and the LDPC leftovers (no new kernel):
    regimes (clean: equal; knee and waterfall: ok equal, hard equal where
    both are ok, iteration counts parted on at most 1% of rows), twopass
    against decode_mm on the card (same ok and message bits); then the
-   seven tools' ``main`` in process on the card at full width, each run
+   six tools' ``main`` in process on the card at full width, each run
    with every launch count set to 0 just before it and checked after
    (``AppLedger``: one metric launch a receive step, four equalizer, the two
    scans a stream block; none on the BP benches): bench_fec 1024 (CRC
-   rate 1.0 at 25 dB, BP and bf16 ok rates 1.0), profile_fec_breakdown
-   1024 (coded and uncoded CRC rates 1.0, as the JAX tool's on the CPU),
+   rate 1.0 at 25 dB, BP and bf16 ok rates 1.0),
    bench_twopass and bench_bf16_ab at 2048 codewords (equal ok rates, 1.0
    clean), bench_bank_switch at 1024 codewords and 1..32 codes (every ok
    rate 1.0; the crossover printed), bench_stream F = 16 / 64 / 256 / 1024
@@ -266,8 +265,9 @@ And slice H, the measuring tools and the LDPC leftovers (no new kernel):
    ``FeedbackCheck`` (K7 held to its plain loop; every frame sent arrives
    with its header), and --device-stream at F = 1024 (every row finds
    frames and is CRC-clean), profile_rx at B = 2048 and coded B = 1024
-   (the trace parses and holds ``sc_metric_kernel`` and
-   ``equalizer_kernel``).  Their launches join the kernels line's counts.
+   (the trace parses and holds ``sc_metric_kernel``,
+   ``equalizer_kernel`` and the program's spans).  Their launches join
+   the kernels line's counts.
 
 And slice I, the bench (``gr_dtl_tpu_torch/bench.py``, the counterpart of
 the JAX package's ``bench.py``; no new kernel):
@@ -4213,7 +4213,7 @@ def slice_h_phase(dev, card) -> dict:
     """Phase 27.  Returns, for the kernels line, the metric's and the scans'
     launches over the phase's counted runs and the steps they span."""
     from gr_dtl_tpu_torch.tools import (bench_bank_switch, bench_bf16_ab, bench_fec, bench_stream,
-                                        bench_twopass, profile_fec_breakdown, profile_rx)
+                                        bench_twopass, profile_rx)
 
     t_phase = time.perf_counter()
     ldpc_leftovers(dev)
@@ -4232,12 +4232,6 @@ def slice_h_phase(dev, card) -> dict:
                       f"{p['avg_bp_iters']:.2f})" for p in res["coded_snr_sweep"])
     print(f"[slice-h] bench_fec: coded step B={H_B_FEC} at {sweep}; raw BP 2048 codewords {res['extra']['bp_step_ms']:.3f} ms "
           f"= {res['ldpc_info_mbps']:.1f} Mbit/s, bf16 {res['bf16_ab']['bp_step_ms_bf16']:.3f} ms ({card})", flush=True)
-
-    res, _ = runs.run(f"profile_fec_breakdown --frames {H_B_FEC}", profile_fec_breakdown,
-                      ["--frames", H_B_FEC, "--reps", 3, "--iters", 8, *on],
-                      steps, {"k1": 4, "eq": 3 * EQ_PER_STEP})  # detect, then three receive steps
-    # the JAX tool at these settings on the CPU: 1.0 and 1.0
-    check(res["coded_crc_rate"] == 1.0 and res["uncoded_crc_rate"] == 1.0, f"profile_fec_breakdown: {res}")
 
     for name, tool, variants in (("bench_twopass", bench_twopass, ("mm", "twopass")),
                                  ("bench_bf16_ab", bench_bf16_ab, ("f32", "bf16"))):
@@ -4289,6 +4283,7 @@ def slice_h_phase(dev, card) -> dict:
             for k in ("sc_metric_kernel", "equalizer_kernel"):
                 check(any(k in n for n in names), f"profile_rx {args}: no {k} in the trace ({sorted(names)[:20]})")
             check(res["crc_ok_rate"] == 1.0, f"profile_rx {args}: {res['crc_ok_rate']}")
+            check(res["program_spans"] > 3 * 4, f"profile_rx {args}: {res['program_spans']} program spans")
             print(f"[slice-h] profile_rx {args}: {res['kernel_events']} kernel events of {len(names)} kernels in "
                   f"{os.path.getsize(res['trace']) / 1e6:.1f} MB of trace", flush=True)
     finally:

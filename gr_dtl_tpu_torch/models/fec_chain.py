@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from gr_dtl_tpu_torch.ops import constellation as cn
 from gr_dtl_tpu_torch.ops import gf2, ldpc, repack, tb_cuda
 from gr_dtl_tpu_torch.utils import config as cfgmod
+from gr_dtl_tpu_torch.utils import trace
 
 __all__ = ["CRC_LEN_BITS", "BANK_MM_MAX_CODES", "FecFrameOut", "FecParams", "make_fec_tables",
            "build_fec", "fec_from_reference", "fec_frame_build", "fec_frame_decode",
@@ -373,6 +374,7 @@ def _index_like_jax(idx: torch.Tensor, size: int) -> torch.Tensor:
     return torch.clamp(torch.where(idx < 0, idx + size, idx), 0, size - 1)
 
 
+@trace.spanned("fec.decode")
 def fec_frame_decode(fec: FecParams, llrs: torch.Tensor, cnst_id: torch.Tensor,
                      tb_payload_len: torch.Tensor | None = None,
                      fec_id: torch.Tensor | None = None) -> FecFrameOut:
@@ -388,19 +390,40 @@ def fec_frame_decode(fec: FecParams, llrs: torch.Tensor, cnst_id: torch.Tensor,
       tb_payload_len: [B] bits from the header; defaults to the full-frame
                value for the bps.
       fec_id:  optional [B] 1-based code ids; None = code 1.
+
+    Spans (``utils/trace``): ``fec.decode`` with ``fec.decode.codewords``,
+    ``fec.decode.bp`` (the BP kernel's call) and ``fec.decode.reassemble``
+    inside; counters ``fec.codeword_slots`` (decoded slots),
+    ``fec.codewords`` (the real codewords among them) and
+    ``fec.bp_updates`` (the message updates BP took on the real ones).
     """
-    W = fec.W
-    B = llrs.shape[0]
-    cw, s, tb_payload_len, fec_id = _codewords(fec, llrs, cnst_id, tb_payload_len, fec_id)
+    with trace.span("fec.decode.codewords"):
+        cw, s, tb_payload_len, fec_id = _codewords(fec, llrs, cnst_id, tb_payload_len, fec_id)
     G, Cmax = cw.shape[:2]
     bank = fec.bank
-    if fec_id is None:
-        bits, iters, ok = ldpc.decode_mm(cw.reshape(-1, fec.n), fec.code)
-    else:
-        dec = ldpc.decode_bank_mm if bank.n_codes <= BANK_MM_MAX_CODES else ldpc.decode_bank
-        bits, iters, ok = dec(cw.reshape(-1, bank.Nmax), fec_id.repeat_interleave(Cmax), bank)
-    sys_bits = bits.reshape(G, Cmax, bank.Nmax)[:, :, bank.Mmax:]
+    with trace.span("fec.decode.bp"):
+        if fec_id is None:
+            bits, iters, ok = ldpc.decode_mm(cw.reshape(-1, fec.n), fec.code)
+        else:
+            dec = ldpc.decode_bank_mm if bank.n_codes <= BANK_MM_MAX_CODES else ldpc.decode_bank
+            bits, iters, ok = dec(cw.reshape(-1, bank.Nmax), fec_id.repeat_interleave(Cmax), bank)
     iters = iters.reshape(G, Cmax)
+    if trace.enabled():
+        trace.count("fec.codeword_slots", G * Cmax)
+        trace.count("fec.codewords", s.real.sum())
+        trace.count("fec.bp_updates", torch.where(s.real, iters, 0).sum())
+    with trace.span("fec.decode.reassemble"):
+        return _reassemble(fec, llrs.device, llrs.shape[0], bits, iters, ok, s, tb_payload_len)
+
+
+def _reassemble(fec: FecParams, dev, B: int, bits, iters, ok, s: _Schedule,
+                tb_payload_len) -> FecFrameOut:
+    """The TB payload of each group from its codewords' hard bits, the
+    user bytes, the CRC32 verdict and the BP summary (per frame for W > 1)."""
+    W = fec.W
+    G, Cmax = iters.shape
+    bank = fec.bank
+    sys_bits = bits.reshape(G, Cmax, bank.Nmax)[:, :, bank.Mmax:]
     ok = ok.reshape(G, Cmax)
     fec_ok = (ok | ~s.real).all(1)
     avg_iters = torch.where(s.real, iters, 0).sum(1) / torch.clamp(s.real.sum(1), min=1)
@@ -408,17 +431,17 @@ def fec_frame_decode(fec: FecParams, llrs: torch.Tensor, cnst_id: torch.Tensor,
     # TB payload bits from the systematic parts; unsent slots all scatter
     # to the dropped column maxP
     maxP = fec.max_payload_bytes * 8 + CRC_LEN_BITS
-    t = torch.arange(bank.Kmax, device=llrs.device)[None, None, :]
+    t = torch.arange(bank.Kmax, device=dev)[None, None, :]
     take = (t < s.k_prime[:, :, None]) & s.real[:, :, None]
     dst = torch.where(take, s.sys_start[:, :, None] + t, maxP)
-    tb = torch.zeros((G, maxP + 1), dtype=torch.int32, device=llrs.device)
+    tb = torch.zeros((G, maxP + 1), dtype=torch.int32, device=dev)
     tb.scatter_(1, dst.reshape(G, -1), sys_bits.reshape(G, -1))
     tb_bits = tb[:, :maxP]
 
     P = (s.payload_bits if tb_payload_len is None else tb_payload_len).long()
     user_bytes = (P - CRC_LEN_BITS) // 8
     all_bytes = repack.bits_to_bytes(tb_bits)  # [G, maxP/8]
-    xb = torch.arange(all_bytes.shape[1], device=llrs.device)[None, :]
+    xb = torch.arange(all_bytes.shape[1], device=dev)[None, :]
     ub = user_bytes[:, None]
     payload = torch.where(xb < ub, all_bytes, 0)
     crc = gf2.crc_device(payload, _index_like_jax(user_bytes, fec.crc_tables.T.shape[0]),
@@ -436,7 +459,7 @@ def fec_frame_decode(fec: FecParams, llrs: torch.Tensor, cnst_id: torch.Tensor,
         return out
     # per-frame rows: the group's payload goes to its first frame; the
     # other W-1 rows carry zero-length payloads and the group's flags
-    first = (torch.arange(B, device=llrs.device) % W) == 0
+    first = (torch.arange(B, device=dev) % W) == 0
     rep = lambda a: a.repeat_interleave(W, dim=0)
     return FecFrameOut(
         payload=torch.where(first[:, None], rep(out.payload), 0),

@@ -13,7 +13,10 @@ of gr_dtl_tpu/models/receiver.py).
 
 ``rx_frames`` runs as three stages, :func:`demodulate`,
 :func:`equalize_passes` and :func:`demap_and_verify`, which a profiler
-or a timer can call one by one.
+or a timer can call one by one.  Each stage, and :func:`detect_and_extract`,
+is a span of ``utils/trace`` (``rx.detect``, ``rx.demodulate``,
+``rx.equalize``, ``rx.demap``), with spans inside it at the work it
+composes; off by default.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from gr_dtl_tpu_torch.models import fec_chain, framing
 from gr_dtl_tpu_torch.ops import chanest, constellation as cn
 from gr_dtl_tpu_torch.ops import equalizer, gf2, header, ofdm, repack, scramble, sync
 from gr_dtl_tpu_torch.utils import config as cfgmod
+from gr_dtl_tpu_torch.utils import trace
 
 __all__ = ["RxOut", "RxParams", "build_rx", "rx_params_from_reference",
            "detect_and_extract", "rx_frames", "demodulate", "equalize_passes",
@@ -99,6 +103,7 @@ def rx_params_from_reference(d, device) -> RxParams:
         fec=None if d["fec"] is None else fec_chain.fec_from_reference(d["fec"], device))
 
 
+@trace.spanned("rx.detect")
 def detect_and_extract(stream: torch.Tensor, cfg, n_frames: int):
     """Schmidl-Cox detection over a contiguous [N] stream -> aligned windows.
 
@@ -106,7 +111,8 @@ def detect_and_extract(stream: torch.Tensor, cfg, n_frames: int):
     an unknown stream offset.  Returns (frames [n_frames, frame_samples],
     eps [n_frames] fractional CFO).
     """
-    P, M = sync.timing_metric(stream, cfg.fft_len)
+    with trace.span("rx.detect.metric"):
+        P, M = sync.timing_metric(stream, cfg.fft_len)
     phase = sync.fold_detect(M, cfg.frame_samples, cfg.cp_len)
     trig = sync.frame_triggers(M, phase, cfg.frame_samples, n_frames)
     eps = sync.fine_cfo(P, trig, cfg.cp_len, period=cfg.frame_samples)
@@ -116,6 +122,7 @@ def detect_and_extract(stream: torch.Tensor, cfg, n_frames: int):
     return sync.cfo_correct(frames, eps, cfg.fft_len), eps
 
 
+@trace.spanned("rx.demodulate")
 def demodulate(rxp: RxParams, frames: torch.Tensor):
     """Stage 1: DFT of every symbol window, integer carrier offset and its
     correction, LS taps from the sync symbols.  Returns (spectra [B, n_sym,
@@ -131,6 +138,7 @@ def demodulate(rxp: RxParams, frames: torch.Tensor):
     return spectra, carr_off, taps
 
 
+@trace.spanned("rx.equalize")
 def equalize_passes(rxp: RxParams, spectra: torch.Tensor, taps: torch.Tensor,
                     fallback_cnst: torch.Tensor | None = None):
     """Stage 2: ``eq_passes`` passes of header equalize + parse and payload
@@ -156,35 +164,39 @@ def equalize_passes(rxp: RxParams, spectra: torch.Tensor, taps: torch.Tensor,
     eq_tab = rxp.eq
     for p in range(eq_passes):
         # --- header pass (BPSK) ---
-        hdr_eq = equalizer.equalize_frame(hdr_spec, taps, bpsk, eq_tab, sym_offset=0)
-        hdr_bits = cn.hard_decision(hdr_eq.soft[:, :, occ], bpsk[:, None, None], rxp.tab)
-        fields, header_ok = header.parse_header(
-            hdr_bits.reshape(B, hs * cfg.n_data_carriers), cfg.fec)
-        # constellation gate: update only on CRC ok and a valid id
-        valid_id = (fields.cnst_id >= 1) & (fields.cnst_id <= 4)
-        cnst = torch.where(header_ok & valid_id, fields.cnst_id, fallback_cnst.int())
+        with trace.span("rx.equalize.k2"):
+            hdr_eq = equalizer.equalize_frame(hdr_spec, taps, bpsk, eq_tab, sym_offset=0)
+        with trace.span("rx.equalize.header"):
+            hdr_bits = cn.hard_decision(hdr_eq.soft[:, :, occ], bpsk[:, None, None], rxp.tab)
+            fields, header_ok = header.parse_header(
+                hdr_bits.reshape(B, hs * cfg.n_data_carriers), cfg.fec)
+            # constellation gate: update only on CRC ok and a valid id
+            valid_id = (fields.cnst_id >= 1) & (fields.cnst_id <= 4)
+            cnst = torch.where(header_ok & valid_id, fields.cnst_id, fallback_cnst.int())
 
         # --- payload pass ---
-        pay_eq = equalizer.equalize_frame(pay_spec, hdr_eq.taps, cnst, eq_tab, sym_offset=hs)
+        with trace.span("rx.equalize.k2"):
+            pay_eq = equalizer.equalize_frame(pay_spec, hdr_eq.taps, cnst, eq_tab, sym_offset=hs)
         if p + 1 == eq_passes:
             break
-        # data-aided tap re-estimation: per-carrier LS across the whole
-        # frame with the decided symbols as references
-        refs = torch.cat([sync_refs, hdr_eq.hard, pay_eq.hard], dim=1)
-        refs = torch.where(active[None, None, :], refs, 0.0)
-        # residual-CFO repair: estimate the per-symbol phase drift d from
-        # consecutive matched-filter phases and de-rotate the whole frame
-        z = (spectra * torch.conj(refs * taps[:, None, :])).sum(-1)
-        d = torch.angle((z[:, 1:] * torch.conj(z[:, :-1])).sum(-1))
-        srange = torch.arange(spectra.shape[1], dtype=torch.float32, device=dev)
-        spectra = spectra * torch.exp(-1j * d[:, None] * srange[None, :])[:, :, None]
-        hdr_spec = spectra[:, n_sync : n_sync + hs]
-        pay_spec = spectra[:, n_sync + hs :]
-        num = (spectra * torch.conj(refs)).sum(1)
-        den = (torch.abs(refs) ** 2).sum(1)
-        taps = torch.where(den > 1e-9, num / torch.clamp(den, min=1e-9), 1.0)
-        taps = chanest.denoise_taps(taps, rxp.ce)
-        taps = torch.where(active[None, :], taps, 1.0).to(torch.complex64)
+        with trace.span("rx.equalize.reestimate"):
+            # data-aided tap re-estimation: per-carrier LS across the whole
+            # frame with the decided symbols as references
+            refs = torch.cat([sync_refs, hdr_eq.hard, pay_eq.hard], dim=1)
+            refs = torch.where(active[None, None, :], refs, 0.0)
+            # residual-CFO repair: estimate the per-symbol phase drift d from
+            # consecutive matched-filter phases and de-rotate the whole frame
+            z = (spectra * torch.conj(refs * taps[:, None, :])).sum(-1)
+            d = torch.angle((z[:, 1:] * torch.conj(z[:, :-1])).sum(-1))
+            srange = torch.arange(spectra.shape[1], dtype=torch.float32, device=dev)
+            spectra = spectra * torch.exp(-1j * d[:, None] * srange[None, :])[:, :, None]
+            hdr_spec = spectra[:, n_sync : n_sync + hs]
+            pay_spec = spectra[:, n_sync + hs :]
+            num = (spectra * torch.conj(refs)).sum(1)
+            den = (torch.abs(refs) ** 2).sum(1)
+            taps = torch.where(den > 1e-9, num / torch.clamp(den, min=1e-9), 1.0)
+            taps = chanest.denoise_taps(taps, rxp.ce)
+            taps = torch.where(active[None, :], taps, 1.0).to(torch.complex64)
         eq_tab = rxp.eq2
     return pay_eq, fields, header_ok, cnst
 
@@ -207,6 +219,7 @@ def frame_llrs(rxp: RxParams, soft: torch.Tensor, cnst: torch.Tensor,
     return llrs
 
 
+@trace.spanned("rx.demap")
 def demap_and_verify(rxp: RxParams, pay_eq: equalizer.EqualizerOut,
                      fields: header.HeaderFields, header_ok: torch.Tensor,
                      cnst: torch.Tensor, carr_off: torch.Tensor, defer_fec: bool = False):
@@ -225,18 +238,22 @@ def demap_and_verify(rxp: RxParams, pay_eq: equalizer.EqualizerOut,
                   snr_db=pay_eq.snr_db, noise_var=pay_eq.noise_var, carr_offset=carr_off,
                   soft_syms=soft)
     if not cfg.fec:
-        dec = cn.hard_decision(soft, cnst[:, None], rxp.tab)
-        frame_bytes = repack.symbols_to_bytes(dec, bps, cfg.max_frame_bytes())
-        if cfg.scramble_bits:
-            frame_bytes = scramble.scramble_frames(frame_bytes)
-        payload, payload_len, crc_ok = framing.verify_frame_bytes(
-            frame_bytes, fields.payload_len, rxp.crc_tables)
+        with trace.span("rx.demap.decide"):
+            dec = cn.hard_decision(soft, cnst[:, None], rxp.tab)
+        with trace.span("rx.demap.repack"):
+            frame_bytes = repack.symbols_to_bytes(dec, bps, cfg.max_frame_bytes())
+            if cfg.scramble_bits:
+                frame_bytes = scramble.scramble_frames(frame_bytes)
+        with trace.span("rx.demap.crc"):
+            payload, payload_len, crc_ok = framing.verify_frame_bytes(
+                frame_bytes, fields.payload_len, rxp.crc_tables)
         return RxOut(payload=payload, payload_len=payload_len, crc_ok=crc_ok & header_ok,
                      fec_ok=torch.ones(B, dtype=torch.bool, device=dev),
                      avg_iters=torch.zeros(B, dtype=torch.float32, device=dev), **common)
 
     fec = rxp.fec
-    llrs = frame_llrs(rxp, soft, cnst, pay_eq.noise_var)
+    with trace.span("rx.demap.llrs"):
+        llrs = frame_llrs(rxp, soft, cnst, pay_eq.noise_var)
     P = torch.where(header_ok, fields.tb_payload, fec.tb_payload_t[1][bps])
     fid = torch.where(header_ok & (fields.fec_scheme >= 1) & (fields.fec_scheme <= fec.n_codes),
                       fields.fec_scheme, 1)

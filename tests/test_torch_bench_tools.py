@@ -1,7 +1,7 @@
 """The port's measuring tools on the CPU at small sizes: ``bench_fec``,
 ``bench_twopass``, ``bench_bf16_ab``, ``bench_bank_switch``,
-``profile_fec_breakdown``, ``profile_rx`` and ``bench_stream``, each
-through ``main(argv)`` with ``--cpu``.
+``profile_rx`` and ``bench_stream``, each through ``main(argv)`` with
+``--cpu``.
 
 Their JSON keys hold the JAX tools' keys: taken from ``--cpu`` runs of the
 JAX tools at the same small arguments (one module fixture, side by side as
@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from gr_dtl_tpu_torch.tools import (bench_bank_switch, bench_bf16_ab, bench_fec, bench_stream,
-                                    bench_twopass, profile_fec_breakdown, profile_rx)
+                                    bench_twopass, profile_rx)
 
 ROOT = Path(__file__).resolve().parent.parent
 FAST = ["--reps", "1", "--iters", "1"]
@@ -32,11 +32,7 @@ REF_ARGS = {  # the JAX tools run at these arguments (their --out artifact read 
     "bench_bf16_ab": ["--cw", "128", "--reps", "1", "--iters", "1"],
     "bench_bank_switch": ["--codewords", "64", "--sizes", "1,2", "--iters", "1"],
 }
-# keys of the JAX tools that are not run here, from their source
-# (tools/profile_fec_breakdown.py:156-170, tools/bench_stream.py)
-REF_BREAKDOWN_KEYS = {"metric", "frames", "samples_per_step", "detect_ms", "defer_fec_ms", "full_coded_ms",
-                      "uncoded_ms", "stage_demod_soft_ms", "stage_decode_ms", "coded_msps", "uncoded_msps",
-                      "coded_crc_rate", "uncoded_crc_rate"}
+# keys of the JAX tools that are not run here, from their source (tools/bench_stream.py)
 REF_BF16_AB_KEYS = {"bp_step_ms_bf16", "bp_step_ms_f32", "speedup_bf16", "bp_ok_rate_bf16"}
 REF_STREAM = {
     "result": {"platform", "frame_length", "stream_rx", "stream_ingest", "stream_duplex",
@@ -161,15 +157,6 @@ def test_bench_bank_switch(ref, capsys, tmp_path):
         assert res[k] == want[k], k
 
 
-def test_profile_fec_breakdown(capsys):
-    res, line = _port(capsys, profile_fec_breakdown, ["--frames", "8", *FAST])
-    assert line == json.loads(json.dumps(res))
-    _has_keys(res, REF_BREAKDOWN_KEYS, "result")
-    assert res["frames"] == 8 and res["samples_per_step"] == 8 * 1920
-    assert res["coded_crc_rate"] == 1.0 and res["uncoded_crc_rate"] == 1.0
-    assert res["stage_decode_ms"] == res["full_coded_ms"] - res["defer_fec_ms"]
-
-
 @pytest.mark.parametrize("args", [["--frames", "8"], ["--fec", "--frames", "4", "--steps", "1"]])
 def test_profile_rx_writes_a_trace(capsys, tmp_path, args):
     res, line = _port(capsys, profile_rx, [*args, "--out", str(tmp_path)])
@@ -177,8 +164,20 @@ def test_profile_rx_writes_a_trace(capsys, tmp_path, args):
     path = Path(res["trace"])
     assert path.parent == tmp_path and path.name.startswith("rx_coded" if "--fec" in args else "rx_plain")
     events = json.loads(path.read_text())["traceEvents"]
-    spans = [e for e in events if e.get("name") == "rx_step" and e.get("ph") == "X"]
-    assert len(spans) == (1 if "--steps" in args else 3)
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    steps = [e for e in spans if e["name"] == "rx.step"]
+    assert len(steps) == (1 if "--steps" in args else 3) and res["program_spans"] == len(spans)
+    # the program's spans, on the trace's clock: each step holds its stages, and as many of the
+    # host ops the profiler saw as every other step (one step's ops are another's)
+    ops = [e["ts"] for e in events if e.get("cat") == "cpu_op"]
+    held = []
+    for st in steps:
+        inside = [e for e in spans if e["args"]["step"] == st["args"]["step"] and e is not st]
+        assert {e["name"] for e in inside if e["args"]["parent"] == st["args"]["id"]} == \
+            {"rx.detect", "rx.demodulate", "rx.equalize", "rx.demap"}
+        assert all(st["ts"] <= e["ts"] <= e["ts"] + e["dur"] <= st["ts"] + st["dur"] for e in inside)
+        held.append(sum(st["ts"] <= t <= st["ts"] + st["dur"] for t in ops))
+    assert min(held) > 0.99 * max(held) > 0
     # on the CPU the trace holds host ops, and no device kernel
     assert any(e.get("cat") == "cpu_op" for e in events)
     assert res["kernels"] == [] and res["kernel_events"] == 0 and res["crc_ok_rate"] == 1.0
@@ -222,7 +221,7 @@ def test_bench_stream(capsys, tmp_path, device_stream):
 
 
 @pytest.mark.parametrize("tool", [bench_fec, bench_twopass, bench_bf16_ab, bench_bank_switch,
-                                  profile_fec_breakdown, profile_rx, bench_stream])
+                                  profile_rx, bench_stream])
 def test_card_asked_for_without_one(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:

@@ -111,8 +111,8 @@ def test_port_imports_without_jax_or_nvcc():
                  "tools.tun_bridge", "tools.stats", "tools.monitor_collector",
                  "ops.feedback_cuda", "tools.sample_link", "tools.soak_link", "tools.multihost",
                  "tools._timing", "tools._ldpc_bench", "tools.bench_fec", "tools.bench_twopass",
-                 "tools.bench_bf16_ab", "tools.bench_bank_switch", "tools.profile_fec_breakdown",
-                 "tools.profile_rx", "tools.bench_stream", "bench"):
+                 "tools.bench_bf16_ab", "tools.bench_bank_switch", "tools.profile_rx",
+                 "tools.bench_stream", "bench", "utils.trace"):
         assert f"gr_dtl_tpu_torch.{name}" in proc.stdout.split(), name
 
 
