@@ -12,12 +12,14 @@ as tools/bench_fec.py draws them.  Phases:
 1. device: the card's name and power limit, torch/CUDA versions, and
    whether nvcc and triton are present;
 2. build: compiles csrc/sync_metric.cu, csrc/stream_scans.cu,
-   csrc/tb_ring.cu, csrc/equalizer.cu, csrc/feedback_scan.cu and
-   csrc/ldpc_bp.cu for sm_90a from this checkout, one nvcc each, side by
-   side; from here on every ``ldpc.decode_mm`` / ``decode_bank_mm`` call on
-   the card is held to its K3 launches (``BpLedger``: one a call, a bank's
-   too), and every ``ldpc.decode`` / ``decode_bank`` call to its K8 launch
-   (``GATHER``), booked by phase;
+   csrc/tb_ring.cu, csrc/equalizer.cu, csrc/feedback_scan.cu,
+   csrc/ldpc_bp.cu and csrc/soft_demap.cu for sm_90a from this checkout, one
+   nvcc each, side by side; from here on every ``ldpc.decode_mm`` /
+   ``decode_bank_mm`` call on the card is held to its K3 launches
+   (``BpLedger``: one a call, a bank's too), every ``ldpc.decode`` /
+   ``decode_bank`` call to its K8 launch (``GATHER``), and every
+   ``receiver.frame_llrs`` call to its K9 launch (``LLR``: one a call with
+   the closed-form tables, none in table mode), booked by phase;
 3. kernel vs plain: the CUDA Schmidl-Cox kernel against its plain
    PyTorch version on the card, at the uncoded path's N, at two ragged
    lengths, on a [4, N] batch and at the edges of its tiling: one output
@@ -341,6 +343,22 @@ with no host check:
    line's ninth entry is K8's, with the grid of the 11 dB step's K8 launch
    as the profiler recorded it (held to the launch rule's).
 
+And slice L, K9 (``soft_demap_kernel`` of csrc/soft_demap.cu), the coded
+demap's LLRs in one launch:
+
+31. K9: the coded receive step of phase 6 at B=1024 QPSK frames, 25 and
+   11 dB, the counts set to 0 just before each step and read just after
+   (one K9 launch, ``rx.demap.llr_kernel_frames`` B in the recorder);
+   ``frame_llrs``' inputs of each step, as the step handed them, and its
+   output held ``torch.equal`` to ``_frame_llrs_torch`` on the same card
+   tensors, and K9 called directly too; K9 and the plain chain timed in
+   turns (``tools/bench_llr.py``: events, and K9's device time by the
+   profiler over a ring of copies of the step's inputs, beside the byte
+   floor at 3.35 TB/s), at the step's inputs and at the coded cell's B =
+   32,768 QPSK frames of 960 symbols; the K9 launches a phase (one a
+   closed-form call, every coded phase on the card).  The kernels line's
+   tenth entry is K9's.
+
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
 failure exits non-zero before it.
@@ -365,14 +383,14 @@ from gr_dtl_tpu_torch.models import adaptive, fec_chain, full_duplex, receiver, 
 from gr_dtl_tpu_torch.models import streaming, transmitter
 from gr_dtl_tpu_torch.ops import _cuda_build, burst, channel, constellation as cn, ldpc, metrics
 from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda, feedback_cuda, ldpc_cuda, scans_cuda, sync
-from gr_dtl_tpu_torch.ops import sync_cuda, tb_cuda
+from gr_dtl_tpu_torch.ops import llr_cuda, sync_cuda, tb_cuda
 from gr_dtl_tpu_torch.testbed import monitor, phy_converge
 from gr_dtl_tpu_torch.tools import _ldpc_bench, _timing
 from gr_dtl_tpu_torch.tools import bench_equalizer as eq_bench
 from gr_dtl_tpu_torch.tools import bench_feedback_scan as k7_bench
-from gr_dtl_tpu_torch.tools import bench_k3
+from gr_dtl_tpu_torch.tools import bench_k3, bench_llr
 from gr_dtl_tpu_torch.tools import bench_sync_metric as metric_bench
-from gr_dtl_tpu_torch.utils import alist, config as cfgmod, wire_compat
+from gr_dtl_tpu_torch.utils import alist, config as cfgmod, trace, wire_compat
 
 B = 2048
 FRAME_LENGTH = 20
@@ -466,15 +484,17 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc each, side by side
     _cuda_build.build_all(sync_cuda.build, scans_cuda.build, tb_cuda.build, equalizer_cuda.build,
-                          feedback_cuda.build, ldpc_cuda.build, k7_bench.build_bench, phy_converge.build)
+                          feedback_cuda.build, ldpc_cuda.build, llr_cuda.build, k7_bench.build_bench,
+                          phy_converge.build)
     print(f"[build] csrc/sync_metric.cu -> {sync_cuda.library_path().name}, csrc/stream_scans.cu "
           f"-> {scans_cuda.library_path().name}, csrc/tb_ring.cu -> {tb_cuda.library_path().name}, "
           f"csrc/equalizer.cu -> {equalizer_cuda.library_path().name}, csrc/feedback_scan.cu -> "
           f"{feedback_cuda.library_path().name}, csrc/ldpc_bp.cu -> {ldpc_cuda.library_path().name}, "
-          f"native/phy_converge.cpp (g++) -> "
+          f"csrc/soft_demap.cu -> {llr_cuda.library_path().name}, native/phy_converge.cpp (g++) -> "
           f"{phy_converge.library_path().name} in {time.perf_counter() - t0:.2f} s")
     for lib in (sync_cuda.library_path(), scans_cuda.library_path(), tb_cuda.library_path(),
-                equalizer_cuda.library_path(), feedback_cuda.library_path(), ldpc_cuda.library_path()):
+                equalizer_cuda.library_path(), feedback_cuda.library_path(), ldpc_cuda.library_path(),
+                llr_cuda.library_path()):
         log = lib.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
             if line.strip():
@@ -482,6 +502,7 @@ def main() -> int:
 
     BP.install()  # every BP call of every phase from here on is held to its K3 launches
     GATHER.install()  # and every gather-form call to its K8 launch
+    LLR.install()  # and every closed-form frame_llrs call on the card to its K9 launch
 
     cfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
     tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
@@ -668,6 +689,9 @@ def main() -> int:
     k3_entry = k3_phase(dev, card, bp_paths)
     # ---- 30. slice K: K8 ----
     k8_entry = k8_phase(dev, card, torch.Generator(device=dev).manual_seed(SEED + 30))
+    # ---- 31. slice L: K9 ----
+    BP.tag = "31 K9"
+    k9_entry = k9_phase(dev, card, bp_paths)
     k7_entry.update(launches=K7.launches, launches_per_step=K7.launches / K7.calls, max_abs_err=K7.max_err)
     eq_entry = time_equalizer(dev, card)
     print(card)
@@ -682,7 +706,8 @@ def main() -> int:
         "max_abs_err": max(max_err, max_err_coded, max_err_stream),
         "ms": timed["kernel_ms"], "ms_by": timed["kernel_ms_by"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
         "bound_by": "bytes", "library_ms": None}] + scan_kernels + [tb_kernel, eq_entry, wire_entry,
-                                                                    k7_entry, k3_entry, k8_entry]}))
+                                                                    k7_entry, k3_entry, k8_entry,
+                                                                    k9_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -1346,7 +1371,8 @@ def same_as(results, want, what: str) -> None:
 def reset_counts() -> None:
     for w in (sync_cuda.timing_metric_cuda, scans_cuda.trigger_lock_scan_cuda,
               scans_cuda.frame_accounting_cuda, tb_cuda.tb_reassemble_cuda,
-              equalizer_cuda.equalize_frame_cuda, ldpc_cuda.bp_decode_cuda, ldpc_cuda.bp_gather_cuda):
+              equalizer_cuda.equalize_frame_cuda, ldpc_cuda.bp_decode_cuda, ldpc_cuda.bp_gather_cuda,
+              llr_cuda.frame_llrs_cuda):
         w.LAUNCHES = 0
     equalizer_cuda.equalize_frame_cuda.TABLE_LAUNCHES = 0
 
@@ -5013,6 +5039,119 @@ def k8_phase(dev, card, gen) -> dict:
             "ledger_calls": calls, "ledger_launches": launches,
             "at": f"the {K8_BANK_CODES}-code coded step's {path['llr'][11.0].shape[0]} codewords of n={code.N} "
                   f"at 11 dB", "step_ms": path["step_ms"], "ms_at": times}
+
+
+class LlrLedger:
+    """K9's launches on the paths.  Once installed, every
+    ``receiver.frame_llrs`` call on a CUDA tensor must launch K9 once with
+    the closed-form tables and not at all in wire-compat table mode (the
+    plain chain), counted from ``llr_cuda.frame_llrs_cuda.LAUNCHES`` just
+    before and just after the call, and is booked under the phase running
+    (``BP.tag``): [closed-form calls, K9 launches, frames, table-mode calls].
+    While ``keep`` is set, the last closed-form call's arguments and output
+    are kept in ``last``."""
+
+    def __init__(self):
+        self.by_tag, self.keep, self.last = {}, False, None
+
+    def install(self) -> None:
+        fn = receiver.frame_llrs
+
+        def call(rxp, soft, cnst, noise_var):
+            n0 = llr_cuda.frame_llrs_cuda.LAUNCHES
+            out = fn(rxp, soft, cnst, noise_var)
+            if soft.is_cuda:
+                table = bool(rxp.tab.table_mode)
+                got = llr_cuda.frame_llrs_cuda.LAUNCHES - n0
+                want = 0 if table else 1
+                check(got == want, f"[{BP.tag}] frame_llrs: {got} K9 launches, expected {want}")
+                row = self.by_tag.setdefault(BP.tag, [0, 0, 0, 0])
+                if table:
+                    row[3] += 1
+                else:
+                    row[0], row[1], row[2] = row[0] + 1, row[1] + got, row[2] + soft.shape[0]
+                    if self.keep:
+                        self.last = (rxp, soft, cnst, noise_var, out)
+            return out
+
+        receiver.frame_llrs = call
+
+
+LLR = LlrLedger()
+
+
+def llr_ring(args: tuple) -> list:
+    """Copies of one call's (soft, cnst int32, noise_var) at their own
+    addresses, over ``bench_llr.RING_BYTES`` of inputs and outputs, so that
+    a timed walk over them is not served from the L2."""
+    rxp, soft, cnst, nv = args[:4]
+    per = llr_cuda.llr_bytes(*soft.shape, rxp.fec.max_frame_bits)
+    n = max(2, -(-int(bench_llr.RING_BYTES) // per))
+    return [(soft.clone(), cnst.int().clone(), nv.clone()) for _ in range(n)]
+
+
+def k9_phase(dev, card, coded: dict) -> dict:
+    """Phase 31.  Returns K9's entry for the ``kernels`` line."""
+    t_phase = time.perf_counter()
+    rxp, rcfg = coded["rxp"], coded["rcfg"]
+    check(not rxp.tab.table_mode, "the coded receiver of phase 6 has the closed-form tables")
+    steps, times = {}, {}
+    for snr, (stream, _) in coded["streams"].items():
+        # the main path: one coded step, the counts set to 0 just before it and read just after
+        LLR.keep, LLR.last = True, None
+        trace.reset()
+        trace.enable()
+        reset_counts()
+        try:
+            out = rx_step(rxp, stream, B_FEC)
+            torch.cuda.synchronize()
+        finally:
+            trace.disable()
+            LLR.keep = False
+        n_k9 = llr_cuda.frame_llrs_cuda.LAUNCHES
+        frames = trace.export()["counters"].get("rx.demap.llr_kernel_frames")
+        trace.reset()
+        check(n_k9 == 1, f"the coded step at {snr:g} dB launched K9 {n_k9} times, not once")
+        check(frames == B_FEC, f"the coded step at {snr:g} dB counted {frames} K9 frames, not {B_FEC}")
+        check(LLR.last is not None and LLR.last[0] is rxp, f"the coded step at {snr:g} dB made no frame_llrs call")
+        _, soft, cnst, nv, used = LLR.last
+        LLR.last = None
+        plain = receiver._frame_llrs_torch(rxp, soft, cnst, nv)
+        direct = llr_cuda.frame_llrs_cuda(soft, cnst.int(), nv, rxp.tab.bps, rxp.fec.max_frame_bits)
+        check(torch.equal(used, plain), f"the coded step at {snr:g} dB: K9's LLRs differ from the plain chain's")
+        check(torch.equal(direct, plain), f"K9 called on the step's inputs at {snr:g} dB differs from the plain chain")
+        ids = {int(k): int(v) for k, v in zip(*torch.unique(cnst.cpu(), return_counts=True))}
+        steps[snr] = {"launches": n_k9, "frames_counted": frames, "frames": soft.shape[0], "symbols": soft.shape[1],
+                      "max_frame_bits": rxp.fec.max_frame_bits, "ids": ids, "crc_ok": int(out.crc_ok.sum())}
+        print(f"[k9] coded step at {snr:g} dB, B={B_FEC}: K9 launches {n_k9}, rx.demap.llr_kernel_frames {frames}; "
+              f"frame_llrs' inputs as the step handed them: soft {tuple(soft.shape)} {soft.dtype}, cnst {cnst.dtype} "
+              f"(frames by id {ids}), noise_var {nv.dtype}; the step's LLRs [{used.shape[0]}, {used.shape[1]}] and "
+              f"K9 called directly torch.equal to _frame_llrs_torch on the same card tensors ({card})", flush=True)
+        times[snr] = bench_llr.timed(f"the coded step's inputs at {snr:g} dB", llr_ring((rxp, soft, cnst, nv)),
+                                     rxp, "the step's")
+        del soft, cnst, nv, used, plain, direct, out
+    cell = bench_llr.measure("the coded cell's shape, b32k/qpsk", *bench_llr.SHAPES["b32k/qpsk"], dev)
+
+    print("[k9] K9 a phase (closed-form calls / K9 launches / frames / table-mode calls): "
+          + ", ".join(f"{k} {c} / {n} / {f} / {t}" for k, (c, n, f, t) in LLR.by_tag.items()), flush=True)
+    for tag in ("6-7 coded batch", "31 K9"):
+        check(LLR.by_tag.get(tag, [0, 0, 0, 0])[1] > 0, f"phase {tag} launched no K9")
+    calls = sum(r[0] for r in LLR.by_tag.values())
+    launches = sum(r[1] for r in LLR.by_tag.values())
+    check(launches == calls, f"the paths made {calls} closed-form frame_llrs calls and {launches} K9 launches")
+    print(f"[k9] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    main = times[11.0]
+    return {"name": "soft_demap", "route": "cuda", "source": "gr_dtl_tpu_torch/csrc/soft_demap.cu",
+            # no TPU kernel: the JAX package leaves the LLRs and their serialisation to XLA
+            "replaces": "gr_dtl_tpu_torch/models/receiver.py::_frame_llrs_torch",
+            "launches": sum(v["launches"] for v in steps.values()),
+            # a step: a coded receive step at B=1024 (its one frame_llrs call)
+            "launches_per_step": sum(v["launches"] for v in steps.values()) / len(steps),
+            "max_abs_err": 0.0, "rows_compared": sum(v["frames"] for v in steps.values()),
+            "ms": median(main["kernel_events_ms"]), "ms_by": "events", "device_ms": main["kernel_device_ms"],
+            "plain_ms": median(main["plain_events_ms"]), "bound_ms": main["floor_ms"], "bound_by": "bytes",
+            "library_ms": None, "at": f"the coded step's {B_FEC} QPSK frames at 11 dB",
+            "ledger_calls": calls, "ledger_launches": launches, "steps": steps, "ms_at": times, "cell_shape": cell}
 
 
 def meshmod_cpu():

@@ -8,8 +8,10 @@ of gr_dtl_tpu/models/receiver.py).
   ``eq_passes`` passes of (BPSK header equalize + CRC16 parse, payload
   equalize) with data-aided re-estimation between passes, then either
   hard demap, repack, CRC32 (uncoded) or, with ``cfg.fec``, soft LLRs
-  serialised into the frame bit stream and the LDPC transport-block
-  decode of ``models/fec_chain``.
+  serialised into the frame bit stream (:func:`frame_llrs`: on a GPU with
+  the closed-form tables one launch of the hand-written kernel K9,
+  ``csrc/soft_demap.cu``; on the CPU and in wire-compat table mode the
+  plain chain) and the LDPC transport-block decode of ``models/fec_chain``.
 
 ``rx_frames`` runs as three stages, :func:`demodulate`,
 :func:`equalize_passes` and :func:`demap_and_verify`, which a profiler
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 
 from gr_dtl_tpu_torch.models import fec_chain, framing
 from gr_dtl_tpu_torch.ops import chanest, constellation as cn
-from gr_dtl_tpu_torch.ops import equalizer, gf2, header, ofdm, repack, scramble, sync
+from gr_dtl_tpu_torch.ops import equalizer, gf2, header, llr_cuda, ofdm, repack, scramble, sync
 from gr_dtl_tpu_torch.utils import config as cfgmod
 from gr_dtl_tpu_torch.utils import trace
 
@@ -205,8 +207,25 @@ def frame_llrs(rxp: RxParams, soft: torch.Tensor, cnst: torch.Tensor,
                noise_var: torch.Tensor) -> torch.Tensor:
     """FEC stage 3a: max-log LLRs of the [B, S] payload symbols, serialised
     into the frame bit stream [B, max_frame_bits] (symbol s holds bits
-    s*bps .. s*bps+bps-1; zeros beyond S*bps).  Four static-k reshapes and
-    a per-frame select."""
+    s*bps .. s*bps+bps-1; zeros beyond S*bps).
+
+    On CUDA tensors with the closed-form tables this is one launch of K9
+    (``ops/llr_cuda.frame_llrs_cuda``, bit-equal to the plain chain on the
+    card), counted in the trace counter ``rx.demap.llr_kernel_frames``.  CPU
+    tensors and wire-compat table mode (``rxp.tab.table_mode``, whose
+    LLRs are the table reduction ``soft_llrs_table``) take
+    :func:`_frame_llrs_torch`."""
+    if soft.device.type == "cuda" and not rxp.tab.table_mode:
+        llrs = llr_cuda.frame_llrs_cuda(soft, cnst.int(), noise_var, rxp.tab.bps, rxp.fec.max_frame_bits)
+        trace.count("rx.demap.llr_kernel_frames", soft.shape[0])
+        return llrs
+    return _frame_llrs_torch(rxp, soft, cnst, noise_var)
+
+
+def _frame_llrs_torch(rxp: RxParams, soft: torch.Tensor, cnst: torch.Tensor,
+                      noise_var: torch.Tensor) -> torch.Tensor:
+    """:func:`frame_llrs` in plain PyTorch, on any device: ``soft_llrs``,
+    then four static-k reshapes and a per-frame select."""
     B, S = soft.shape
     llr_bits = cn.soft_llrs(soft, cnst[:, None], noise_var[:, None], rxp.tab)  # [B, S, 4]
     bps = rxp.tab.bps[cnst.long()]

@@ -13,14 +13,19 @@ ms a call, with every window kept.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import itertools
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 
 __all__ = ["sync", "window_ms", "measure", "interleaved", "describe", "smi", "device_label", "WARM_MS", "MARK",
-           "profiled_windows"]
+           "profiled_windows", "event_ms", "kernel_device_ms", "launching", "written", "variant_source",
+           "variant_library"]
 
 
 def sync(dev) -> None:
@@ -77,6 +82,75 @@ def profiled_windows(fn, reps: int):
         dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
         marks = [e.time_range.start for e in dev if MARK in e.name]
         yield [e for e in dev if marks and e.time_range.start > max(marks)]
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean ms a call of ``fn(i)`` over ``reps`` back-to-back calls (i = 0,
+    1, ...: fn picks its inputs), by CUDA events, after one warm call."""
+    fn(0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, reps: int, kernel: str):
+    """Mean device duration (ms) of the launches of ``kernel`` over ``reps``
+    calls of ``fn(i)``, i walking on, in a window of
+    :func:`profiled_windows`; None if four windows saw none."""
+    i = itertools.count()
+    for events in profiled_windows(lambda: fn(next(i)), reps):
+        found = [e.time_range.elapsed_us() for e in events if kernel in e.name]
+        if found:
+            return sum(found) / len(found) / 1e3
+    return None
+
+
+@contextlib.contextmanager
+def launching(wrapper_module, lib):
+    """``wrapper_module``'s wrappers (``ops/*_cuda.py``, which launch through
+    their module's ``build()``) launching the kernels of ``lib``, another
+    build of their source, until the block ends."""
+    saved = wrapper_module.build
+    wrapper_module.build = lambda: lib
+    try:
+        yield
+    finally:
+        wrapper_module.build = saved
+
+
+def written(source: Path, subs, tag: str) -> str:
+    """The text of ``source`` with each (old, new) of ``subs`` written in, in
+    order (every ``old`` must be there when its turn comes)."""
+    text = Path(source).read_text()
+    for old, new in subs:
+        if old not in text:
+            raise ValueError(f"{tag}: the source no longer holds {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def variant_source(source: Path, subs, stem: str) -> Path:
+    """:func:`written` saved into ``_build/`` beside the libraries, named
+    ``<stem>_<hash of the text>.cu``."""
+    from gr_dtl_tpu_torch.ops import _cuda_build
+    text = written(source, subs, stem)
+    src = _cuda_build.BUILD_DIR / f"{stem}_{hashlib.sha256(text.encode()).hexdigest()[:16]}.cu"
+    _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(text)
+    return src
+
+
+def variant_library(wrapper_module, subs, stem: str):
+    """The library of ``wrapper_module.SOURCE`` with ``subs`` written in,
+    built with the module's flags and bound by its ``bind_launch``."""
+    from gr_dtl_tpu_torch.ops import _cuda_build
+    src = variant_source(wrapper_module.SOURCE, subs, stem)
+    return wrapper_module.bind_launch(_cuda_build.load(src, wrapper_module.NVCC_FLAGS))
 
 
 def measure(fn, dev, iters: int = 8, reps: int = 5, warmup: int = 1) -> dict:

@@ -71,8 +71,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import hashlib
-import itertools
 import json
 import math
 import re
@@ -86,7 +84,8 @@ import torch
 from gr_dtl_tpu_torch.ops import constellation as cn
 from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda
 from gr_dtl_tpu_torch.tools import bench_k3
-from gr_dtl_tpu_torch.tools._timing import profiled_windows, smi
+from gr_dtl_tpu_torch.tools import _timing
+from gr_dtl_tpu_torch.tools._timing import event_ms, kernel_device_ms, smi
 from gr_dtl_tpu_torch.tools.bench_sync_metric import HBM_BYTES_PER_S
 from gr_dtl_tpu_torch.utils import config, wire_compat
 
@@ -219,29 +218,9 @@ def on_device(arrays, cnst, dev):
 
 def profiler_ms(fn, reps: int):
     """Mean device duration (ms) of the equalizer kernel over reps calls of
-    fn(i), i walking on (fn(i) picks its inputs), after ``WARM_MS`` of
-    synchronised calls inside the profiler: only the launches that start
-    after a marker kernel count (``_timing.profiled_windows``).  None if
-    four windows saw none."""
-    i = itertools.count()
-    for events in profiled_windows(lambda: fn(next(i)), reps):
-        found = [e.time_range.elapsed_us() for e in events if KERNEL_NAME in e.name]
-        if found:
-            return sum(found) / len(found) / 1e3
-    return None
-
-
-def event_ms(fn, reps: int) -> float:
-    """Mean ms a call of fn(i) over reps back-to-back calls, by CUDA events."""
-    fn(0)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for i in range(reps):
-        fn(i)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    fn(i), i walking on (fn(i) picks its inputs), in a window of
+    ``_timing.profiled_windows``.  None if four windows saw none."""
+    return kernel_device_ms(fn, reps, KERNEL_NAME)
 
 
 def rows_not_bit_equal(got, want) -> int:
@@ -564,18 +543,6 @@ def time_calls(dev, windows: int = 3, reps: int = 48) -> dict:
 # --same-as: bit for bit against another checkout's kernel
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def launching(lib):
-    """The wrapper launching the kernel of ``lib`` (a library with
-    ``equalizer_launch``, bound by ``equalizer_cuda.bind_launch``)."""
-    saved = equalizer_cuda.build
-    equalizer_cuda.build = lambda: lib
-    try:
-        yield
-    finally:
-        equalizer_cuda.build = saved
-
-
 def same_as(dev, other_source: Path) -> dict:
     """The kernel of this checkout against the one built from
     ``other_source`` (another checkout's csrc/equalizer.cu, the same C
@@ -608,7 +575,7 @@ def same_as(dev, other_source: Path) -> dict:
     for name, (eq, off, arrays) in cases.items():
         args = on_device(arrays, mixed_ids(arrays[0].shape[0]), dev)
         mine = equalizer.equalize_frame(*args, eq, off)
-        with launching(other):
+        with _timing.launching(equalizer_cuda, other):
             theirs = equalizer.equalize_frame(*args, eq, off)
         torch.cuda.synchronize()
         out[name] = rows_differ(mine, theirs)
@@ -640,15 +607,7 @@ VARIANT_SHAPES = [(1, "payload", False), (1024, "payload", False), (2048, "paylo
 def variant_library(name: str):
     """The kernel library of the source with ``VARIANTS[name]`` written in
     (built into ``_build/`` beside the others), bound for the wrapper."""
-    from gr_dtl_tpu_torch.ops import _cuda_build
-    text = equalizer_cuda.SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        check(old in text, f"variant {name!r}: the source no longer holds {old!r}")
-        text = text.replace(old, new)
-    src = _cuda_build.BUILD_DIR / f"equalizer_variant_{hashlib.sha256(text.encode()).hexdigest()[:16]}.cu"
-    _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src.write_text(text)
-    return equalizer_cuda.bind_launch(_cuda_build.load(src, equalizer_cuda.NVCC_FLAGS))
+    return _timing.variant_library(equalizer_cuda, VARIANTS[name], "equalizer_variant")
 
 
 def variants(dev, reps: int = 48) -> dict:
@@ -667,7 +626,7 @@ def variants(dev, reps: int = 48) -> dict:
         key = f"{B}/{call}" + ("/table" if table else "")
         out[key] = {name: [] for name in libs}
         for name in list(libs) + list(libs)[::-1]:
-            with launching(libs[name]):
+            with _timing.launching(equalizer_cuda, libs[name]):
                 got = equalizer.equalize_frame(*ring[0], eq, off)
                 torch.cuda.synchronize()
                 check(rows_not_bit_equal(got, want) == 0, f"variant {name!r} at {key}: not bit-equal")

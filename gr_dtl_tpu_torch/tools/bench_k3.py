@@ -59,7 +59,6 @@ Run on the card:  python3 -m gr_dtl_tpu_torch.tools.bench_k3 [--form k3|gather] 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import hashlib
 import json
@@ -72,6 +71,7 @@ from statistics import median
 import torch
 
 from gr_dtl_tpu_torch.ops import _cuda_build, ldpc, ldpc_cuda
+from gr_dtl_tpu_torch.tools import _timing
 from gr_dtl_tpu_torch.tools._timing import smi
 
 SMS, SCHEDULERS, LANES = 132, 4, 32  # an H100 SXM: SMs, warp schedulers an SM, lanes a warp
@@ -249,7 +249,6 @@ def device_ms(fn, per_call: int = 1, reps: int = 20, kernel: str = "bp_kernel") 
     (:func:`_timing.profiled_windows`): the profiler misses the launches of
     its first milliseconds.  A window that saw no ``kernel`` is taken again,
     warmed for longer, and four such windows raise."""
-    from gr_dtl_tpu_torch.tools import _timing
     for events in _timing.profiled_windows(fn, reps):
         seen = sum(kernel in e.name for e in events)
         if seen:
@@ -265,7 +264,6 @@ def in_turns(fns: dict, reps: int | dict = 20, device: dict | None = None, round
     ``reps`` calls (a number, or one a name).  Device time is taken for the
     names in ``device`` ({name: its launches of ``kernel`` a call}) and for
     no other."""
-    from gr_dtl_tpu_torch.tools import _timing
     device = device or {}
     for fn in fns.values():
         fn()
@@ -494,22 +492,10 @@ def bound_like_build(lib):
     return lib
 
 
-@contextlib.contextmanager
-def launching(lib):
-    """ldpc_cuda's wrappers launching the kernels of ``lib`` (a build of this
-    source or of a variant of it, :func:`bound_like_build`)."""
-    saved = ldpc_cuda.build
-    ldpc_cuda.build = lambda: lib
-    try:
-        yield
-    finally:
-        ldpc_cuda.build = saved
-
-
 def k8_of(lib, llr, src, code_idx, max_iters: int) -> tuple:
     """(hard, iters, ok) of the K8 of ``lib`` on one set, through the
     public ``ldpc.decode`` (a code's set) or ``ldpc.decode_bank`` (a bank's)."""
-    with launching(lib):
+    with _timing.launching(ldpc_cuda, lib):
         if code_idx is None:
             return ldpc.decode(llr, src, max_iters)
         return ldpc.decode_bank(llr, code_idx, src, max_iters)
@@ -569,21 +555,12 @@ def same_as(dev, dump: Path) -> dict:
 def written(subs, tag: str) -> str:
     """This source's text with each (old, new) of ``subs`` written in, in
     order (every ``old`` must be there when its turn comes)."""
-    text = ldpc_cuda.SOURCE.read_text()
-    for old, new in subs:
-        if old not in text:
-            raise ValueError(f"{tag}: the source no longer holds {old!r}")
-        text = text.replace(old, new)
-    return text
+    return _timing.written(ldpc_cuda.SOURCE, subs, tag)
 
 
 def variant_source(subs, tag: str) -> Path:
     """:func:`written` saved into ``_build/`` beside the libraries."""
-    text = written(subs, tag)
-    src = _cuda_build.BUILD_DIR / f"ldpc_bp_{tag}_{hashlib.sha256(text.encode()).hexdigest()[:16]}.cu"
-    _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src.write_text(text)
-    return src
+    return _timing.variant_source(ldpc_cuda.SOURCE, subs, f"ldpc_bp_{tag}")
 
 
 def variant_library(subs, tag: str):
@@ -805,7 +782,7 @@ def variants(dev, reps: int = 20) -> dict:
         want = k8_of(libs["as built"], x, src, idx, max_iters)
 
         def call(lib):
-            with launching(lib):
+            with _timing.launching(ldpc_cuda, lib):
                 return ldpc._decode_gather(x, src, max_iters, idx)
 
         out[key] = {name: [] for name in libs}

@@ -40,6 +40,8 @@ assert tb_cuda.tb_reassemble_cuda.LAUNCHES == 0 and sync_cuda.timing_metric_cuda
 assert equalizer_cuda.equalize_frame_cuda.LAUNCHES == 0  # nor does the equalizer
 assert ldpc_cuda.bp_decode_cuda.LAUNCHES == 0  # nor BP (its plain version, _bp)
 assert ldpc_cuda.bp_gather_cuda.LAUNCHES == 0  # nor the gather form's (K8)
+from gr_dtl_tpu_torch.ops import llr_cuda
+assert llr_cuda.frame_llrs_cuda.LAUNCHES == 0  # nor the coded demap's LLRs (K9)
 # the telemetry (capture mode needs no pyzmq) and the wire-compat tables
 from gr_dtl_tpu_torch.testbed import monitor
 from gr_dtl_tpu_torch.utils import wire_compat
