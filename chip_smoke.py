@@ -359,6 +359,22 @@ demap's LLRs in one launch:
    closed-form call, every coded phase on the card).  The kernels line's
    tenth entry is K9's.
 
+And K10 (``codewords_kernel`` of csrc/codewords.cu), the codeword LLRs of
+the FEC decode in one launch:
+
+32. K10: the coded receive step of phase 6 at B=1024 QPSK frames, 25 and
+   11 dB, and ``decode_emitted`` over the stream cell's block (32,768 rows
+   of 2 frames on the ladder of ``tools/bench_cw.py``) and
+   ``fec_frame_decode`` over the batch cell's (32,768 QPSK frames), the
+   counts set to 0 just before each decode and read just after (one K10
+   launch, ``fec.decode.cw_kernel_groups`` G in the recorder); the
+   codewords of each call, as K10 wrote them, bit-equal to
+   ``_extract_torch`` on the same card tensors; K10 and the plain chain
+   timed in turns at both cells' shapes (``tools/bench_cw.py``: events,
+   and K10's device time by the profiler over a ring, beside the byte floor
+   at 3.35 TB/s); the K10 launches a phase (one a decode call on the card,
+   every coded phase).  The kernels line's eleventh entry is K10's.
+
 Run from the repo root, with one CUDA device:  python3 chip_smoke.py
 The last line of standard output is {"ok": true, "device": {...}}; any
 failure exits non-zero before it.
@@ -383,12 +399,12 @@ from gr_dtl_tpu_torch.models import adaptive, fec_chain, full_duplex, receiver, 
 from gr_dtl_tpu_torch.models import streaming, transmitter
 from gr_dtl_tpu_torch.ops import _cuda_build, burst, channel, constellation as cn, ldpc, metrics
 from gr_dtl_tpu_torch.ops import equalizer, equalizer_cuda, feedback_cuda, ldpc_cuda, scans_cuda, sync
-from gr_dtl_tpu_torch.ops import llr_cuda, sync_cuda, tb_cuda
+from gr_dtl_tpu_torch.ops import cw_cuda, llr_cuda, sync_cuda, tb_cuda
 from gr_dtl_tpu_torch.testbed import monitor, phy_converge
 from gr_dtl_tpu_torch.tools import _ldpc_bench, _timing
 from gr_dtl_tpu_torch.tools import bench_equalizer as eq_bench
 from gr_dtl_tpu_torch.tools import bench_feedback_scan as k7_bench
-from gr_dtl_tpu_torch.tools import bench_k3, bench_llr
+from gr_dtl_tpu_torch.tools import bench_cw, bench_k3, bench_llr
 from gr_dtl_tpu_torch.tools import bench_sync_metric as metric_bench
 from gr_dtl_tpu_torch.utils import alist, config as cfgmod, trace, wire_compat
 
@@ -484,17 +500,18 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc each, side by side
     _cuda_build.build_all(sync_cuda.build, scans_cuda.build, tb_cuda.build, equalizer_cuda.build,
-                          feedback_cuda.build, ldpc_cuda.build, llr_cuda.build, k7_bench.build_bench,
-                          phy_converge.build)
+                          feedback_cuda.build, ldpc_cuda.build, llr_cuda.build, cw_cuda.build,
+                          k7_bench.build_bench, phy_converge.build)
     print(f"[build] csrc/sync_metric.cu -> {sync_cuda.library_path().name}, csrc/stream_scans.cu "
           f"-> {scans_cuda.library_path().name}, csrc/tb_ring.cu -> {tb_cuda.library_path().name}, "
           f"csrc/equalizer.cu -> {equalizer_cuda.library_path().name}, csrc/feedback_scan.cu -> "
           f"{feedback_cuda.library_path().name}, csrc/ldpc_bp.cu -> {ldpc_cuda.library_path().name}, "
-          f"csrc/soft_demap.cu -> {llr_cuda.library_path().name}, native/phy_converge.cpp (g++) -> "
+          f"csrc/soft_demap.cu -> {llr_cuda.library_path().name}, csrc/codewords.cu -> "
+          f"{cw_cuda.library_path().name}, native/phy_converge.cpp (g++) -> "
           f"{phy_converge.library_path().name} in {time.perf_counter() - t0:.2f} s")
     for lib in (sync_cuda.library_path(), scans_cuda.library_path(), tb_cuda.library_path(),
                 equalizer_cuda.library_path(), feedback_cuda.library_path(), ldpc_cuda.library_path(),
-                llr_cuda.library_path()):
+                llr_cuda.library_path(), cw_cuda.library_path()):
         log = lib.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
             if line.strip():
@@ -503,6 +520,7 @@ def main() -> int:
     BP.install()  # every BP call of every phase from here on is held to its K3 launches
     GATHER.install()  # and every gather-form call to its K8 launch
     LLR.install()  # and every closed-form frame_llrs call on the card to its K9 launch
+    CW.install()  # and every codeword extraction on the card to its K10 launch
 
     cfg = cfgmod.make_rx_config(None, frame_length=FRAME_LENGTH)
     tcfg = cfgmod.make_tx_config(None, frame_length=FRAME_LENGTH)
@@ -692,6 +710,9 @@ def main() -> int:
     # ---- 31. slice L: K9 ----
     BP.tag = "31 K9"
     k9_entry = k9_phase(dev, card, bp_paths)
+    # ---- 32. K10 ----
+    BP.tag = "32 K10"
+    k10_entry = k10_phase(dev, card, bp_paths)
     k7_entry.update(launches=K7.launches, launches_per_step=K7.launches / K7.calls, max_abs_err=K7.max_err)
     eq_entry = time_equalizer(dev, card)
     print(card)
@@ -707,7 +728,7 @@ def main() -> int:
         "ms": timed["kernel_ms"], "ms_by": timed["kernel_ms_by"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
         "bound_by": "bytes", "library_ms": None}] + scan_kernels + [tb_kernel, eq_entry, wire_entry,
                                                                     k7_entry, k3_entry, k8_entry,
-                                                                    k9_entry]}))
+                                                                    k9_entry, k10_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -1372,7 +1393,7 @@ def reset_counts() -> None:
     for w in (sync_cuda.timing_metric_cuda, scans_cuda.trigger_lock_scan_cuda,
               scans_cuda.frame_accounting_cuda, tb_cuda.tb_reassemble_cuda,
               equalizer_cuda.equalize_frame_cuda, ldpc_cuda.bp_decode_cuda, ldpc_cuda.bp_gather_cuda,
-              llr_cuda.frame_llrs_cuda):
+              llr_cuda.frame_llrs_cuda, cw_cuda.codewords_cuda):
         w.LAUNCHES = 0
     equalizer_cuda.equalize_frame_cuda.TABLE_LAUNCHES = 0
 
@@ -5172,6 +5193,122 @@ def k9_phase(dev, card, coded: dict) -> dict:
             "plain_ms": median(main["plain_events_ms"]), "bound_ms": main["floor_ms"], "bound_by": "bytes",
             "library_ms": None, "at": f"the coded step's {B_FEC} QPSK frames at 11 dB",
             "ledger_calls": calls, "ledger_launches": launches, "steps": steps, "ms_at": times, "cell_shape": cell}
+
+
+class CwLedger:
+    """K10's launches on the paths.  Once installed, every codeword
+    extraction (``fec_chain._extract``) on a CUDA tensor must launch K10
+    once, counted from ``cw_cuda.codewords_cuda.LAUNCHES`` just before and
+    just after the call, and is booked under the phase running
+    (``BP.tag``): [calls, K10 launches, groups].  While ``keep`` is set,
+    each call's arguments and output are kept in ``kept``."""
+
+    def __init__(self):
+        self.by_tag, self.keep, self.kept = {}, False, []
+
+    def install(self) -> None:
+        fn = fec_chain._extract
+
+        def call(fec, llrs, bps, s):
+            n0 = cw_cuda.codewords_cuda.LAUNCHES
+            out = fn(fec, llrs, bps, s)
+            if llrs.is_cuda:
+                got = cw_cuda.codewords_cuda.LAUNCHES - n0
+                check(got == 1, f"[{BP.tag}] codeword extraction: {got} K10 launches, expected 1")
+                row = self.by_tag.setdefault(BP.tag, [0, 0, 0])
+                row[0], row[1], row[2] = row[0] + 1, row[1] + got, row[2] + out.shape[0]
+                if self.keep:
+                    self.kept.append((fec, llrs, bps, s, out))
+            return out
+
+        fec_chain._extract = call
+
+
+CW = CwLedger()
+
+
+def k10_held(what: str, decode, G: int, card: str) -> dict:
+    """One decode call (``decode()``) with the counts set to 0 just before
+    it and read just after: one K10 launch, ``fec.decode.cw_kernel_groups``
+    G, and the codewords K10 wrote bit-equal to ``_extract_torch`` on the
+    same card tensors.  Returns what was seen."""
+    CW.keep, CW.kept = True, []
+    trace.reset()
+    trace.enable()
+    reset_counts()
+    try:
+        out = decode()
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+        CW.keep = False
+    n = cw_cuda.codewords_cuda.LAUNCHES
+    groups = trace.export()["counters"].get("fec.decode.cw_kernel_groups")
+    trace.reset()
+    check(n == 1 and len(CW.kept) == 1, f"{what}: {n} K10 launches in {len(CW.kept)} extractions, not one")
+    check(groups == G, f"{what}: fec.decode.cw_kernel_groups {groups}, not {G}")
+    fec, llrs, bps, s, used = CW.kept.pop()
+    plain = fec_chain._extract_torch(fec, llrs, bps, s)
+    torch.cuda.synchronize()
+    check(used.shape == plain.shape and torch.equal(used.view(torch.int32), plain.view(torch.int32)),
+          f"{what}: K10's codewords differ from the plain chain's")
+    ids = {int(k): int(v) for k, v in zip(*torch.unique(bps.cpu(), return_counts=True))}
+    print(f"[k10] {what}: K10 launches {n}, fec.decode.cw_kernel_groups {groups}; the codewords "
+          f"{tuple(used.shape)} from rows {tuple(llrs.shape)} (W = {fec.W}, groups by bits a symbol {ids}) "
+          f"bit-equal to _extract_torch on the same card tensors ({card})", flush=True)
+    return {"launches": n, "groups_counted": groups, "groups": G, "W": fec.W, "rows": llrs.shape[0],
+            "bps": ids, "crc_ok": int(out.crc_ok.sum())}
+
+
+def k10_phase(dev, card, coded: dict) -> dict:
+    """Phase 32.  Returns K10's entry for the ``kernels`` line."""
+    t_phase = time.perf_counter()
+    rxp = coded["rxp"]
+    steps = {}
+    for snr, (stream, _) in coded["streams"].items():
+        steps[f"coded step at {snr:g} dB"] = k10_held(f"the coded step at {snr:g} dB, B={B_FEC}",
+                                                      lambda: rx_step(rxp, stream, B_FEC), B_FEC, card)
+    # the stream cell's block: decode_emitted over 32,768 rows of 2 frames on the ladder
+    G = bench_cw.SHAPES["stream/ladder"][0]
+    fec2 = bench_cw.fec_params(2, str(dev))
+    llrs, cnst = bench_cw.inputs(G, 2, "ladder", SEED + 32, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    c = cnst[::2]
+    emitted = {"llrs": llrs.reshape(G, 2, -1), "cnst": c, "plen": fec2.tb_payload_t[1, cn.active(dev).bps[c.long()]],
+               "fec_id": torch.ones_like(c), "tb_no": torch.arange(G, dtype=torch.int32, device=dev),
+               "valid": torch.rand(G, generator=gen, device=dev) < 0.5}
+    steps["stream block"] = k10_held(f"decode_emitted over the stream cell's block, {G} rows",
+                                     lambda: fec_chain.decode_emitted(fec2, emitted), G, card)
+    del emitted, llrs, cnst
+    # the batch cell's step: fec_frame_decode over 32,768 QPSK frames
+    fec1 = bench_cw.fec_params(1, str(dev))
+    llrs, cnst = bench_cw.inputs(G, 1, "qpsk", SEED + 33, dev)
+    steps["batch step"] = k10_held(f"fec_frame_decode over the batch cell's {G} QPSK frames",
+                                   lambda: fec_chain.fec_frame_decode(fec1, llrs, cnst), G, card)
+    del llrs, cnst
+    times = {name: bench_cw.measure(f"the {name} shape", *bench_cw.SHAPES[name], dev)
+             for name in ("stream/ladder", "batch/qpsk")}
+
+    print("[k10] K10 a phase (extractions / K10 launches / groups): "
+          + ", ".join(f"{k} {c} / {n} / {g}" for k, (c, n, g) in CW.by_tag.items()), flush=True)
+    for tag in ("6-7 coded batch", "32 K10"):
+        check(CW.by_tag.get(tag, [0, 0, 0])[1] > 0, f"phase {tag} launched no K10")
+    calls = sum(r[0] for r in CW.by_tag.values())
+    launches = sum(r[1] for r in CW.by_tag.values())
+    check(launches == calls, f"the paths made {calls} codeword extractions on the card and {launches} K10 launches")
+    print(f"[k10] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    main = times["stream/ladder"]
+    return {"name": "codewords", "route": "cuda", "source": "gr_dtl_tpu_torch/csrc/codewords.cu",
+            # no TPU kernel: the JAX package leaves the codeword gather to XLA
+            "replaces": "gr_dtl_tpu_torch/models/fec_chain.py::_extract_torch",
+            "launches": sum(v["launches"] for v in steps.values()),
+            # a step: one decode call (its one extraction)
+            "launches_per_step": sum(v["launches"] for v in steps.values()) / len(steps),
+            "max_abs_err": 0.0, "groups_compared": sum(v["groups"] for v in steps.values()),
+            "ms": median(main["kernel_events_ms"]), "ms_by": "events", "device_ms": main["kernel_device_ms"],
+            "plain_ms": median(main["plain_events_ms"]), "bound_ms": main["floor_ms"], "bound_by": "bytes",
+            "library_ms": None, "at": f"the stream cell's block, {G} groups of 2 frames on the ladder",
+            "ledger_calls": calls, "ledger_launches": launches, "steps": steps, "ms_at": times}
 
 
 def meshmod_cpu():

@@ -25,6 +25,9 @@ the payload with one scatter.  A single code is a bank of one, where
 that layout is the code's own ``[m | k]``.  (The reference's single-code
 path uses ``max_ncws`` static slices per bps and a select instead, a
 TPU gather-avoidance giving the same values for constellations 1..4.)
+On a GPU the extraction, group streams included, is one CUDA kernel
+(``csrc/codewords.cu``, K10) whatever W and the bank; on the CPU the
+plain gather.
 
 :func:`tb_reassemble` (streaming reassembly keyed by the header's TB
 number and offset) is the reference's ``lax.scan``, exact, for one ring
@@ -44,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from gr_dtl_tpu_torch.ops import constellation as cn
-from gr_dtl_tpu_torch.ops import gf2, ldpc, repack, tb_cuda
+from gr_dtl_tpu_torch.ops import cw_cuda, gf2, ldpc, repack, tb_cuda
 from gr_dtl_tpu_torch.utils import config as cfgmod
 from gr_dtl_tpu_torch.utils import trace
 
@@ -313,12 +316,13 @@ def fec_frame_build(fec: FecParams, payload: torch.Tensor, payload_len: torch.Te
     return frame_bits.reshape(G * W, maxF), actual_tb.repeat_interleave(W)
 
 
-def _group_llrs(fec: FecParams, llrs: torch.Tensor, cnst_id: torch.Tensor):
-    """W > 1: the group LLR streams of W consecutive frames [G, maxG]."""
+def _group_llrs(fec: FecParams, llrs: torch.Tensor, bps: torch.Tensor):
+    """W > 1: the group LLR streams of W consecutive frames [G, maxG] (bps:
+    each group's bits a symbol)."""
     W = fec.W
     G = llrs.shape[0] // W
     maxF = llrs.shape[1]
-    fb = fec.frame_bits_t[_bps(cnst_id[::W])].long()
+    fb = fec.frame_bits_t[bps].long()
     y = torch.arange(fec.max_group_bits, device=llrs.device)[None, :]
     f = torch.clamp(y // torch.clamp(fb[:, None], min=1), 0, W - 1)
     x = y - f * fb[:, None]
@@ -327,24 +331,13 @@ def _group_llrs(fec: FecParams, llrs: torch.Tensor, cnst_id: torch.Tensor):
     return torch.where(y < W * fb[:, None], group, 0.0)
 
 
-def _codewords(fec: FecParams, llrs, cnst_id, tb_payload_len, fec_id):
-    """Group regrouping, schedule and codeword extraction: (cw_llrs [G,
-    Cmax, Nmax], schedule, group-level tb_payload_len and fec_id)."""
-    W = fec.W
-    B = llrs.shape[0]
-    if llrs.shape[1] != fec.max_frame_bits:
-        raise ValueError(f"llrs must be [B, {fec.max_frame_bits}], got {tuple(llrs.shape)}")
-    if B % W:
-        raise ValueError(f"batch {B} is not a multiple of tb_frames {W}")
-    if W > 1:
-        llrs = _group_llrs(fec, llrs, cnst_id)
-        cnst_id = cnst_id[::W]
-        if fec_id is not None:
-            fec_id = fec_id[::W]
-        if tb_payload_len is not None:
-            tb_payload_len = tb_payload_len[::W]
+def _extract_torch(fec: FecParams, llrs: torch.Tensor, bps: torch.Tensor, s: _Schedule) -> torch.Tensor:
+    """The codeword LLRs [G, Cmax, Nmax] of the frames' LLR rows [G W,
+    max_frame_bits] in plain PyTorch, on any device: the group streams
+    (W > 1), then one gather of every padded slot and the pin."""
+    if fec.W > 1:
+        llrs = _group_llrs(fec, llrs, bps)
     G = llrs.shape[0]
-    s = _cw_schedule(fec, _bps(cnst_id), fec_id)
     # padded slot p maps to frame bit cw_start + p (parity, sent iff
     # p < m_b) or cw_start + m_b + (p - Mmax) (systematic, sent iff
     # p - Mmax < k'); everything unsent, dummy codewords included, is
@@ -358,7 +351,40 @@ def _codewords(fec: FecParams, llrs, cnst_id, tb_payload_len, fec_id):
     off = s.cw_start[:, :, None] + torch.where(is_par, p, m_b + tsys)
     pos = torch.clamp(off, 0, llrs.shape[1] - 1)
     cw = torch.gather(llrs.float(), 1, pos.reshape(G, -1)).reshape(G, fec.max_ncws, bank.Nmax)
-    return torch.where(sent, cw, ldpc.SHORTENED_LLR), s, tb_payload_len, fec_id
+    return torch.where(sent, cw, ldpc.SHORTENED_LLR)
+
+
+def _extract(fec: FecParams, llrs: torch.Tensor, bps: torch.Tensor, s: _Schedule) -> torch.Tensor:
+    """:func:`_extract_torch`'s codeword LLRs: on CUDA tensors one launch of
+    K10 (``ops/cw_cuda.codewords_cuda``, bit-equal to the plain chain on
+    the card), counted in the trace counter ``fec.decode.cw_kernel_groups``;
+    CPU tensors take the plain chain."""
+    if llrs.device.type == "cuda":
+        cw = cw_cuda.codewords_cuda(llrs, fec.W, bps, fec.frame_bits_t, s.m, s.k_prime, s.cw_start, s.real,
+                                    fec.bank.Mmax, fec.bank.Nmax, ldpc.SHORTENED_LLR)
+        trace.count("fec.decode.cw_kernel_groups", cw.shape[0])
+        return cw
+    return _extract_torch(fec, llrs, bps, s)
+
+
+def _codewords(fec: FecParams, llrs, cnst_id, tb_payload_len, fec_id):
+    """Group regrouping, schedule and codeword extraction: (cw_llrs [G,
+    Cmax, Nmax], schedule, group-level tb_payload_len and fec_id)."""
+    W = fec.W
+    B = llrs.shape[0]
+    if llrs.shape[1] != fec.max_frame_bits:
+        raise ValueError(f"llrs must be [B, {fec.max_frame_bits}], got {tuple(llrs.shape)}")
+    if B % W:
+        raise ValueError(f"batch {B} is not a multiple of tb_frames {W}")
+    if W > 1:
+        cnst_id = cnst_id[::W]
+        if fec_id is not None:
+            fec_id = fec_id[::W]
+        if tb_payload_len is not None:
+            tb_payload_len = tb_payload_len[::W]
+    bps = _bps(cnst_id)
+    s = _cw_schedule(fec, bps, fec_id)
+    return _extract(fec, llrs, bps, s), s, tb_payload_len, fec_id
 
 
 def codeword_llrs(fec: FecParams, llrs: torch.Tensor, cnst_id: torch.Tensor,
@@ -394,8 +420,10 @@ def fec_frame_decode(fec: FecParams, llrs: torch.Tensor, cnst_id: torch.Tensor,
     Spans (``utils/trace``): ``fec.decode`` with ``fec.decode.codewords``,
     ``fec.decode.bp`` (the BP kernel's call) and ``fec.decode.reassemble``
     inside; counters ``fec.codeword_slots`` (decoded slots),
-    ``fec.codewords`` (the real codewords among them) and
-    ``fec.bp_updates`` (the message updates BP took on the real ones).
+    ``fec.codewords`` (the real codewords among them),
+    ``fec.bp_updates`` (the message updates BP took on the real ones) and,
+    on the card, ``fec.decode.cw_kernel_groups`` (the groups whose
+    codewords K10 extracted).
     """
     with trace.span("fec.decode.codewords"):
         cw, s, tb_payload_len, fec_id = _codewords(fec, llrs, cnst_id, tb_payload_len, fec_id)
